@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths (``espresso_tpu_torch``) at the
-flagship Conformer-Transducer's full width and checks its five Hopper
-kernels:
+Drives the port's two serving paths and its train path
+(``espresso_tpu_torch``) at the flagship Conformer-Transducer's full width
+and checks its nine Hopper kernels:
 
 1. requires a CUDA card of capability (9, 0); builds every kernel from
    ``espresso_tpu_torch/csrc`` with nvcc (sm_90a), one nvcc process per
@@ -13,8 +13,12 @@ kernels:
    flagship shapes and at edge shapes (``rel_attention`` in bf16 with
    ragged key masks; ``fused_joint_topk`` at V=1024 and V=5003, with eos
    folding and an LM label bias; ``lstm_step_reorder``; ``aes_merge`` with
-   dead slots and duplicate hashes; ``aes_backtrace``), and times kernel
-   and plain version at the flagship shape;
+   dead slots and duplicate hashes; ``aes_backtrace``; the train kernels
+   ``rel_attention_train_fwd``/``_bwd`` at B=16, T'=256 and odd or short
+   shapes with ragged key masks, at dropout 0 and 0.1 with one seed;
+   ``rnnt_joint_lp``/``_bwd`` at B=16, T'=256, U1=101, J=512, V=1024 and
+   V=5003 with the blank in a later tile and ragged lengths), and times
+   kernel and plain version at the flagship shape;
 3. builds the flagship model (16 conformer layers, d=512, ffn 2048, 8 heads,
    depthwise kernel 31, relative positions, batch norm; 2x512 LSTM
    prediction net, joint 512, V=1024) from a seeded init in bf16, and
@@ -28,11 +32,21 @@ kernels:
    vocab, within the length cap); the encoder output on a sub-batch against
    the plain attention; and the beam decode of an 8-utterance sub-batch
    with the joint peaked x6 through the kernels against the same decode
-   through the plain versions.
+   through the plain versions;
+5. trains the flagship from a seeded init at ``bench_train.py``'s point
+   (B=16 utterances of 1024 frames, U=100, dropout 0.1, bf16 compute on
+   fp32 masters, adam at a fixed lr of 1e-3, clip 2.0): one warm-up step,
+   then 10 steps on one batch with every kernel's count set to 0 just
+   before, asserting 16 launches of each attention kernel and one of each
+   joint kernel per step, finite losses, no skipped update and a falling
+   loss; profiles one step; and holds one step of a 2-utterance sub-batch
+   at dropout 0 through the kernels against the same step through the
+   plain versions.
 
-Any failure raises (nonzero exit) before the result lines. Prints, as its
-last three lines, the kernel summary JSON, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``. Exits nonzero without a result when
+Any failure raises (nonzero exit) before the result lines. Prints the
+serving and ``{"train": ...}`` JSON lines, then, as its last three lines,
+the kernel summary JSON, the card's name and power limit, and
+``{"ok": true, "device": {...}}``. Exits nonzero without a result when
 no CUDA card is present.
 """
 
@@ -42,6 +56,7 @@ import contextlib
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -71,6 +86,33 @@ ENCODER_ATOL = 0.25
 # themselves; 1 % bounds that drift, while a wrong kernel moves the
 # log-probs by their own size
 BEAM_SCORE_RTOL = 0.01
+# the train path: bench_train.py:59-140's operating point
+TRAIN = dict(B=16, T_FRAMES=1024, U=100, STEPS=10, DROPOUT=0.1)
+ATTN_TRAIN_SHAPES = [(16, 256), (3, 2), (3, 37)]  # (B, T') at H=8, d=64
+# (B, T', U, V, blank): the flagship, V=5003 with the blank in the third
+# 64-column tile, and a small ragged edge
+RNNT_SHAPES = [(16, 256, 100, 1024, 0), (16, 256, 100, 5003, 131), (3, 37, 9, 5003, 4999)]
+# one train step of a 2-utterance sub-batch at dropout 0, kernels vs plain
+# versions: both round every bf16 activation at the same points but sum in
+# other orders, and a rounding flip in one of 16 layers moves the loss by
+# bf16 noise, ~1e-3 relative; 1 % bounds that, while a wrong kernel moves
+# the loss and the gradient by their own size. Each parameter's gradient is
+# held on its own, except those that are 0 in exact arithmetic and hold
+# rounding noise only: the biases that feed a batch norm (the frontend's
+# convolutions, the depthwise convolutions) and the key bias, which adds a
+# constant to each row of scores under the softmax. Two measures per leaf:
+# ||g - g_plain|| / ||g_plain||, and the share of g_plain that g is off along
+# g_plain, |<g - g_plain, g_plain>| / ||g_plain||^2, which rounding noise
+# barely moves and a wrong scale moves by all of its error. On an H100 the
+# sound kernels read at most 0.087 and 0.013 over the 593 leaves (median
+# 0.005); dp, dq_v or g_b made 10 % too small read 0.10-0.11 on the second
+# measure, and dp rolled by one position 0.27 on the first. The bounds sit
+# at about twice and three times the sound readings.
+TRAIN_LOSS_RTOL = 0.01
+TRAIN_GNORM_RTOL = 0.05
+TRAIN_LEAF_GRAD_REL = 0.2
+TRAIN_LEAF_SCALE = 0.04
+TRAIN_ZERO_GRAD = re.compile(r"(conv\.convs\.\d+|depthwise_conv|self_attn\.k_proj)\.bias$")
 # the card's published peaks (H100 SXM data sheet, dense): bf16 tensor
 # cores, fp32 outside them, device memory
 PEAK_BF16 = 989e12
@@ -88,10 +130,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout
     return out.strip().splitlines()[0]
-
-
-def bf16_ulp(x: float) -> float:
-    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 2.0 ** -133
 
 
 def bound(n_bytes: float, flops: float, peak_flops: float):
@@ -155,9 +193,9 @@ def time_pair(name: str, kernel_fn, plain_fn, kernel: str, plain_calls: int = 10
 
 
 def build_kernels() -> str:
-    from espresso_tpu_torch.ops import attention_kernels, cuda_build, decode_kernels
+    from espresso_tpu_torch.ops import attention_kernels, cuda_build, decode_kernels, rnnt_kernels
 
-    libs = {**attention_kernels.LIBRARIES, **decode_kernels.LIBRARIES}
+    libs = {**attention_kernels.LIBRARIES, **decode_kernels.LIBRARIES, **rnnt_kernels.LIBRARIES}
     cuda_build.build_many(libs.items())
     return "\n".join(cuda_build.build_log(n, s) for n, s in libs.items())
 
@@ -178,6 +216,7 @@ def attn_inputs(B: int, T: int, seed: int, dev):
 
 def check_attention(dev) -> dict:
     from espresso_tpu_torch.ops.attention_kernels import rel_attention, rel_attention_reference
+    from espresso_tpu_torch.ops.train_kernel_checks import bf16_ulp
 
     scale = (D // H) ** -0.5
     worst, row = 0.0, {}
@@ -284,6 +323,91 @@ def check_decode_kernels(dev) -> dict:
     return rows
 
 
+def check_train_kernels(dev) -> dict:
+    """The train kernels at the flagship train shapes and at edge shapes;
+    times kernel and plain version at the flagship shape. Returns one row
+    per kernel."""
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import rnnt_kernels as rk
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    rows = {}
+    # rel_attention_train forward and backward, rates 0 and 0.1 on one seed
+    # (a hash that differs from the plain version's shows up as O(1) error)
+    fwd_err = bwd_err = 0.0
+    for B, T in ATTN_TRAIN_SHAPES:
+        a = tc.attention_train_inputs(B, T, seed=T, dev=dev)
+        for rate in (0.0, 0.1):
+            errs = tc.check_attention_train(a, H, rate)
+            log(f"rel_attention_train B={B} T'={T} rate {rate}: max_abs_err {errs}")
+            fwd_err = max(fwd_err, errs["out"])
+            bwd_err = max(bwd_err, *(v for k, v in errs.items() if k != "out"))
+    B, T = ATTN_TRAIN_SHAPES[0]
+    a = tc.attention_train_inputs(B, T, seed=T, dev=dev)
+    args = (a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"])
+    scale, rate = (D // H) ** -0.5, TRAIN["DROPOUT"]
+    # forward: q_u, q_v, k, v and the output [B, T, D] bf16, p, the mask;
+    # ac, bd and w @ v at 2 B T^2 D operations each
+    n_bytes = (5 * B * T * D + (2 * T - 1) * D) * 2 + B * T
+    row = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, 6 * B * T * T * D, PEAK_BF16)))
+    row.update(time_pair(
+        "rel_attention_train_fwd",
+        lambda: ak.rel_attention_train_fwd(*args, a["seed"], H, scale, rate),
+        lambda: ak.rel_attention_train_reference(*args, H, scale, rate, a["seed"]),
+        "rel_attention_train_fwd_kernel",
+    ))
+    rows["rel_attention_train_fwd"] = dict(row, max_abs_err=fwd_err)
+    # backward: the five inputs and g read, dq_u, dq_v, dk, dv written (bf16),
+    # dp (f32); recomputed ac and bd, then dv, dw, dq_u, dk, dq_v and dp
+    n_bytes = (9 * B * T * D + (2 * T - 1) * D) * 2 + (2 * T - 1) * D * 4 + B * T
+    row = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, 16 * B * T * T * D, PEAK_BF16)))
+    row.update(time_pair(
+        "rel_attention_train_bwd",
+        lambda: ak.rel_attention_train_bwd(*args, a["seed"], a["g"], H, scale, rate),
+        lambda: ak.rel_attention_train_backward_reference(*args, a["g"], H, scale, rate, a["seed"]),
+        "rel_attention_train_bwd", plain_calls=3,
+    ))
+    rows["rel_attention_train_bwd"] = dict(row, max_abs_err=bwd_err)
+
+    # rnnt_joint_lp and rnnt_joint_bwd
+    lp_err = bwd_err = 0.0
+    for B, T, U, V, blank in RNNT_SHAPES:
+        errs = tc.check_rnnt_joint(tc.rnnt_inputs(B, T, U, 512, V, seed=V + T, dev=dev, blank=blank), blank)
+        log(f"rnnt joint kernels B={B} T'={T} U={U} V={V} blank={blank}: max_abs_err {errs}")
+        lp_err = max(lp_err, errs["lp_blank"], errs["lp_label"], errs["lse"])
+        bwd_err = max(bwd_err, errs["g_enc"], errs["g_dec"], errs["g_W"], errs["g_b"])
+    B, T, U, V, blank = RNNT_SHAPES[0]
+    r = tc.rnnt_inputs(B, T, U, 512, V, seed=V + T, dev=dev, blank=blank)
+    ja = (r["enc_proj"], r["dec_proj"], r["fc_kernel"], r["fc_bias"], r["targets"])
+    J, U1 = 512, U + 1
+    cells = B * T * U1
+    # enc_proj, dec_proj, W (bf16), bias and targets read; three [B, T, U1] f32
+    # written; the logits at 2 B T U1 J V operations
+    n_bytes = (B * T * J + B * U1 * J + V * J) * 2 + V * 4 + B * U1 * 4 + 3 * cells * 4
+    row = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, 2 * cells * J * V, PEAK_BF16)))
+    row.update(time_pair(
+        "rnnt_joint_lp", lambda: rk.rnnt_joint_lp(*ja, blank),
+        lambda: rk.rnnt_joint_lp_reference(*ja, blank), "rnnt_joint_lp_kernel", plain_calls=2,
+    ))
+    rows["rnnt_joint_lp"] = dict(row, max_abs_err=lp_err)
+    lpb, lpl, lse = rk.rnnt_joint_lp_reference(*ja, blank)
+    ob, ol = tc.occupancy_grads(r, lpb, lpl)
+    # the inputs above, lse, ob and ol read; g_enc, g_dec, g_W, g_b (f32)
+    # written; three products of the logits' size (logits, g_W, g_pre)
+    n_bytes = ((B * T * J + B * U1 * J + V * J) * 2 + V * 4 + B * U1 * 4 + 3 * cells * 4
+               + (B * T * J + B * U1 * J + J * V + V) * 4)
+    row = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, 3 * 2 * cells * J * V, PEAK_BF16)))
+    row.update(time_pair(
+        "rnnt_joint_bwd", lambda: rk.rnnt_joint_bwd(*ja, lse, ob, ol, blank),
+        lambda: rk.rnnt_joint_bwd_reference(*ja, lse, ob, ol, blank), "rnnt_joint_bwd",
+        plain_calls=2,
+    ))
+    rows["rnnt_joint_bwd"] = dict(row, max_abs_err=bwd_err)
+    for name, r in rows.items():
+        log(f"{name} flagship bound: {r['bound_ms']} ms ({r['bound_by']})")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # the serving paths
 # ---------------------------------------------------------------------------
@@ -327,6 +451,18 @@ def all_kernels():
 
 
 @contextlib.contextmanager
+def swapped(swaps):
+    """Set module attributes for the duration (comparison and profiling)."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
+    try:
+        for obj, name, fn in swaps:
+            setattr(obj, name, fn)
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
 def plain_versions():
     """Route the attention module and the beam decoder to the plain versions
     (comparison only)."""
@@ -337,14 +473,7 @@ def plain_versions():
     swaps = [(attention, "rel_attention", attention_kernels.rel_attention_reference)]
     for f in decode_kernels.KERNELS:
         swaps.append((transducer_beam, f.__name__, getattr(decode_kernels, f.__name__ + "_reference")))
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    try:
-        for mod, name, fn in swaps:
-            setattr(mod, name, fn)
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+    return swapped(swaps)
 
 
 def check_hypotheses(hyps, L_max: int, vocab: int, blank: int, n_best: int):
@@ -529,6 +658,274 @@ def compare_beam(model, batch) -> dict:
     return dict(top1_score_max_rel_diff=max(rel), top1_tokens_equal=int(same), utterances=len(got))
 
 
+# ---------------------------------------------------------------------------
+# the train path
+# ---------------------------------------------------------------------------
+
+
+def analytic_flops(B, T, U, feat, d, ffn, layers, heads, J, V, pred_layers):
+    """Forward multiply-add FLOPs (x2 per MAC) of the flagship step, times 3
+    for forward and backward: the analytic count of bench_train.py:29-56,
+    copied (the conv frontend, the conformer layers, the LSTM prediction net,
+    the joint projections and the (t, u, V) output product)."""
+    T4 = T // 4  # two stride-2 convs
+    c = 64
+    fe = 2 * (T * feat * c * 9) + 2 * (T // 2 * feat // 2 * c * c * 9)
+    ffn_f = 2 * (2 * d * ffn) * 2  # two half-FFNs, each two matmuls
+    qkvo = 2 * (4 * d * d)
+    scores = 2 * (2 * T4 * d) * 2  # QK^T + AV, x2 for rel-pos term
+    convm = 2 * (2 * d * 2 * d) + 2 * (31 * d) + 2 * (d * d)
+    enc = layers * (B * T4) * (ffn_f + qkvo + scores + convm)
+    lstm = B * (U + 1) * pred_layers * 2 * (4 * (d * d + d * d))
+    joint = B * T4 * 2 * d * J + B * (U + 1) * 2 * d * J + B * T4 * (U + 1) * 2 * J * V
+    fwd = fe + enc + lstm + joint
+    return 3 * fwd
+
+
+class _Dictionary:
+    """The flagship's symbols as the train criterion reads them."""
+
+    def pad(self):
+        return 1
+
+    def blank(self):
+        return 0
+
+
+def train_kernels():
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import rnnt_kernels as rk
+
+    fns = (ak.rel_attention_train_fwd, ak.rel_attention_train_bwd, rk.rnnt_joint_lp, rk.rnnt_joint_bwd)
+    return {f.__name__: f for f in fns}
+
+
+def train_model(dev, dropout: float):
+    """The flagship with fp32 weights from a seeded init; the train state
+    makes the bf16 compute copies."""
+    from espresso_tpu_torch.models.speech_transformer import SpeechTransformerConfig
+    from espresso_tpu_torch.models.transducer import TransducerConfig, TransducerModel
+
+    cfg = TransducerConfig(
+        feat_dim=FLAGSHIP["FEAT"],
+        vocab_size=FLAGSHIP["VOCAB"],
+        encoder=SpeechTransformerConfig(
+            encoder_embed_dim=512, encoder_ffn_dim=2048, encoder_layers=16,
+            encoder_heads=8, depthwise_conv_kernel_size=31, dropout=dropout,
+        ),
+        pred_embed_dim=512, pred_hidden_size=512, pred_layers=2, pred_dropout=dropout,
+        joint_dim=512,
+    )
+    torch.manual_seed(0)
+    return TransducerModel(cfg).to(dev)
+
+
+def train_batch(dev, B: int) -> dict:
+    """bench_train.py:110-122's batch with one microbatch: full-length
+    utterances, U=100 targets in [4, V)."""
+    T, U, V = TRAIN["T_FRAMES"], TRAIN["U"], FLAGSHIP["VOCAB"]
+    rng = np.random.default_rng(0)
+    batch = {
+        "src_frames": rng.standard_normal((1, B, T, FLAGSHIP["FEAT"]), np.float32),
+        "src_lengths": np.full((1, B), T, np.int32),
+        "prev_output_tokens": rng.integers(4, V, (1, B, U + 1)).astype(np.int32),
+        "target": rng.integers(4, V, (1, B, U)).astype(np.int32),
+        "tgt_lengths": np.full((1, B), U, np.int32),
+        "weight": np.ones((1, B), np.float32),
+    }
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def trainer(model):
+    """bench_train.py:124-127's config: bf16 compute, adam at the default
+    fixed lr 1e-3, clip 2.0; returns (state, train_step)."""
+    from espresso_tpu_torch.config import EspressoConfig
+    from espresso_tpu_torch.criterions import TransducerCriterion
+    from espresso_tpu_torch.train.trainer import build_optimizer, create_train_state, make_train_step
+
+    cfg = EspressoConfig()
+    cfg.common.dtype = "bfloat16"
+    cfg.optimization.clip_norm = 2.0
+    optimizer, _ = build_optimizer(cfg)
+    state = create_train_state(model, optimizer, cfg)
+    criterion = TransducerCriterion(cfg.criterion, _Dictionary())
+    return state, make_train_step(model, criterion, optimizer, cfg)
+
+
+def profile_train_step(step, state, batch, gen) -> dict:
+    """One step under ``torch.profiler`` with named ranges around the alpha
+    and beta DP loops, the teacher-forced LSTM forward and the optimizer:
+    wall (slowed by the profiler), device busy time, and device and host
+    time by part."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from espresso_tpu_torch.models.transducer import TransducerPredNet
+    from espresso_tpu_torch.ops import rnnt_fused
+    from espresso_tpu_torch.train.trainer import Adam
+
+    def ranged(name, fn):
+        def wrapper(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    swaps = [
+        (rnnt_fused, "_forward_alpha", ranged("dp_alpha", rnnt_fused._forward_alpha)),
+        (rnnt_fused, "_backward_beta", ranged("dp_beta", rnnt_fused._backward_beta)),
+        (TransducerPredNet, "sequence", ranged("lstm_sequence_fwd", TransducerPredNet.sequence)),
+        (Adam, "step", ranged("optimizer", Adam.step)),
+    ]
+    torch.cuda.synchronize()
+    with swapped(swaps), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # every kernel is listed once, under the host op that launched it; a
+    # range's device time is that of the kernels its ops launched (the
+    # profiler's spans of the ranges on the device timeline are not used)
+    host_ops = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    kernels = [k for e in host_ops for k in e.kernels]
+    busy_ms = sum(k.duration for k in kernels) / 1e3
+    by_kernel = lambda sub: sum(k.duration for k in kernels if sub in k.name) / 1e3
+    parts = {
+        "attention_kernels_device_ms": by_kernel("rel_attention_train"),
+        "joint_kernels_device_ms": by_kernel("rnnt_joint"),
+    }
+    for name in ("dp_alpha", "dp_beta", "lstm_sequence_fwd", "optimizer"):
+        ranges = [e for e in host_ops if e.name == name]
+        parts[f"{name}_host_ms"] = sum(e.cpu_time_total for e in ranges) / 1e3
+        parts[f"{name}_device_ms"] = sum(e.device_time_total for e in ranges) / 1e3
+    per_name = {}
+    for k in kernels:
+        ms, n = per_name.get(k.name, (0.0, 0))
+        per_name[k.name] = (ms + k.duration / 1e3, n + 1)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:15]
+    log(
+        f"profiled train step: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / wall_ms:.1%}); parts {parts}; top kernels (name, ms, count): "
+        f"{[(name[:70], round(ms, 3), n) for name, (ms, n) in top]}"
+    )
+    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / wall_ms, **parts)
+
+
+def run_train(dev) -> dict:
+    B, T, U, steps = TRAIN["B"], TRAIN["T_FRAMES"], TRAIN["U"], TRAIN["STEPS"]
+    model = train_model(dev, TRAIN["DROPOUT"])
+    state, step = trainer(model)
+    batch = train_batch(dev, B)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    state, m = step(state, batch, gen)
+    log(f"train warm-up step {time.perf_counter() - t0:.3f} s, loss {m['loss'].item()}")
+    kernels = {**all_kernels(), **train_kernels()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, batch, gen)
+        metrics.append(m)
+    # the host fetch of the losses ends the clock
+    losses = torch.stack([m["loss"] for m in metrics]).tolist()
+    wall = time.perf_counter() - t0
+    counts = {name: f.launches for name, f in kernels.items()}
+    gnorms = torch.stack([m["gnorm"] for m in metrics]).tolist()
+    overflow = torch.stack([m["overflow"] for m in metrics]).sum().item()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_layers = len(model.encoder.layers)
+    want = {
+        "rel_attention_train_fwd": n_layers * steps, "rel_attention_train_bwd": n_layers * steps,
+        "rnnt_joint_lp": steps, "rnnt_joint_bwd": steps,
+    }
+    if {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"train launches {counts}, want {want}")
+    if not all(math.isfinite(x) for x in losses + gnorms) or overflow:
+        raise AssertionError(f"train losses {losses}, gnorms {gnorms}, overflow {overflow}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    step_s = wall / steps
+    flops = analytic_flops(B, T, U, FLAGSHIP["FEAT"], 512, 2048, 16, 8, 512, FLAGSHIP["VOCAB"], 2)
+    out = dict(
+        ms_per_step=step_s * 1e3,
+        audio_s_per_s=B * T * FRAME_SHIFT_S / step_s,
+        peak_gb=peak_gb,
+        mfu=flops / step_s / PEAK_BF16,
+        analytic_gflop_per_step=flops / 1e9,
+        losses=losses,
+        gnorms=gnorms,
+        launches={k: v for k, v in counts.items() if v},
+    )
+    log(
+        f"train B={B} T={T} U={U}: {out['ms_per_step']:.1f} ms/step over {steps} steps, "
+        f"{out['audio_s_per_s']:.1f} audio s/s, MFU {out['mfu']:.4f}, peak {peak_gb:.2f} GB; "
+        f"losses {losses}; gnorms {gnorms}; launches {out['launches']}"
+    )
+    out["profile"] = profile_train_step(step, state, batch, gen)
+    return out
+
+
+def compare_train_step(dev) -> dict:
+    """One step of a 2-utterance sub-batch at dropout 0 from one init,
+    through the kernels and through the plain versions: the loss and the
+    gradient norm within their bounds, and every parameter's bf16 gradient
+    within TRAIN_LEAF_GRAD_REL and TRAIN_LEAF_SCALE of the plain one."""
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import rnnt_kernels as rk
+
+    model = train_model(dev, 0.0)
+    ref_model = copy.deepcopy(model)
+    batch = train_batch(dev, 2)
+    state, step = trainer(model)
+    state, m = step(state, batch)
+    ref_state, ref_step = trainer(ref_model)
+    plain = [
+        (ak, "rel_attention_train_fwd",
+         lambda qu, qv, k, v, p, kv, seed, H_, sc, rate:
+         ak.rel_attention_train_reference(qu, qv, k, v, p, kv, H_, sc, rate, seed)),
+        (ak, "rel_attention_train_bwd",
+         lambda qu, qv, k, v, p, kv, seed, g, H_, sc, rate:
+         ak.rel_attention_train_backward_reference(qu, qv, k, v, p, kv, g, H_, sc, rate, seed)),
+        (rk, "rnnt_joint_lp", rk.rnnt_joint_lp_reference),
+        (rk, "rnnt_joint_bwd", rk.rnnt_joint_bwd_reference),
+    ]
+    with swapped(plain):
+        ref_state, rm = ref_step(ref_state, batch)
+    loss, ref_loss = m["loss"].item(), rm["loss"].item()
+    gnorm, ref_gnorm = m["gnorm"].item(), rm["gnorm"].item()
+    names = [n for n, _ in model.named_parameters()]
+    sizes = [p.numel() for p in model.parameters()]
+    g, rg = state.grads.float(), ref_state.grads.float()
+    leaves, scales, n_zero = [], [], 0
+    for name, gl, rl in zip(names, g.split(sizes), rg.split(sizes)):
+        if TRAIN_ZERO_GRAD.search(name):
+            n_zero += 1
+            continue
+        leaves.append(((gl - rl).norm().item() / rl.norm().item(), name))
+        scales.append((abs(((gl - rl) @ rl).item()) / (rl @ rl).item(), name))
+    leaves.sort(reverse=True)
+    scales.sort(reverse=True)
+    out = dict(
+        loss=loss, plain_loss=ref_loss, loss_rel_diff=abs(loss - ref_loss) / abs(ref_loss),
+        gnorm=gnorm, plain_gnorm=ref_gnorm, gnorm_rel_diff=abs(gnorm - ref_gnorm) / ref_gnorm,
+        worst_leaf_grad_rel_diff=leaves[0][0], worst_leaf=leaves[0][1],
+        median_leaf_grad_rel_diff=leaves[len(leaves) // 2][0],
+        worst_leaf_scale_diff=scales[0][0], worst_scale_leaf=scales[0][1],
+        leaves_checked=len(leaves), leaves_zero_in_exact_arithmetic=n_zero,
+    )
+    log(f"train step sub-batch kernels vs plain: {out} (bounds: loss {TRAIN_LOSS_RTOL}, "
+        f"gnorm {TRAIN_GNORM_RTOL}, each leaf's gradient {TRAIN_LEAF_GRAD_REL} and scale "
+        f"{TRAIN_LEAF_SCALE}); worst leaves: "
+        f"{leaves[:8]}; worst scales: {scales[:8]}")
+    if not (out["loss_rel_diff"] <= TRAIN_LOSS_RTOL and out["gnorm_rel_diff"] <= TRAIN_GNORM_RTOL
+            and leaves[0][0] <= TRAIN_LEAF_GRAD_REL and scales[0][0] <= TRAIN_LEAF_SCALE):
+        raise AssertionError(f"train step kernels vs plain versions disagree: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA card available")
@@ -544,9 +941,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     nvcc_log = build_kernels()
-    log(f"kernel build {time.perf_counter() - t0:.2f} s (5 libraries in parallel)\n{nvcc_log}")
+    log(f"kernel build {time.perf_counter() - t0:.2f} s (libraries in parallel)\n{nvcc_log}")
 
-    rows = {"rel_attention": check_attention(dev), **check_decode_kernels(dev)}
+    rows = {
+        "rel_attention": check_attention(dev), **check_decode_kernels(dev),
+        **check_train_kernels(dev),
+    }
 
     model = flagship_model(dev)
     batch = flagship_batch(dev)
@@ -558,6 +958,13 @@ def main() -> int:
     greedy["encoder_max_abs_err"] = compare_encoder(model, batch)
     beam["sub_batch"] = compare_beam(model, batch)
     print(json.dumps({"greedy": greedy, "beam": beam, "card": card}))
+    del model, batch
+    torch.cuda.empty_cache()
+
+    train = run_train(dev)
+    train["sub_batch"] = compare_train_step(dev)
+    train["card"] = card
+    print(json.dumps({"train": train}))
 
     sources = {
         "rel_attention": ("rel_attention.cu", "espresso_tpu/ops/attention_kernels.py:185"),
@@ -565,7 +972,15 @@ def main() -> int:
         "lstm_step_reorder": ("lstm_step_reorder.cu", "espresso_tpu/ops/decode_kernels.py:485"),
         "aes_merge": ("aes_merge.cu", "espresso_tpu/ops/decode_kernels.py:718"),
         "aes_backtrace": ("aes_backtrace.cu", "espresso_tpu/ops/decode_kernels.py:307"),
+        "rel_attention_train_fwd": (
+            "rel_attention_train.cu", "espresso_tpu/ops/attention_kernels.py:578"),
+        "rel_attention_train_bwd": (
+            "rel_attention_train.cu", "espresso_tpu/ops/attention_kernels.py:617"),
+        "rnnt_joint_lp": ("rnnt_joint_lp.cu", "espresso_tpu/ops/rnnt_pallas.py:83"),
+        "rnnt_joint_bwd": ("rnnt_joint_bwd.cu", "espresso_tpu/ops/rnnt_pallas.py:211"),
     }
+    # each kernel's launches on the path that runs it
+    launches = {**beam["launches"], **train["launches"]}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rows[name]
@@ -574,13 +989,13 @@ def main() -> int:
             "route": "cuda",
             "source": f"espresso_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": beam["launches"][name],
+            "launches": launches[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            # no single PyTorch call computes any of these five functions
+            # no single PyTorch call computes any of these nine functions
             "library_ms": None,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

@@ -44,14 +44,11 @@
 // C entry: fused_joint_topk_bf16(...) returns the CUDA error of the launch;
 // it launches on the given stream and does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "bf16_mma.cuh"
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
@@ -60,29 +57,6 @@ constexpr int NC = 64;                // columns per warp tile (8 n-tiles)
 constexpr int NLISTS = NWARPS * 4;    // per-row lists: one per (warp, lane t)
 constexpr int NSTAT = 6;              // (m, s) for all, masked, biased
 constexpr float kEps = 1e-6f;
-
-__device__ inline uint32_t ld32(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-// d += a (16x16, row-major fragment) * b (16x8, column fragment), fp32.
-__device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of the 16 x 16 tile at `base` (row stride ld): lane (g, t) holds
-// rows g and g+8, columns 2t, 2t+1 and 2t+8, 2t+9.
-__device__ inline void load_a(uint32_t (&a)[4], const bf16* base, int ld, int g, int t) {
-  a[0] = ld32(base + g * ld + 2 * t);
-  a[1] = ld32(base + (g + 8) * ld + 2 * t);
-  a[2] = ld32(base + g * ld + 2 * t + 8);
-  a[3] = ld32(base + (g + 8) * ld + 2 * t + 8);
-}
 
 // online log-sum-exp: (m, s) with sum = s * exp(m)
 __device__ inline void stat_add(float& m, float& s, float v) {

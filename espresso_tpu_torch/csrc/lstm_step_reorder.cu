@@ -40,14 +40,11 @@
 // returns the CUDA error of the first failed launch; it launches on the
 // given stream and does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "bf16_mma.cuh"
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
@@ -56,19 +53,6 @@ constexpr int HU = 32;           // hidden units per block
 constexpr int BN = 4 * HU;       // gate columns per block
 constexpr int KC = 64;           // K chunk
 constexpr int LDS = KC + 8;      // staged row stride (144 B)
-
-__device__ inline uint32_t ld32(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ inline float rb(float x) { return __bfloat162float(__float2bfloat16(x)); }
 

@@ -44,81 +44,17 @@
 // C entry: rel_attention_bf16(...) returns the CUDA error of the launch; it
 // launches on the given stream and does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rel_attention_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int HD = 64;             // head dim
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int QT = NWARPS * 16;    // query rows per block (16 per warp)
-constexpr int KT = 64;             // keys per tile
-constexpr int PW = QT + KT;        // p rows staged per key tile (QT + KT - 1 used)
 static_assert(2 * QT <= PW, "q+u and q+v are staged in the p window's space");
-constexpr int LDH = HD + 8;        // bf16 row stride of q/k/v/p tiles (144 B)
-constexpr int BDW = 80;            // bd window columns per warp (79 used)
-constexpr int LDB = BDW + 8;       // its row stride
-constexpr float kMaskFill = -1.0e8f;
-
-__host__ __device__ inline int padded_len(int T) { return (T + KT - 1) / KT * KT; }
 
 __host__ inline size_t smem_bytes(int T) {
   const int Tp = padded_len(T);
   return sizeof(float) * Tp +
          sizeof(bf16) * (KT * LDH + PW * LDH + NWARPS * 16 * LDB +
                          QT * (Tp + 8));
-}
-
-__device__ inline float round_bf16(float x) { return __bfloat162float(__float2bfloat16(x)); }
-
-__device__ inline uint32_t ld32(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ inline uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ inline uint32_t pack2f(float lo, float hi) {
-  return pack2(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-// d += a (16x16, row-major fragment) * b (16x8, column fragment), fp32.
-__device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of the 16 x 16 tile at `base` (row stride ld): lane (g, t) holds
-// rows g and g+8, columns 2t, 2t+1 and 2t+8, 2t+9.
-__device__ inline void load_a(uint32_t (&a)[4], const bf16* base, int ld, int g, int t) {
-  a[0] = ld32(base + g * ld + 2 * t);
-  a[1] = ld32(base + (g + 8) * ld + 2 * t);
-  a[2] = ld32(base + g * ld + 2 * t + 8);
-  a[3] = ld32(base + (g + 8) * ld + 2 * t + 8);
-}
-
-// Stage rows [r0, r0 + nrows) of one head of a [*, D] bf16 matrix into
-// shared memory (row stride LDH) with 16-byte loads; rows outside
-// [0, nvalid) are zero.
-__device__ inline void stage_rows(bf16* dst, const bf16* src, size_t src_row0, int r0,
-                                  int nrows, int nvalid, int D, int col0) {
-  for (int i = threadIdx.x; i < nrows * (HD / 8); i += NTHREADS) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    const int g = r0 + r;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (g >= 0 && g < nvalid)
-      x = *reinterpret_cast<const uint4*>(src + (src_row0 + g) * D + col0 + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = x;
-  }
 }
 
 __global__ void __launch_bounds__(NTHREADS)

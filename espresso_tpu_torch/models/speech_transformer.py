@@ -3,8 +3,9 @@
 Counterpart of ``espresso_tpu/models/speech_transformer.py``:
 ``SpeechTransformerConfig`` (the fields the encoder reads) and
 ``SpeechTransformerEncoder`` (speech_transformer.py:156-274) for the
-conformer layer type with relative positions, in eval mode. ConvFrontend ->
-fc0 -> relative sinusoidal table -> N conformer layers -> final LayerNorm.
+conformer layer type with relative positions. ConvFrontend -> fc0 ->
+relative sinusoidal table -> (train mode: input dropout) -> N conformer
+layers -> final LayerNorm. Train mode is ``nn.Module.train()``.
 
 Not ported yet (the constructor raises ``NotImplementedError``): transformer
 layers, absolute/rotary/learned positions, layer norm in the frontend or the
@@ -23,6 +24,7 @@ from torch import nn
 from espresso_tpu_torch.models.base import EncoderOut
 from espresso_tpu_torch.modules.conformer import LN_EPS, ConformerEncoderLayer
 from espresso_tpu_torch.modules.conv_frontend import ConvFrontend
+from espresso_tpu_torch.modules.dropout import Dropout
 from espresso_tpu_torch.modules.positional import RelativePositionalEmbedding
 from espresso_tpu_torch.ops.masking import sequence_mask
 
@@ -50,6 +52,7 @@ class SpeechTransformerConfig:
     chunk_size: int = 0
     context_left: int = -1  # -1 = unlimited
     context_right: int = -1
+    dropout: float = 0.1
     encoder_layerdrop: float = 0.0
     pipeline_stages: int = 1
     sequence_parallel: bool = False
@@ -87,9 +90,11 @@ class SpeechTransformerEncoder(nn.Module):
             f = (f + (ks[1] - 1) // 2 + ks[1] // 2 - ks[1]) // st[1] + 1
         self.fc0 = nn.Linear(cfg.conv_channels[-1] * f, D)
         self.rel_pos = RelativePositionalEmbedding(D, cfg.encoder_relative_max_size)
+        self.dropout = Dropout(cfg.dropout)
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(
-                D, cfg.encoder_ffn_dim, cfg.encoder_heads, cfg.depthwise_conv_kernel_size
+                D, cfg.encoder_ffn_dim, cfg.encoder_heads, cfg.depthwise_conv_kernel_size,
+                cfg.dropout,
             )
             for _ in range(cfg.encoder_layers)
         )
@@ -100,6 +105,7 @@ class SpeechTransformerEncoder(nn.Module):
         x = self.fc0(x)
         T = x.shape[1]
         rel_pos = self.rel_pos(T).to(x.dtype)
+        x = self.dropout(x)
         padding_mask = sequence_mask(lengths, T)
         for layer in self.layers:
             x = layer(x, padding_mask, rel_pos)

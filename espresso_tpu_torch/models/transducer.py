@@ -1,10 +1,11 @@
 """Transducer model: conformer encoder + LSTM prediction network + joint.
 
-Counterpart of ``espresso_tpu/models/transducer.py`` (transducer.py:78-290)
-for decoding: ``encode``, the single-token prediction step and the joint on
-matched pairs, with the encoder side precomputable for all frames. The
-teacher-forced ``sequence`` path, the full lattice and the fused loss forward
-wait for the train slice.
+Counterpart of ``espresso_tpu/models/transducer.py`` (transducer.py:78-290):
+for decoding, ``encode``, the single-token prediction step and the joint on
+matched pairs, with the encoder side precomputable for all frames; for
+training, the teacher-forced prediction net (``predict_sequence``) and the
+lattice-free ``forward_fused``, whose outputs feed the fused RNNT loss. The
+full-lattice ``__call__`` is not ported (the lattice criterion path is not).
 
 The prediction-net carry is ``(h, c)``, each [L, B, H]; the JAX carry's
 empty context and previous-token leaves are not kept.
@@ -25,6 +26,7 @@ from espresso_tpu_torch.models.speech_transformer import (
     SpeechTransformerEncoder,
 )
 from espresso_tpu_torch.modules.conformer import LN_EPS
+from espresso_tpu_torch.modules.dropout import Dropout
 from espresso_tpu_torch.modules.lstm import lstm_gates
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
@@ -46,14 +48,19 @@ class TransducerConfig:
     pred_embed_dim: int = 512
     pred_hidden_size: int = 512
     pred_layers: int = 2
+    pred_dropout: float = 0.1
     # joint
     joint_dim: int = 512
 
 
 class TransducerPredNet(nn.Module):
-    """LM-mode LSTM prediction network: embedding -> L LSTM cells."""
+    """LM-mode LSTM prediction network: embedding -> L LSTM cells (gate order
+    i, f, g, o; the input projection carries the one bias)."""
 
-    def __init__(self, vocab_size: int, embed_dim: int, hidden_size: int, layers: int):
+    def __init__(
+        self, vocab_size: int, embed_dim: int, hidden_size: int, layers: int,
+        dropout: float = 0.0,
+    ):
         super().__init__()
         H = hidden_size
         self.embed_tokens = nn.Embedding(vocab_size, embed_dim)
@@ -63,6 +70,7 @@ class TransducerPredNet(nn.Module):
         self.cells_hh = nn.ModuleList(
             nn.Linear(H, 4 * H, bias=False) for _ in range(layers)
         )
+        self.dropout = Dropout(dropout)
 
     def step(self, carry: Carry, token: torch.Tensor) -> Tuple[Carry, torch.Tensor]:
         """carry (h [L, B, H], c [L, B, H]), token [B] -> (new carry, feat [B, H])."""
@@ -74,6 +82,22 @@ class TransducerPredNet(nn.Module):
             hs.append(x)
             cs.append(cell)
         return (torch.stack(hs), torch.stack(cs)), x
+
+    def sequence(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced features for all steps: [B, U] -> [B, U, H]
+        (transducer.py:128-156). Each layer's input projection runs once for
+        all steps; a loop over steps runs the recurrence. Dropout on the
+        embedding and after each layer in train mode."""
+        x = self.dropout(self.embed_tokens(tokens))
+        for ih, hh in zip(self.cells_ih, self.cells_hh):
+            x_proj = ih(x)  # [B, U, 4H]
+            h = c = x_proj.new_zeros(x_proj.shape[0], hh.in_features)
+            hs = []
+            for u in range(x_proj.shape[1]):
+                h, c = lstm_gates(x_proj[:, u] + hh(h), h, c)
+                hs.append(h)
+            x = self.dropout(torch.stack(hs, 1))
+        return x
 
 
 class JointNetwork(nn.Module):
@@ -95,11 +119,14 @@ class JointNetwork(nn.Module):
         """Encoder-side projection, precomputable for all frames at once."""
         return self.ln_enc(self.proj_enc(enc))
 
+    def dec_proj(self, dec: torch.Tensor) -> torch.Tensor:
+        """Prediction-side projection (the fused loss path)."""
+        return self.ln_dec(self.proj_dec(dec))
+
     def pairwise_precomputed(
         self, enc_projected: torch.Tensor, dec: torch.Tensor
     ) -> torch.Tensor:
-        d = self.ln_dec(self.proj_dec(dec))
-        return self.fc_out(F.relu(enc_projected + d))
+        return self.fc_out(F.relu(enc_projected + self.dec_proj(dec)))
 
 
 class TransducerModel(nn.Module):
@@ -109,7 +136,8 @@ class TransducerModel(nn.Module):
         cfg.encoder.feat_dim = cfg.feat_dim
         self.encoder = SpeechTransformerEncoder(cfg.encoder)
         self.predictor = TransducerPredNet(
-            cfg.vocab_size, cfg.pred_embed_dim, cfg.pred_hidden_size, cfg.pred_layers
+            cfg.vocab_size, cfg.pred_embed_dim, cfg.pred_hidden_size, cfg.pred_layers,
+            cfg.pred_dropout,
         )
         self.joint = JointNetwork(
             cfg.encoder.encoder_embed_dim,
@@ -120,6 +148,23 @@ class TransducerModel(nn.Module):
 
     def encode(self, src_frames: torch.Tensor, src_lengths: torch.Tensor) -> EncoderOut:
         return self.encoder(src_frames, src_lengths)
+
+    def predict_sequence(self, prev_output_tokens: torch.Tensor) -> torch.Tensor:
+        """Prediction-net features for all steps: [B, U] -> [B, U, H]."""
+        return self.predictor.sequence(prev_output_tokens)
+
+    def forward_fused(
+        self,
+        src_frames: torch.Tensor,
+        src_lengths: torch.Tensor,
+        prev_output_tokens: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor, EncoderOut]:
+        """Lattice-free training forward (transducer.py:268-284): (enc_proj
+        [B, T, J], dec_proj [B, U+1, J], encoder_out) for
+        ``ops/rnnt_fused.RnntLossFused``."""
+        enc = self.encoder(src_frames, src_lengths)
+        pred = self.predict_sequence(prev_output_tokens)
+        return self.joint.enc_proj(enc.encoder_out), self.joint.dec_proj(pred), enc
 
     def init_pred_carry(
         self, batch_size: int, dtype=torch.float32, device=None

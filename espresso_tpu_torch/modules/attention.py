@@ -1,13 +1,21 @@
 """Multi-head self-attention with espnet-style relative positions.
 
 Counterpart of ``espresso_tpu/modules/attention.py::MultiheadAttention``,
-reduced to the conformer encoder's inference use: relative-position
-self-attention with a key-padding mask. Square self-attention without
-weights or an additive mask goes through the fused kernel
-(``ops/attention_kernels.rel_attention``, the JAX dispatch conditions of
-attention.py:237-245); everything else takes the deterministic gather path
-(attention.py:349-373, 398-417). Caches, rotary positions, dropout and the
-training skew wait for later slices.
+reduced to the conformer encoder's use: relative-position self-attention
+with a key-padding mask.
+
+* Eval mode: square self-attention without weights or an additive mask goes
+  through the fused inference kernel (``ops/attention_kernels.rel_attention``,
+  the JAX dispatch conditions of attention.py:237-245); everything else takes
+  the deterministic gather path (attention.py:349-373, 398-417).
+* Train mode: square self-attention without weights or an additive mask
+  goes through the train kernels (``rel_attention_train``, attention.py
+  :288-348), with dropout on the softmax weights at the layer's rate. The
+  per-call seed is an int32 drawn on the device from the dropout generator,
+  so no value reaches the host. Other train-mode attention raises
+  ``NotImplementedError``: no caller of the port has it.
+
+Caches and rotary positions wait for later slices.
 """
 
 from __future__ import annotations
@@ -17,7 +25,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from espresso_tpu_torch.ops.attention_kernels import rel_attention
+from espresso_tpu_torch.modules.dropout import Dropout
+from espresso_tpu_torch.ops.attention_kernels import rel_attention, rel_attention_train
 from espresso_tpu_torch.ops.masking import NEG_INF
 
 
@@ -31,7 +40,7 @@ def gather_p_shift(p: torch.Tensor, Tq: int, Tk: int) -> torch.Tensor:
 
 
 class MultiheadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         assert embed_dim % num_heads == 0
         self.embed_dim = embed_dim
@@ -44,6 +53,8 @@ class MultiheadAttention(nn.Module):
         self.pos_proj = nn.Linear(embed_dim, embed_dim, bias=False)
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, self.head_dim))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, self.head_dim))
+        # holds the rate and the generator of the in-kernel weight dropout
+        self.dropout = Dropout(dropout)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(x.shape[0], x.shape[1], self.num_heads, self.head_dim)
@@ -59,8 +70,6 @@ class MultiheadAttention(nn.Module):
         need_weights: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Returns (out [B, Tq, D], head-averaged weights or None)."""
-        if self.training:
-            raise NotImplementedError("training attention (dropout, rel-shift skew)")
         B, Tq, D = query.shape
         Tk = key.shape[1]
         H = self.num_heads
@@ -71,22 +80,23 @@ class MultiheadAttention(nn.Module):
         L = (p_flat.shape[0] + 1) // 2
         scale = self.head_dim ** -0.5
 
-        if not need_weights and attn_mask is None and key is query and Tq == Tk == L:
+        fused = not need_weights and attn_mask is None and key is query and Tq == Tk == L
+        if self.training and not fused:
+            raise NotImplementedError("train-mode attention other than square self-attention")
+        if fused:
             kv_mask = (
                 key_padding_mask
                 if key_padding_mask is not None
                 else torch.ones(B, Tq, dtype=torch.bool, device=q.device)
             )
-            ctx = rel_attention(
-                q + self.pos_bias_u.reshape(D),
-                q + self.pos_bias_v.reshape(D),
-                k,
-                v,
-                p_flat,
-                kv_mask,
-                H,
-                scale,
-            )
+            q_u, q_v = q + self.pos_bias_u.reshape(D), q + self.pos_bias_v.reshape(D)
+            if self.training:
+                ctx = rel_attention_train(
+                    q_u, q_v, k, v, p_flat, kv_mask, self._seed(q.device), H, scale,
+                    self.dropout.rate,
+                )
+            else:
+                ctx = rel_attention(q_u, q_v, k, v, p_flat, kv_mask, H, scale)
             return self.out_proj(ctx), None
 
         q, k, v = self._split(q), self._split(k), self._split(v)
@@ -105,3 +115,13 @@ class MultiheadAttention(nn.Module):
         weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, Tq, D)
         return self.out_proj(out), (weights.mean(dim=1) if need_weights else None)
+
+    def _seed(self, device: torch.device) -> torch.Tensor:
+        """The dropout seed of one call: an int32 in [0, 2^31 - 1) drawn on
+        ``device`` (0 at rate 0, as in JAX)."""
+        if self.dropout.rate <= 0.0:
+            return torch.zeros(1, dtype=torch.int32, device=device)
+        return torch.randint(
+            0, 2**31 - 1, (1,), generator=self.dropout.generator, device=device,
+            dtype=torch.int32,
+        )

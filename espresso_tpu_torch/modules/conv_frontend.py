@@ -4,7 +4,8 @@ Counterpart of ``espresso_tpu/modules/conv_frontend.py::ConvFrontend``:
 stacked Conv2d -> BatchNorm -> ReLU over the (time, freq) plane. The JAX
 module convolves NHWC over (T, F); here the layout is NCHW ``[B, C, T, F]``
 and the output is flattened the same way, ``[B, T', C * F']`` with the
-channel major. Only the batch norm (the flagship's) is ported.
+channel major. Only the batch norm (the flagship's) is ported; in train
+mode it follows flax (``modules/batch_norm.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from espresso_tpu_torch.modules.batch_norm import BatchNorm
 
 
 class ConvFrontend(nn.Module):
@@ -43,8 +46,7 @@ class ConvFrontend(nn.Module):
             )
             for i, (ks, st) in enumerate(zip(self.kernel_sizes, self.strides))
         )
-        # flax BatchNorm's epsilon is 1e-5, the same as torch's
-        self.norms = nn.ModuleList(nn.BatchNorm2d(c) for c in out_channels)
+        self.norms = nn.ModuleList(BatchNorm(c) for c in out_channels)
 
     def forward(
         self, x: torch.Tensor, lengths: torch.Tensor

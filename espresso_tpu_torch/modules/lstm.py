@@ -1,7 +1,9 @@
 """LSTM gate nonlinearity (counterpart of ``espresso_tpu/modules/lstm.py``).
 
-The full sequence LSTM layers wait for the train slice; decode needs only the
-single-step gates.
+Decode and the teacher-forced prediction net
+(``models/transducer.py::TransducerPredNet.sequence``, a loop over steps)
+both apply these gates; the sequence LSTM layers of the attention models
+(``SpeechLSTM``) wait for a later slice.
 """
 
 from __future__ import annotations

@@ -1,29 +1,45 @@
-"""Fused relative-position self-attention for inference (Hopper kernel).
+"""Fused relative-position self-attention (Hopper kernels).
 
-Counterpart of ``espresso_tpu/ops/attention_kernels.py``: ``rel_attention``
-wraps the hand-written CUDA kernel ``csrc/rel_attention.cu`` (which replaces
-the Pallas ``rel_attention_fused``), and ``rel_attention_reference`` is its
-plain PyTorch version (attention_kernels.py:106-128). Both take the
-flattened-heads layout of the JAX call site: ``q_u, q_v, k, v`` [B, T, D],
-``p`` [2T-1, D], ``key_valid`` [B, T] bool, and return [B, T, D].
+Counterpart of ``espresso_tpu/ops/attention_kernels.py``. All functions take
+the flattened-heads layout of the JAX call site: ``q_u, q_v, k, v``
+[B, T, D], ``p`` [2T-1, D], ``key_valid`` [B, T] bool.
 
-On a CPU tensor ``rel_attention`` runs the plain version; on a CUDA tensor it
-launches the kernel or raises. The training kernels (dropout forward and
-flash-style backward) wait for the train slice.
+* Inference: ``rel_attention`` wraps ``csrc/rel_attention.cu`` (which
+  replaces the Pallas ``rel_attention_fused``); ``rel_attention_reference``
+  is its plain version (attention_kernels.py:106-128).
+* Training: ``rel_attention_train`` is a ``torch.autograd.Function`` around
+  ``rel_attention_train_fwd`` and ``rel_attention_train_bwd``, which wrap the
+  two halves of ``csrc/rel_attention_train.cu`` (the Pallas
+  ``rel_attention_train`` forward and backward, attention_kernels.py
+  :444-678). The forward drops softmax weights with an in-kernel counter
+  hash of (seed, batch item, head, query, key), replayed bit for bit by
+  ``dropout_keep_mask`` (attention_kernels.py:312-368); the backward
+  recomputes scores, softmax and mask and returns all five input gradients.
+  ``rel_attention_train_reference`` and
+  ``rel_attention_train_backward_reference`` are the plain versions. The
+  seed is an int32 tensor on the inputs' device (the TPU kernel reads it
+  from SMEM), so a layer draws and passes it without a host sync.
+
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises, and counts its launches (``fn.launches``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple, Union
 
 import torch
 
 from espresso_tpu_torch.ops.masking import NEG_INF
 
-HEAD_DIM = 64  # the kernel's only head width (the flagship's d = 512 / 8)
-_SOURCES = ("rel_attention.cu",)
-LIBRARIES = {"rel_attention": _SOURCES}  # library name -> its CUDA sources
+HEAD_DIM = 64  # the kernels' only head width (the flagship's d = 512 / 8)
+_HEADERS = ("rel_attention_common.cuh", "bf16_mma.cuh")
+_SOURCES = ("rel_attention.cu", *_HEADERS)
+_TRAIN_SOURCES = ("rel_attention_train.cu", *_HEADERS)
+# library name -> its CUDA sources (with the headers they include)
+LIBRARIES = {"rel_attention": _SOURCES, "rel_attention_train": _TRAIN_SOURCES}
 
 
 def rel_attention_reference(
@@ -67,28 +83,28 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q_u, q_v, k, v, p, key_valid, H):
+def _check(q_u, q_v, k, v, p, key_valid, H, name="rel_attention"):
     B, T, D = q_u.shape
     dev = q_u.device
-    for name, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v), ("p", p)):
+    for arg, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v), ("p", p)):
         if x.device != dev or x.dtype != torch.bfloat16:
-            raise ValueError(f"rel_attention: {name} must be bf16 on {dev}")
+            raise ValueError(f"{name}: {arg} must be bf16 on {dev}")
         if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"rel_attention: {name} must be contiguous and aligned")
-    for name, x in (("q_v", q_v), ("k", k), ("v", v)):
+            raise ValueError(f"{name}: {arg} must be contiguous and aligned")
+    for arg, x in (("q_v", q_v), ("k", k), ("v", v)):
         if x.shape != (B, T, D):
-            raise ValueError(f"rel_attention: {name} {tuple(x.shape)} != {(B, T, D)}")
+            raise ValueError(f"{name}: {arg} {tuple(x.shape)} != {(B, T, D)}")
     if p.shape != (2 * T - 1, D):
-        raise ValueError(f"rel_attention: p {tuple(p.shape)} != {(2 * T - 1, D)}")
+        raise ValueError(f"{name}: p {tuple(p.shape)} != {(2 * T - 1, D)}")
     if D != H * HEAD_DIM:
-        raise ValueError(f"rel_attention: head dim {D // H} (kernel takes {HEAD_DIM})")
+        raise ValueError(f"{name}: head dim {D // H} (kernel takes {HEAD_DIM})")
     if (
         key_valid.device != dev
         or key_valid.dtype != torch.bool
         or key_valid.shape != (B, T)
         or not key_valid.is_contiguous()
     ):
-        raise ValueError("rel_attention: key_valid must be contiguous [B, T] bool")
+        raise ValueError(f"{name}: key_valid must be contiguous [B, T] bool")
 
 
 def rel_attention(
@@ -126,3 +142,257 @@ def rel_attention(
 
 
 rel_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training: dropout hash, plain forward and backward, kernels, autograd
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_GOLD = 0x9E3779B1
+_HEAD_MUL = 0x27D4EB2F
+_KEY_MUL = 0x165667B1
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 ``x`` in [0, 2^32): the int32 wrapping
+    multiply of the TPU kernel, in halves so no int64 product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _imix(x: torch.Tensor) -> torch.Tensor:
+    """The murmur3-style finalizer ``_imix`` (attention_kernels.py:326-333)
+    on uint32 values held in int64 (a logical shift is a plain shift)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def keep_mask_tile(
+    seed: Union[int, torch.Tensor],
+    item: Union[int, torch.Tensor],
+    head: Union[int, torch.Tensor],
+    Tq: int,
+    Tk: int,
+) -> torch.Tensor:
+    """The dropout draw for (seed, item, head): int64 values in [0, 2^31),
+    bit-equal to ``_keep_mask_tile`` (attention_kernels.py:336-362). ``item``
+    and ``head`` broadcast against each other (e.g. [B, 1] and [1, H]); the
+    result has their shape followed by [Tq, Tk]. The (seed, item, head)
+    triple is finalized before the row index enters the stream."""
+    dev = seed.device if isinstance(seed, torch.Tensor) else torch.device("cpu")
+    as64 = lambda x: torch.as_tensor(x, device=dev).to(torch.int64) & _M32
+    seed, item, head = as64(seed), as64(item), as64(head)
+    x = _imix((seed + _mul32(item, _GOLD) + _mul32(head, _HEAD_MUL)) & _M32)
+    q = torch.arange(Tq, device=dev, dtype=torch.int64)
+    kk = torch.arange(Tk, device=dev, dtype=torch.int64)
+    x = _imix((x[..., None] + _mul32(q, _GOLD)) & _M32)
+    x = _imix(x[..., None] ^ _mul32(kk, _KEY_MUL))
+    return x >> 1
+
+
+def keep_threshold(rate: float) -> int:
+    """A draw below this keeps its weight (attention_kernels.py:367)."""
+    return int(round((1.0 - rate) * ((1 << 31) - 1)))
+
+
+def dropout_keep_mask(seed, item, head, Tq: int, Tk: int, rate: float) -> torch.Tensor:
+    """The host oracle of the in-kernel dropout draw: True = keep."""
+    return keep_mask_tile(seed, item, head, Tq, Tk) < keep_threshold(rate)
+
+
+def _train_keep(seed, B: int, H: int, T: int, rate: float, dev) -> torch.Tensor:
+    """[B, H, T, T] keep factor: 1/(1-rate) where kept, 0 where dropped."""
+    items = torch.arange(B, device=dev)[:, None]
+    heads = torch.arange(H, device=dev)[None, :]
+    keep = dropout_keep_mask(seed, items, heads, T, T, rate).to(dev)
+    inv_keep = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+    return torch.where(keep, inv_keep.to(dev), torch.zeros((), device=dev))
+
+
+def _train_scores(q_u, q_v, k, p, key_valid, H, scale):
+    """The recomputed softmax weights of the train kernels (f32 [B, H, T, T])
+    and the per-head operands, each rounded to the working dtype and held in
+    f32: ``ac`` and ``bd`` round to the working dtype, their sum times the
+    rounded scale rounds again, then the f32 key mask and softmax
+    (attention_kernels.py:459-478)."""
+    B, T, D = q_u.shape
+    d = D // H
+    wd = q_u.dtype
+    heads = lambda x: x.reshape(x.shape[0], -1, H, d).transpose(1, 2).float()
+    r = lambda x: x.to(wd).float()
+    qu, qv, kh = heads(q_u), heads(q_v), heads(k)
+    ph = p.reshape(1, 2 * T - 1, H, d).transpose(1, 2).float()[0]  # [H, 2T-1, d]
+    ac = qu @ kh.transpose(-1, -2)
+    bd_full = qv @ ph.transpose(-1, -2)  # [B, H, T, 2T-1]
+    pos = torch.arange(T, device=q_u.device)
+    idx = (T - 1) + pos[None, :] - pos[:, None]  # [T, T]: the espnet shift
+    bd = bd_full.gather(-1, idx.expand(B, H, T, T))
+    scale_w = torch.tensor(scale, dtype=wd).float().item()
+    s = r(r(r(ac) + r(bd)) * scale_w)
+    mask_add = torch.where(key_valid, 0.0, NEG_INF).float()
+    w = torch.softmax(s + mask_add[:, None, None, :], dim=-1)
+    return w, (qu, qv, kh, ph, idx)
+
+
+def rel_attention_train_reference(q_u, q_v, k, v, p, key_valid, H, scale, rate, seed):
+    """Plain version of the train forward (attention_kernels.py:371-403,
+    480-498): rounds where the kernel rounds, in the inputs' dtype (exact
+    f32 for f32 inputs); dropout multiplies the f32 weights by 1/(1-rate) or
+    0 before they round for the product with v. Returns [B, T, D]."""
+    B, T, D = q_u.shape
+    w, _ = _train_scores(q_u, q_v, k, p, key_valid, H, scale)
+    if rate > 0.0:
+        w = w * _train_keep(seed, B, H, T, rate, q_u.device)
+    vh = v.reshape(B, T, H, D // H).transpose(1, 2).float()
+    out = w.to(q_u.dtype).float() @ vh
+    return out.transpose(1, 2).reshape(B, T, D).to(q_u.dtype)
+
+
+def rel_attention_train_backward_reference(
+    q_u, q_v, k, v, p, key_valid, g, H, scale, rate, seed
+) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the train backward (attention_kernels.py:500-573):
+    ``dv = w_used^T g``, ``dw = (g v^T) * keep``, ``ds = w (dw - sum(dw w))
+    scale``, rounded to the working dtype; ``dq_u = ds k``, ``dk = ds^T
+    q_u``, and ``dq_v``, ``dp`` from the skewed ``dbd[q, T-1+k-q] = ds[q, k]``
+    (the adjoint of the relative shift), with ``dp`` summed over the batch in
+    f32. Returns (dq_u, dq_v, dk, dv in the inputs' dtype, dp in p's)."""
+    B, T, D = q_u.shape
+    d = D // H
+    wd = q_u.dtype
+    heads = lambda x: x.reshape(B, T, H, d).transpose(1, 2).float()
+    flat = lambda x: x.transpose(1, 2).reshape(B, -1, D).to(wd)
+    w, (qu, qv, kh, ph, idx) = _train_scores(q_u, q_v, k, p, key_valid, H, scale)
+    gh, vh = heads(g.to(wd)), heads(v)
+    keepf = _train_keep(seed, B, H, T, rate, q_u.device) if rate > 0.0 else None
+    w_used = w * keepf if keepf is not None else w
+    dv = w_used.to(wd).float().transpose(-1, -2) @ gh
+    dw = gh @ vh.transpose(-1, -2)
+    if keepf is not None:
+        dw = dw * keepf
+    ds = w * (dw - (dw * w).sum(-1, keepdim=True)) * scale
+    dsb = ds.to(wd).float()
+    dqu = dsb @ kh
+    dk = dsb.transpose(-1, -2) @ qu
+    dbd = torch.zeros(B, H, T, 2 * T - 1, device=q_u.device)
+    dbd.scatter_(-1, idx.expand(B, H, T, T), dsb)
+    dqv = dbd @ ph
+    dp = torch.einsum("bhqj,bhqd->jhd", dbd, qv).reshape(2 * T - 1, D)
+    return flat(dqu), flat(dqv), flat(dk), flat(dv), dp.to(p.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _train_lib() -> ctypes.CDLL:
+    from espresso_tpu_torch.ops import cuda_build
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = cuda_build.load("rel_attention_train", _TRAIN_SOURCES)
+    # pointers, then B, T, H, scale, use_dropout, thresh, inv_keep, device, stream
+    tail = [I, I, I, F, I, ctypes.c_uint32, F, I, P]
+    lib.rel_attention_train_fwd_bf16.argtypes = [P] * 8 + tail
+    lib.rel_attention_train_bwd_bf16.argtypes = [P] * 15 + tail
+    lib.rel_attention_train_fwd_bf16.restype = I
+    lib.rel_attention_train_bwd_bf16.restype = I
+    return lib
+
+
+def _train_launch_args(q_u, seed, H, scale, rate):
+    B, T, _ = q_u.shape
+    if seed.device != q_u.device or seed.dtype != torch.int32 or seed.numel() != 1:
+        raise ValueError("rel_attention_train: seed must be one int32 on the inputs' card")
+    device = q_u.device.index
+    tail = (
+        B, T, H, float(scale), int(rate > 0.0), keep_threshold(rate) if rate > 0.0 else 0,
+        1.0 / (1.0 - rate), device, torch.cuda.current_stream(device).cuda_stream,
+    )
+    return tail
+
+
+def rel_attention_train_fwd(q_u, q_v, k, v, p, key_valid, seed, H, scale, rate):
+    """The train forward: [B, T, D] context with attention-weight dropout.
+    ``seed`` is an int32 tensor of one element on the inputs' device."""
+    if q_u.device.type == "cpu":
+        return rel_attention_train_reference(q_u, q_v, k, v, p, key_valid, H, scale, rate, seed)
+    if q_u.device.type != "cuda":
+        raise ValueError(f"rel_attention_train_fwd: unsupported device {q_u.device}")
+    _check(q_u, q_v, k, v, p, key_valid, H, "rel_attention_train_fwd")
+    tail = _train_launch_args(q_u, seed, H, scale, rate)
+    out = torch.empty_like(q_u)
+    rc = _train_lib().rel_attention_train_fwd_bf16(
+        q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+        key_valid.data_ptr(), seed.data_ptr(), out.data_ptr(), *tail,
+    )
+    if rc != 0:
+        raise RuntimeError(f"rel_attention_train_fwd launch failed at T={q_u.shape[1]}: CUDA error {rc}")
+    rel_attention_train_fwd.launches += 1
+    return out
+
+
+def rel_attention_train_bwd(q_u, q_v, k, v, p, key_valid, seed, g, H, scale, rate):
+    """The train backward: (dq_u, dq_v, dk, dv) [B, T, D] bf16 and dp
+    [2T-1, D] f32 summed over the batch."""
+    if q_u.device.type == "cpu":
+        return rel_attention_train_backward_reference(
+            q_u, q_v, k, v, p, key_valid, g, H, scale, rate, seed
+        )
+    if q_u.device.type != "cuda":
+        raise ValueError(f"rel_attention_train_bwd: unsupported device {q_u.device}")
+    _check(q_u, q_v, k, v, p, key_valid, H, "rel_attention_train_bwd")
+    if g.shape != q_u.shape or g.dtype != torch.bfloat16 or not g.is_contiguous():
+        raise ValueError("rel_attention_train_bwd: g must be contiguous bf16 like q_u")
+    tail = _train_launch_args(q_u, seed, H, scale, rate)
+    B, T, D = q_u.shape
+    dqu, dqv, dk, dv = (torch.empty_like(q_u) for _ in range(4))
+    dp = torch.empty(2 * T - 1, D, dtype=torch.float32, device=q_u.device)
+    # ds and the dropped weights of every (item, head), for the key-side and
+    # position-side products of the second and third passes
+    scratch = torch.empty(2, B, H, T, T, dtype=torch.bfloat16, device=q_u.device)
+    rc = _train_lib().rel_attention_train_bwd_bf16(
+        q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+        key_valid.data_ptr(), seed.data_ptr(), g.data_ptr(), dqu.data_ptr(), dqv.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dp.data_ptr(), scratch[0].data_ptr(),
+        scratch[1].data_ptr(), *tail,
+    )
+    if rc != 0:
+        raise RuntimeError(f"rel_attention_train_bwd launch failed at T={T}: CUDA error {rc}")
+    rel_attention_train_bwd.launches += 1
+    return dqu, dqv, dk, dv, dp
+
+
+rel_attention_train_fwd.launches = 0
+rel_attention_train_bwd.launches = 0
+
+
+class RelAttentionTrain(torch.autograd.Function):
+    """Train-mode fused rel-pos self-attention: the forward kernel with
+    in-kernel dropout, and the backward kernel for all five inputs."""
+
+    @staticmethod
+    def forward(ctx, q_u, q_v, k, v, p, key_valid, seed, H, scale, rate):
+        ctx.save_for_backward(q_u, q_v, k, v, p, key_valid, seed)
+        ctx.args = (H, scale, rate)
+        return rel_attention_train_fwd(q_u, q_v, k, v, p, key_valid, seed, H, scale, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        q_u, q_v, k, v, p, key_valid, seed = ctx.saved_tensors
+        H, scale, rate = ctx.args
+        dqu, dqv, dk, dv, dp = rel_attention_train_bwd(
+            q_u, q_v, k, v, p, key_valid, seed, g.to(q_u.dtype).contiguous(), H, scale, rate
+        )
+        return (
+            dqu.to(q_u.dtype), dqv.to(q_v.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            dp.to(p.dtype), None, None, None, None, None,
+        )
+
+
+def rel_attention_train(q_u, q_v, k, v, p, key_valid, seed, H: int, scale: float, rate: float):
+    """Fused rel-pos self-attention for training; returns [B, T, D] in the
+    q_u dtype. ``seed``: an int32 tensor of one element on the inputs'
+    device (its value picks the dropout mask; unused at rate 0)."""
+    return RelAttentionTrain.apply(q_u, q_v, k, v, p, key_valid, seed, H, scale, rate)

@@ -39,7 +39,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str, sources: Sequence[str]) -> Tuple[str, str]:
     """(directory, .so path) for a library built from ``sources``
-    (file names under csrc/), keyed on their bytes and the flags."""
+    (file names under csrc/, the headers they include among them), keyed
+    on their bytes and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         with open(os.path.join(CSRC_DIR, src), "rb") as f:
@@ -62,7 +63,8 @@ def build(name: str, sources: Sequence[str]) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp]
-    cmd += [os.path.join(CSRC_DIR, s) for s in sources]
+    # headers (.cuh) are hashed with the sources but only included by them
+    cmd += [os.path.join(CSRC_DIR, s) for s in sources if s.endswith(".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     with open(os.path.join(out_dir, f"{name}.log"), "w") as f:
         f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)

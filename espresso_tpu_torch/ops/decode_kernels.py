@@ -38,10 +38,10 @@ NEG_INF = -1.0e9
 LN_EPS = 1e-6  # the joint's ln_dec epsilon, as the TPU kernel hard-codes it
 MAX_CAND = 32  # the joint kernel keeps per-thread top lists of 16 or 32
 
-# library name -> its one CUDA source under csrc/
+# library name -> its CUDA source under csrc/ (with the header it includes)
 LIBRARIES = {
-    "fused_joint_topk": ("fused_joint_topk.cu",),
-    "lstm_step_reorder": ("lstm_step_reorder.cu",),
+    "fused_joint_topk": ("fused_joint_topk.cu", "bf16_mma.cuh"),
+    "lstm_step_reorder": ("lstm_step_reorder.cu", "bf16_mma.cuh"),
     "aes_merge": ("aes_merge.cu",),
     "aes_backtrace": ("aes_backtrace.cu",),
 }

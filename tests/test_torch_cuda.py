@@ -125,3 +125,56 @@ def test_decode_kernels_reject_what_they_do_not_take(dev):
         dk.aes_backtrace(**b, n_exp=1)
     with pytest.raises(ValueError, match="int32"):
         dk.aes_backtrace(**dict(b, etok=b["etok"].long()), n_exp=2)
+
+
+# ---------------------------------------------------------------------------
+# the training kernels (inputs and checks in ops/train_kernel_checks.py,
+# which chip_smoke.py runs at the flagship shapes too)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,T", [(16, 256), (3, 2), (3, 37), (2, 130)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rel_attention_train_kernels_match_plain_versions(dev, B, T, rate):
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    a = tc.attention_train_inputs(B, T, seed=T, dev=dev)
+    before = (ak.rel_attention_train_fwd.launches, ak.rel_attention_train_bwd.launches)
+    tc.check_attention_train(a, H, rate)
+    assert (ak.rel_attention_train_fwd.launches, ak.rel_attention_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1,
+    )
+
+
+@pytest.mark.parametrize(
+    "B,T,U,V,blank",
+    [(16, 256, 100, 1024, 0), (2, 37, 9, 5003, 131), (3, 5, 2, 67, 66), (1, 1, 0, 1024, 0)],
+)
+def test_rnnt_joint_kernels_match_plain_versions(dev, B, T, U, V, blank):
+    from espresso_tpu_torch.ops import rnnt_kernels as rk
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    before = (rk.rnnt_joint_lp.launches, rk.rnnt_joint_bwd.launches)
+    tc.check_rnnt_joint(tc.rnnt_inputs(B, T, U, 512, V, seed=V + T, dev=dev, blank=blank), blank)
+    assert (rk.rnnt_joint_lp.launches, rk.rnnt_joint_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_train_kernels_reject_what_they_do_not_take(dev):
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import rnnt_kernels as rk
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    a = tc.attention_train_inputs(2, 8, seed=0, dev=dev)
+    args = (a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"])
+    with pytest.raises(ValueError, match="seed"):
+        ak.rel_attention_train_fwd(*args, a["seed"].long(), H, 0.125, 0.1)
+    with pytest.raises(ValueError, match="bf16"):
+        ak.rel_attention_train_fwd(a["q_u"].float(), *args[1:], a["seed"], H, 0.125, 0.1)
+    r = tc.rnnt_inputs(2, 4, 3, 64, 64, seed=0, dev=dev)
+    with pytest.raises(ValueError, match="joint width"):
+        rk.rnnt_joint_lp(r["enc_proj"], r["dec_proj"], r["fc_kernel"], r["fc_bias"], r["targets"], 0)
+    r = tc.rnnt_inputs(2, 4, 3, 512, 64, seed=0, dev=dev)
+    with pytest.raises(ValueError, match="transposed view"):
+        rk.rnnt_joint_lp(r["enc_proj"], r["dec_proj"], r["fc_kernel"].contiguous(),
+                         r["fc_bias"], r["targets"], 0)

@@ -242,6 +242,9 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'espresso_tpu_torch.')]\n"
         "for m in names: importlib.import_module(m)\n"
         "assert len(names) >= 15, names\n"
+        "new = {'espresso_tpu_torch.train.trainer', 'espresso_tpu_torch.criterions',\n"
+        "       'espresso_tpu_torch.config', 'espresso_tpu_torch.ops.rnnt_kernels'}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
         "bad = [m for m in ('jax', 'flax', 'espresso_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
