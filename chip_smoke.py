@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths and its train path
-(``espresso_tpu_torch``) at the flagship Conformer-Transducer's full width
-and checks its nine Hopper kernels:
+Drives the port's serving paths and its train path
+(``espresso_tpu_torch``) at the flagship Conformer-Transducer's full width,
+fed frames and fed PCM through the on-device feature front, and checks its
+eleven Hopper kernels:
 
 1. requires a CUDA card of capability (9, 0); builds every kernel from
    ``espresso_tpu_torch/csrc`` with nvcc (sm_90a), one nvcc process per
@@ -17,8 +18,12 @@ and checks its nine Hopper kernels:
    ``rel_attention_train_fwd``/``_bwd`` at B=16, T'=256 and odd or short
    shapes with ragged key masks, at dropout 0 and 0.1 with one seed;
    ``rnnt_joint_lp``/``_bwd`` at B=16, T'=256, U1=101, J=512, V=1024 and
-   V=5003 with the blank in a later tile and ragged lengths), and times
-   kernel and plain version at the flagship shape;
+   V=5003 with the blank in a later tile and ragged lengths; ``fbank`` at
+   the 256-utterance serving batch as PCM and at edge sample counts (399,
+   400, one window short, one utterance) by the Kaldi goldens' rule;
+   ``int8_matmul`` at the flagship FFN shapes over a serving batch's frames
+   and a ragged one, bit for bit), and times kernel and plain version at
+   the flagship shape;
 3. builds the flagship model (16 conformer layers, d=512, ffn 2048, 8 heads,
    depthwise kernel 31, relative positions, batch norm; 2x512 LSTM
    prediction net, joint 512, V=1024) from a seeded init in bf16, and
@@ -32,7 +37,12 @@ and checks its nine Hopper kernels:
    vocab, within the length cap); the encoder output on a sub-batch against
    the plain attention; and the beam decode of an 8-utterance sub-batch
    with the joint peaked x6 through the kernels against the same decode
-   through the plain versions;
+   through the plain versions; then decodes the same batch from PCM:
+   ``make_device_feature_fn`` (fbank, global CMVN from stats the port
+   accumulates from the batch) before the beam decoder, one warm-up and
+   one timed batch, one ``fbank`` launch a batch and every other kernel
+   launched as often as in a frame-fed batch, no host sync in the front,
+   and the front's share of the batch;
 5. trains the flagship from a seeded init at ``bench_train.py``'s point
    (B=16 utterances of 1024 frames, U=100, dropout 0.1, bf16 compute on
    fp32 masters, adam at a fixed lr of 1e-3, clip 2.0): one warm-up step,
@@ -41,7 +51,12 @@ and checks its nine Hopper kernels:
    joint kernel per step, finite losses, no skipped update and a falling
    loss; profiles one step; and holds one step of a 2-utterance sub-batch
    at dropout 0 through the kernels against the same step through the
-   plain versions.
+   plain versions; then trains from PCM (B=16, S=164,080) with the
+   recipe's front (fbank, global CMVN, SpecAugment with time warp W=80):
+   a warm-up step and 3 steps, one ``fbank`` launch a step, no host sync in
+   the front and the SpecAugment draws, and two steps with quant noise
+   p=0.1 (~0.1 of the noised leaves' 8-blocks zeroed, the fp32 masters
+   never noised).
 
 Any failure raises (nonzero exit) before the result lines. Prints the
 serving and ``{"train": ...}`` JSON lines, then, as its last three lines,
@@ -60,6 +75,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -113,9 +129,19 @@ TRAIN_GNORM_RTOL = 0.05
 TRAIN_LEAF_GRAD_REL = 0.2
 TRAIN_LEAF_SCALE = 0.04
 TRAIN_ZERO_GRAD = re.compile(r"(conv\.convs\.\d+|depthwise_conv|self_attn\.k_proj)\.bias$")
+# the feature front: the flagship recipe's SpecAugment
+# (conformer_transducer_librispeech.yaml:35) and the train point's waveform
+# length, (1024 - 1) * 160 + 400 samples, as the JAX collator pads it
+SPECAUGMENT = "{'W': 80, 'F': 27, 'T': 100, 'num_freq_masks': 2, 'num_time_masks': 2, 'p': 1.0}"
+SHIFT, WINDOW = 160, 400
+QUANT_NOISE_P = 0.1
+# B11's shapes: the flagship FFN's two products over a serving batch's
+# encoder frames (256 x 156), and a ragged edge
+INT8_SHAPES = [(39936, 512, 2048), (39936, 2048, 512), (1000, 200, 300)]
 # the card's published peaks (H100 SXM data sheet, dense): bf16 tensor
-# cores, fp32 outside them, device memory
+# cores, int8 tensor cores, fp32 outside them, device memory
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -193,9 +219,15 @@ def time_pair(name: str, kernel_fn, plain_fn, kernel: str, plain_calls: int = 10
 
 
 def build_kernels() -> str:
-    from espresso_tpu_torch.ops import attention_kernels, cuda_build, decode_kernels, rnnt_kernels
+    from espresso_tpu_torch.features import fbank_kernels
+    from espresso_tpu_torch.ops import (
+        attention_kernels, cuda_build, decode_kernels, quantization, rnnt_kernels,
+    )
 
-    libs = {**attention_kernels.LIBRARIES, **decode_kernels.LIBRARIES, **rnnt_kernels.LIBRARIES}
+    libs = {
+        **attention_kernels.LIBRARIES, **decode_kernels.LIBRARIES, **rnnt_kernels.LIBRARIES,
+        **fbank_kernels.LIBRARIES, **quantization.LIBRARIES,
+    }
     cuda_build.build_many(libs.items())
     return "\n".join(cuda_build.build_log(n, s) for n, s in libs.items())
 
@@ -408,6 +440,91 @@ def check_train_kernels(dev) -> dict:
     return rows
 
 
+def samples_for(frame_lengths: np.ndarray, seed: int) -> np.ndarray:
+    """Sample counts that give these frame counts: (L - 1) * shift + window
+    plus up to shift - 1 samples that make no further frame."""
+    extra = np.random.default_rng(seed).integers(0, SHIFT, size=len(frame_lengths))
+    return ((frame_lengths - 1) * SHIFT + WINDOW + extra).astype(np.int32)
+
+
+def serving_num_samples() -> np.ndarray:
+    """The serving batch's frame counts (flagship_lengths) in samples,
+    within S = (T - 1) * shift + window."""
+    T = FLAGSHIP["T_FRAMES"]
+    lengths = flagship_lengths(np.random.default_rng(0))
+    return np.minimum(samples_for(lengths, seed=1), (T - 1) * SHIFT + WINDOW)
+
+
+def check_front_kernels(dev) -> dict:
+    """B10 (fbank) at the serving batch and at edge shapes, by the goldens'
+    rule; B11 (int8_matmul) at the flagship FFN shapes and a ragged one, bit
+    for bit. Times kernel and plain version at the serving batch and the
+    first FFN shape. Returns one row per kernel."""
+    from espresso_tpu_torch.features import fbank_kernels as fk
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+    from espresso_tpu_torch.ops import quantization as qz
+
+    rows = {}
+    S = (FLAGSHIP["T_FRAMES"] - 1) * SHIFT + WINDOW
+    ns = serving_num_samples()
+    a = fc.waveform_inputs(ns.tolist(), S, seed=0, dev=dev)
+    errs = [fc.check_fbank(a)]
+    for nums, S_edge in [([399, 400, 16000], 16000), ([250], 250), ([4321], 4321)]:
+        errs.append(fc.check_fbank(fc.waveform_inputs(nums, S_edge, seed=S_edge, dev=dev)))
+    log(f"fbank errors per shape {errs} (bounds: log {fc.FBANK_LOG_TOL} on bins within 70 dB of "
+        f"the frame's peak, linear {fc.FBANK_LIN_TOL} of the frame's peak energy)")
+    B, T, M = FLAGSHIP["B"], FLAGSHIP["T_FRAMES"], FLAGSHIP["FEAT"]
+    valid = int(np.minimum(1 + (ns - WINDOW) // SHIFT, T).sum())
+    # the operations the function needs for the frames the lengths make
+    # valid, counted as an FFT computes it: a 512-point real FFT (2.5 N
+    # log2 N), |X|^2 over its 257 bins, a multiply-add for each non-zero
+    # weight of the mel table, ~5 operations a window sample (mean, DC,
+    # pre-emphasis, window) and a log a mel bin; the waveforms read and the
+    # frames and lengths written once
+    nfft = 512
+    mel_nnz = int(np.count_nonzero(fk._dft_mel_matrices(WINDOW, nfft, M, 16000.0)[2]))
+    fft_flops = valid * (2.5 * nfft * math.log2(nfft) + 3 * (nfft // 2 + 1) + 2 * mel_nnz
+                         + 5 * WINDOW + M)
+    n_bytes = B * S * 4 + B * 4 + B * T * M * 4 + B * 4
+    row = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, fft_flops, PEAK_FP32)))
+    # the floor of this kernel's own design, which multiplies the DFT bases
+    # over the window's 400 rows and 256 bins: PERF.md keeps it beside the
+    # function's bound
+    row["dft_design_bound_ms"] = bound(n_bytes, valid * (4 * WINDOW * 256 + 2 * mel_nnz), PEAK_FP32)[0]
+    row.update(time_pair(
+        "fbank", lambda: fk.fbank_fused(a["waveforms"], a["num_samples"]),
+        lambda: fk.fbank_plain(a["waveforms"], a["num_samples"]), "fbank_kernel",
+    ))
+    rows["fbank"] = dict(row, max_abs_err=max(e["log"] for e in errs), valid_frames=valid,
+                         linear_err=max(e["linear"] for e in errs))
+    log(f"fbank serving-batch bound: {row['bound_ms']} ms ({row['bound_by']}, {valid} valid "
+        f"frames of {B * T}, {fft_flops / 1e9:.3f} GFLOP at FFT level, {n_bytes / 1e6:.1f} MB, "
+        f"mel table {mel_nnz} non-zeros); the DFT-product design's floor "
+        f"{row['dft_design_bound_ms']} ms")
+
+    errs = []
+    for M_, K_, N_ in INT8_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            errs.append(fc.check_int8_matmul(fc.int8_inputs(M_, K_, N_, seed=K_, dev=dev, dtype=dtype)))
+    log(f"int8_matmul at {INT8_SHAPES} in f32 and bf16: bit-exact (max_abs_err {max(errs)})")
+    for i, (M_, K_, N_) in enumerate(INT8_SHAPES[:2]):
+        q = fc.int8_inputs(M_, K_, N_, seed=K_, dev=dev)
+        # x f32, w_q int8 and its scales read; out f32 written; M K N
+        # multiply-adds at the int8 rate
+        n_bytes = M_ * K_ * 4 + K_ * N_ + N_ * 4 + M_ * N_ * 4
+        r = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, 2 * M_ * K_ * N_, PEAK_INT8)))
+        r.update(time_pair(
+            f"int8_matmul {M_}x{K_}x{N_}", lambda: qz.int8_matmul(q["x"], q["w_q"], q["w_scale"]),
+            lambda: qz.int8_matmul_plain(q["x"], q["w_q"], q["w_scale"]), "", plain_calls=3,
+        ))
+        log(f"int8_matmul {M_}x{K_}x{N_} bound: {r['bound_ms']} ms ({r['bound_by']})")
+        if i == 0:
+            rows["int8_matmul"] = dict(r, max_abs_err=max(errs))
+        else:
+            rows["int8_matmul"]["second_shape"] = r
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # the serving paths
 # ---------------------------------------------------------------------------
@@ -431,12 +548,19 @@ def flagship_model(dev):
     return TransducerModel(cfg).to(dev, torch.bfloat16).eval()
 
 
+def flagship_lengths(rng) -> np.ndarray:
+    """The serving batch's frame counts: uniform in [T/2, T], the first T."""
+    T = FLAGSHIP["T_FRAMES"]
+    lengths = rng.integers(T // 2, T + 1, size=FLAGSHIP["B"]).astype(np.int32)
+    lengths[0] = T
+    return lengths
+
+
 def flagship_batch(dev) -> dict:
     B, T = FLAGSHIP["B"], FLAGSHIP["T_FRAMES"]
     rng = np.random.default_rng(0)
     frames = torch.from_numpy(rng.standard_normal((B, T, FLAGSHIP["FEAT"]), np.float32))
-    lengths = rng.integers(T // 2, T + 1, size=B).astype(np.int32)
-    lengths[0] = T
+    lengths = flagship_lengths(rng)
     return {
         "src_frames": frames.to(dev, torch.bfloat16),
         "src_lengths": torch.from_numpy(lengths).to(dev),
@@ -659,6 +783,96 @@ def compare_beam(model, batch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serving from PCM: the feature front, then the beam decoder
+# ---------------------------------------------------------------------------
+
+
+def feature_config(cmvn_path: str, specaugment=None, quant_noise: float = 0.0):
+    """The flagship recipe's data section (conformer_transducer_librispeech
+    .yaml:28-35, run.sh:78-82): device fbank, global CMVN, SpecAugment."""
+    from espresso_tpu_torch.config import EspressoConfig
+
+    cfg = EspressoConfig()
+    cfg.dataset.feature_type = "device_fbank"
+    cfg.dataset.global_cmvn_stats_path = cmvn_path
+    cfg.dataset.specaugment_config = specaugment
+    cfg.optimization.quant_noise_pq = quant_noise
+    return cfg
+
+
+def write_cmvn_stats(pcm: dict, path: str) -> None:
+    """Global CMVN stats of the batch's own fbank frames, accumulated on the
+    host by the port's compute_global_cmvn_stats, saved to ``path``."""
+    from espresso_tpu_torch.features.cmvn import compute_global_cmvn_stats
+    from espresso_tpu_torch.features.fbank_kernels import fbank_fused
+
+    frames, lengths = fbank_fused(pcm["src_waveforms"], pcm["num_samples"])
+    frames, lengths = frames.cpu(), lengths.cpu().tolist()
+    np.savez(path, **compute_global_cmvn_stats(frames[b, :n] for b, n in enumerate(lengths)))
+
+
+def run_beam_from_pcm(model, dev, tmpdir: str, frame_batch_ms: float, frame_launches: dict) -> dict:
+    """The 256-utterance batch as PCM through make_device_feature_fn (B10,
+    global CMVN) and the AES beam decoder: one warm-up batch and one timed
+    batch; the front's device time by CUDA events and its share of the
+    batch; one B10 launch a batch and every other kernel launched as often
+    as in a frame-fed batch of the same B, T and lengths
+    (``frame_launches``); no host sync in the front or in launching the
+    decode."""
+    from espresso_tpu_torch.data.dictionary import AsrDictionary
+    from espresso_tpu_torch.decode.transducer_beam import TransducerBeamSearchDecoder
+    from espresso_tpu_torch.features.fbank_kernels import fbank_fused
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+    from espresso_tpu_torch.train.trainer import make_device_feature_fn
+
+    T = FLAGSHIP["T_FRAMES"]
+    S = (T - 1) * SHIFT + WINDOW
+    a = fc.waveform_inputs(serving_num_samples().tolist(), S, seed=0, dev=dev)
+    pcm = {"src_waveforms": a["waveforms"], "num_samples": a["num_samples"]}
+    cmvn = f"{tmpdir}/cmvn.npz"
+    write_cmvn_stats(pcm, cmvn)
+    prepare = make_device_feature_fn(feature_config(cmvn))
+    decoder = TransducerBeamSearchDecoder(model, AsrDictionary(enable_bos=True), **BEAM)
+    t0 = time.perf_counter()
+    decoder.decode(prepare(pcm))
+    torch.cuda.synchronize()
+    log(f"PCM beam warm-up batch {time.perf_counter() - t0:.3f} s")
+    kernels = {**all_kernels(), "fbank": fbank_fused}
+    for f in kernels.values():
+        f.launches = 0
+    start, mid = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        feats = prepare(pcm)
+        mid.record()
+        handle = decoder.decode_async(feats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    hyps = decoder.collect(handle)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    front_ms = start.elapsed_time(mid)
+    counts = {name: f.launches for name, f in kernels.items()}
+    want = {**frame_launches, "fbank": 1}
+    if counts != want:
+        raise AssertionError(f"PCM beam batch launches {counts}, want {want}")
+    if feats["src_frames"].shape != (FLAGSHIP["B"], T, FLAGSHIP["FEAT"]) or not bool(
+            torch.isfinite(feats["src_frames"]).all()):
+        raise AssertionError(f"front output {tuple(feats['src_frames'].shape)} not finite or shaped")
+    L_max = max(int(T * BEAM["max_out_factor"]), 8)
+    emitted, _ = check_hypotheses(hyps, L_max, FLAGSHIP["VOCAB"], 0, BEAM["beam_size"])
+    out = dict(batch_ms=wall_ms, front_ms=front_ms, front_share=front_ms / wall_ms,
+               frame_fed_batch_ms=frame_batch_ms,
+               rtfx=FLAGSHIP["B"] * T * FRAME_SHIFT_S / (wall_ms / 1e3),
+               launches=counts, tokens_in_best=emitted)
+    log(f"beam from PCM B={FLAGSHIP['B']} S={S}: batch {wall_ms:.1f} ms (frame-fed "
+        f"{frame_batch_ms:.1f} ms), front {front_ms:.3f} ms device ({front_ms / wall_ms:.2%} of "
+        f"the batch), no host sync in the front; launches {counts}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the train path
 # ---------------------------------------------------------------------------
 
@@ -736,14 +950,15 @@ def train_batch(dev, B: int) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def trainer(model):
-    """bench_train.py:124-127's config: bf16 compute, adam at the default
-    fixed lr 1e-3, clip 2.0; returns (state, train_step)."""
+def trainer(model, cfg=None):
+    """bench_train.py:124-127's config (on ``cfg``'s data section when one
+    is given): bf16 compute, adam at the default fixed lr 1e-3, clip 2.0;
+    returns (state, train_step)."""
     from espresso_tpu_torch.config import EspressoConfig
     from espresso_tpu_torch.criterions import TransducerCriterion
     from espresso_tpu_torch.train.trainer import build_optimizer, create_train_state, make_train_step
 
-    cfg = EspressoConfig()
+    cfg = cfg or EspressoConfig()
     cfg.common.dtype = "bfloat16"
     cfg.optimization.clip_norm = 2.0
     optimizer, _ = build_optimizer(cfg)
@@ -868,6 +1083,148 @@ def run_train(dev) -> dict:
     return out
 
 
+class NoiseProbe:
+    """A criterion that, before it runs, reads the compute copies the step
+    has noised: the share of zeroed 8-blocks in the noised leaves (in their
+    flax layout), and whether the fp32 masters still equal ``masters``."""
+
+    def __init__(self, criterion, model, state, masters):
+        from espresso_tpu_torch.ops.quantization import QuantNoise
+
+        self.criterion, self.state, self.masters = criterion, state, masters
+        self.logging_keys = criterion.logging_keys
+        self.leaves = QuantNoise(model, QUANT_NOISE_P).leaves
+        self.shapes = {n: p.shape for n, p in model.named_parameters()}
+
+    def __call__(self, model, mb):
+        from espresso_tpu_torch.bridge import to_flax_layout
+
+        zero = total = 0
+        with torch.no_grad():
+            for name, off, n, _, leaf, _ in self.leaves:
+                w = to_flax_layout(leaf, self.state.compute[off : off + n].view(self.shapes[name]))
+                w = torch.nn.functional.pad(w.reshape(-1), (0, -n % 8), value=1.0)
+                zero += int((w.view(-1, 8) == 0).all(1).sum())
+                total += w.numel() // 8
+        self.zero_share = zero / total
+        self.masters_untouched = bool(torch.equal(self.state.params, self.masters))
+        return self.criterion(model, mb)
+
+
+def run_train_from_pcm(dev, tmpdir: str, frame_ms: float) -> dict:
+    """bench_train.py's point fed PCM (B=16, S=164,080) with the recipe's
+    front: device fbank (B10), global CMVN, SpecAugment with time warp. A
+    warm-up step and 3 steps: finite losses, no skipped update, one B10
+    launch a step; the front and the SpecAugment draws make no host sync.
+    Then two steps with quant noise p=0.1: finite losses; in the first, ~p
+    of the noised leaves' 8-blocks zeroed and the fp32 masters never
+    noised; the second timed."""
+    from espresso_tpu_torch.criterions import TransducerCriterion
+    from espresso_tpu_torch.features.fbank_kernels import fbank_fused
+    from espresso_tpu_torch.features.specaugment import (
+        SpecAugmentConfig, apply_specaugment, draw_specaugment,
+    )
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+    from espresso_tpu_torch.train.trainer import build_optimizer, make_device_feature_fn, make_train_step
+
+    B, T, steps = TRAIN["B"], TRAIN["T_FRAMES"], 3
+    S = (T - 1) * SHIFT + WINDOW
+    model = train_model(dev, TRAIN["DROPOUT"])
+    a = fc.waveform_inputs([S] * B, S, seed=2, dev=dev)
+    frames_batch = train_batch(dev, B)
+    batch = {k: v for k, v in frames_batch.items() if not k.startswith("src_")}
+    batch["src_waveforms"], batch["num_samples"] = a["waveforms"][None], a["num_samples"][None]
+    cmvn = f"{tmpdir}/cmvn_train.npz"
+    write_cmvn_stats({k: v[0] for k, v in batch.items()}, cmvn)
+    cfg = feature_config(cmvn, SPECAUGMENT)
+    state, step = trainer(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    # the step's front on its own: fbank, CMVN, SpecAugment's draws and
+    # masks, warmed up once, then timed by CUDA events and launched with no
+    # host sync
+    prepare, spec = make_device_feature_fn(cfg), SpecAugmentConfig.from_string(SPECAUGMENT)
+    mb = {k: v[0] for k, v in batch.items()}
+
+    def front():
+        feats = prepare(mb)
+        x = feats["src_frames"]
+        draws = draw_specaugment(B, x.shape[-1], spec, gen, dev)
+        return feats, apply_specaugment(x, feats["src_lengths"], draws, spec)
+
+    front()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        feats, x = front()
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    end.synchronize()
+    front_ms = start.elapsed_time(end)
+    if not bool(torch.isfinite(x).all()) or bool((x == feats["src_frames"]).all()):
+        raise AssertionError("SpecAugment left the frames unchanged or not finite")
+
+    t0 = time.perf_counter()
+    state, m = step(state, batch, gen)
+    log(f"PCM train warm-up step {time.perf_counter() - t0:.3f} s, loss {m['loss'].item()}")
+    kernels = {**train_kernels(), "fbank": fbank_fused}
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, batch, gen)
+        metrics.append(m)
+    losses = torch.stack([m["loss"] for m in metrics]).tolist()
+    wall = time.perf_counter() - t0
+    counts = {name: f.launches for name, f in kernels.items()}
+    overflow = torch.stack([m["overflow"] for m in metrics]).sum().item()
+    n_layers = len(model.encoder.layers)
+    want = {"rel_attention_train_fwd": n_layers * steps, "rel_attention_train_bwd": n_layers * steps,
+            "rnnt_joint_lp": steps, "rnnt_joint_bwd": steps, "fbank": steps}
+    if counts != want:
+        raise AssertionError(f"PCM train launches {counts}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or overflow:
+        raise AssertionError(f"PCM train losses {losses}, overflow {overflow}")
+    ms = wall / steps * 1e3
+    log(f"train from PCM B={B} S={S}: {ms:.1f} ms/step over {steps} steps (frame-fed "
+        f"{frame_ms:.1f} ms/step); the front (fbank, CMVN, SpecAugment) {front_ms:.3f} ms "
+        f"({front_ms / ms:.2%} of a step), no host sync in it; losses {losses}; launches {counts}")
+
+    # one step with quant noise, on the same state
+    qcfg = feature_config(cmvn, SPECAUGMENT, quant_noise=QUANT_NOISE_P)
+    qcfg.common.dtype, qcfg.optimization.clip_norm = "bfloat16", 2.0
+    optimizer, _ = build_optimizer(qcfg)
+    probe = NoiseProbe(TransducerCriterion(qcfg.criterion, _Dictionary()), model, state,
+                       state.params.clone())
+    # the state's adam moments and count carry on into the noised step
+    qstep = make_train_step(model, probe, optimizer, qcfg)
+    state, m = qstep(state, batch, gen)
+    q_loss = m["loss"].item()
+    # the same noised step without the probe, timed
+    qstep = make_train_step(model, probe.criterion, optimizer, qcfg)
+    t0 = time.perf_counter()
+    state, m = qstep(state, batch, gen)
+    q_loss_2 = m["loss"].item()
+    q_ms = (time.perf_counter() - t0) * 1e3
+    restored = bool(torch.equal(state.compute, state.params.to(state.compute.dtype)))
+    log(f"quant-noise steps p={QUANT_NOISE_P}: the second {q_ms:.1f} ms (PCM-fed steps "
+        f"{ms:.1f} ms), losses {q_loss} and {q_loss_2}; in the first, zeroed 8-block share "
+        f"{probe.zero_share:.5f} over {len(probe.leaves)} noised leaves, masters untouched "
+        f"{probe.masters_untouched}, compute copies restored {restored}")
+    if not (math.isfinite(q_loss) and math.isfinite(q_loss_2)
+            and abs(probe.zero_share - QUANT_NOISE_P) <= 0.01
+            and probe.masters_untouched and restored):
+        raise AssertionError("the quant-noise step failed its checks")
+    return dict(ms_per_step=ms, frame_fed_ms_per_step=frame_ms, front_ms=front_ms,
+                front_share=front_ms / ms, losses=losses, launches=counts,
+                quant_noise=dict(ms=q_ms, losses=[q_loss, q_loss_2], zero_share=probe.zero_share,
+                                 noised_leaves=len(probe.leaves)))
+
+
 def compare_train_step(dev) -> dict:
     """One step of a 2-utterance sub-batch at dropout 0 from one init,
     through the kernels and through the plain versions: the loss and the
@@ -945,8 +1302,9 @@ def main() -> int:
 
     rows = {
         "rel_attention": check_attention(dev), **check_decode_kernels(dev),
-        **check_train_kernels(dev),
+        **check_train_kernels(dev), **check_front_kernels(dev),
     }
+    tmp = tempfile.TemporaryDirectory()
 
     model = flagship_model(dev)
     batch = flagship_batch(dev)
@@ -957,14 +1315,18 @@ def main() -> int:
     beam = run_beam(model, batch, dev, enc_ms, T_enc)
     greedy["encoder_max_abs_err"] = compare_encoder(model, batch)
     beam["sub_batch"] = compare_beam(model, batch)
-    print(json.dumps({"greedy": greedy, "beam": beam, "card": card}))
+    beam_pcm = run_beam_from_pcm(model, dev, tmp.name, beam["wall_s"] / 3 * 1e3,
+                                 {k: v // 3 for k, v in beam["launches"].items()})
+    print(json.dumps({"greedy": greedy, "beam": beam, "beam_from_pcm": beam_pcm, "card": card}))
     del model, batch
     torch.cuda.empty_cache()
 
     train = run_train(dev)
     train["sub_batch"] = compare_train_step(dev)
-    train["card"] = card
-    print(json.dumps({"train": train}))
+    torch.cuda.empty_cache()
+    train_pcm = run_train_from_pcm(dev, tmp.name, train["ms_per_step"])
+    tmp.cleanup()
+    print(json.dumps({"train": train, "train_from_pcm": train_pcm, "card": card}))
 
     sources = {
         "rel_attention": ("rel_attention.cu", "espresso_tpu/ops/attention_kernels.py:185"),
@@ -978,12 +1340,18 @@ def main() -> int:
             "rel_attention_train.cu", "espresso_tpu/ops/attention_kernels.py:617"),
         "rnnt_joint_lp": ("rnnt_joint_lp.cu", "espresso_tpu/ops/rnnt_pallas.py:83"),
         "rnnt_joint_bwd": ("rnnt_joint_bwd.cu", "espresso_tpu/ops/rnnt_pallas.py:211"),
+        "fbank": ("fbank.cu", "espresso_tpu/features/pallas_fbank.py:177"),
+        "int8_matmul": ("int8_matmul.cu", "espresso_tpu/ops/quantization.py:141"),
     }
-    # each kernel's launches on the path that runs it
-    launches = {**beam["launches"], **train["launches"]}
+    # each kernel's launches on the path that runs it: fbank's in the
+    # PCM-fed serving batch (the PCM-fed train steps launch it once a step);
+    # int8_matmul lies on no path
+    launches = {**beam["launches"], **train["launches"], "fbank": beam_pcm["launches"]["fbank"],
+                "int8_matmul": 0}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rows[name]
+        extra = {"reason": "no caller in either package"} if name == "int8_matmul" else {}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -995,8 +1363,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            # no single PyTorch call computes any of these nine functions
+            # no single PyTorch call computes any of these functions (for
+            # int8_matmul, torch._int_mm covers only the int8 product)
             "library_ms": None,
+            **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

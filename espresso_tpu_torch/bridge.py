@@ -14,7 +14,10 @@ layout mapping in ``espresso_tpu/cli/convert_espresso_checkpoint.py:7-17``:
   * LSTM gate order (i, f, g, o) is the same in both
 
 It raises if a port tensor is left unfilled, a JAX leaf goes unused, or a
-shape disagrees.
+shape disagrees. ``flax_leaves`` names the flax leaf of each port parameter
+and ``to_flax_layout`` / ``from_flax_layout`` move a tensor between the two
+layouts, for code that follows flax's leaf names and layouts (quant noise
+and weight quantization, ``ops/quantization.py``).
 """
 
 from __future__ import annotations
@@ -48,8 +51,40 @@ _LEAVES = {
     "mean": "running_mean",
     "var": "running_var",
 }
-# flax kernel layout -> torch weight layout, by rank
+# flax kernel layout -> torch weight layout, by rank, and back
 _KERNEL_PERM = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_KERNEL_PERM_INV = {n: tuple(int(i) for i in np.argsort(p)) for n, p in _KERNEL_PERM.items()}
+_KERNEL_MODULES = (nn.Linear, nn.Conv1d, nn.Conv2d)
+
+
+def flax_leaves(model: nn.Module) -> Dict[str, str]:
+    """The flax leaf name of each of ``model``'s parameters, in parameter
+    order: ``kernel`` for the weight of a Linear or a convolution (held in
+    the torch layout), ``embedding`` for an Embedding's table, ``scale`` for
+    any other weight (the norms'), else the parameter's own name."""
+    leaves = {}
+    for mname, mod in model.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            leaf = pname
+            if pname == "weight":
+                leaf = "kernel" if isinstance(mod, _KERNEL_MODULES) else (
+                    "embedding" if isinstance(mod, nn.Embedding) else "scale")
+            leaves[f"{mname}.{pname}" if mname else pname] = leaf
+    return {name: leaves[name] for name, _ in model.named_parameters()}
+
+
+def _permute(x, perm):
+    return x.permute(*perm) if isinstance(x, torch.Tensor) else np.transpose(x, perm)
+
+
+def to_flax_layout(leaf: str, x):
+    """A port parameter (tensor or array) in its flax leaf's layout."""
+    return _permute(x, _KERNEL_PERM_INV[x.ndim]) if leaf == "kernel" else x
+
+
+def from_flax_layout(leaf: str, x):
+    """The inverse of :func:`to_flax_layout`."""
+    return _permute(x, _KERNEL_PERM[x.ndim]) if leaf == "kernel" else x
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:

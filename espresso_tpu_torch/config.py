@@ -2,7 +2,9 @@
 
 The port's own copy of the fields of ``espresso_tpu/config.py`` that the
 flagship train path reads, with the same names and defaults:
-``CommonConfig.dtype``, ``OptimizationConfig`` (lr, clip, EMA),
+``CommonConfig.dtype``, ``DatasetConfig`` (the on-device feature front:
+fbank width, feature type, CMVN stats, SpecAugment, delta-deltas),
+``OptimizationConfig`` (lr, clip, EMA, quant noise),
 ``OptimizerConfig`` (adam), ``LRSchedulerConfig`` (fixed, noam) and
 ``CriterionSection`` (the transducer criterion's path). Other sections and
 fields wait for the slices that read them: ``update_freq`` for the data
@@ -14,13 +16,24 @@ axis), ``criterion.name`` for a second criterion. The CLI's parsing of
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 
 @dataclass
 class CommonConfig:
     # numeric precision of the compute path; params are kept fp32
     dtype: str = "bfloat16"  # float32 | bfloat16
+
+
+@dataclass
+class DatasetConfig:
+    # feature extraction (train/trainer.py::make_device_feature_fn)
+    feat_dim: int = 80
+    feature_type: str = "precomputed"  # precomputed | device_fbank | waveform
+    sample_rate: int = 16000
+    global_cmvn_stats_path: Optional[str] = None  # .npz with mean / std
+    specaugment_config: Optional[str] = None  # the reference's dict string
+    delta_deltas: bool = False  # append d/dd coefficients (3x feat dim)
 
 
 @dataclass
@@ -32,6 +45,9 @@ class OptimizationConfig:
     ema_decay: float = 0.0
     ema_start_update: int = 0
     ema_update_freq: int = 1
+    # quant-noise QAT (fairseq --quant-noise-pq / --quant-noise-pq-block-size)
+    quant_noise_pq: float = 0.0
+    quant_noise_block_size: int = 8
 
 
 @dataclass
@@ -61,6 +77,7 @@ class CriterionSection:
 @dataclass
 class EspressoConfig:
     common: CommonConfig = field(default_factory=CommonConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
     optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     lr_scheduler: LRSchedulerConfig = field(default_factory=LRSchedulerConfig)

@@ -1,9 +1,19 @@
-"""The train step: microbatch accumulation, clip, overflow skip, adam, EMA.
+"""The train step: the feature front, SpecAugment, quant noise, microbatch
+accumulation, clip, overflow skip, adam, EMA.
 
 Counterpart of ``espresso_tpu/train/trainer.py``: ``build_optimizer`` for
-``adam`` (trainer.py:43-87), ``make_train_step`` (:192-399) and
-``create_train_state`` (:435-461). One step:
+``adam`` (trainer.py:43-87), ``make_device_feature_fn`` (:135-180),
+``make_train_step`` (:192-399) and ``create_train_state`` (:435-461). One
+step:
 
+* per microbatch, in JAX's order (trainer.py:234-262): quant noise on the
+  fp32 masters, cast to the compute copies (``optimization.quant_noise_pq >
+  0``: one draw per microbatch; the noise never reaches the masters and the
+  gradient reaches them as ``mask / (1 - p)`` times the noised weights');
+  the feature front (a batch of ``src_waveforms`` / ``num_samples`` becomes
+  log-mel ``src_frames`` / ``src_lengths`` on the device, with global CMVN
+  and delta-deltas); f32; SpecAugment (``dataset.specaugment_config``,
+  drawn from the step's generator); the compute dtype;
 * runs each microbatch of the batch's leading axis forward and backward in
   the compute dtype and sums its gradients in f32 (bf16 compute copies of
   the fp32 master weights, trainer.py:245-246: the gradient of the cast is
@@ -25,8 +35,8 @@ gradient buffer, so the optimizer, the norm and the cast are a few passes
 over flat tensors. The host keeps the step count; the counts the optimizer
 depends on (applied updates, overflows) stay on the device.
 
-Not ported: SpecAugment, quant-noise, scheduled sampling, on-device fbank,
-the other optimizers and the composite optimizer, ``make_valid_step``.
+Not ported: scheduled sampling, the other optimizers and the composite
+optimizer, ``make_valid_step``.
 """
 
 from __future__ import annotations
@@ -38,7 +48,16 @@ import torch
 from torch import nn
 
 from espresso_tpu_torch.config import EspressoConfig
+from espresso_tpu_torch.features.cmvn import GlobalCMVN
+from espresso_tpu_torch.features.fbank_kernels import fbank_fused
+from espresso_tpu_torch.features.specaugment import (
+    SpecAugmentConfig,
+    apply_specaugment,
+    draw_specaugment,
+)
+from espresso_tpu_torch.features.transforms import delta_deltas
 from espresso_tpu_torch.modules.dropout import set_dropout_generator
+from espresso_tpu_torch.ops.quantization import QuantNoise
 from espresso_tpu_torch.train.lr_schedulers import build_lr_schedule
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -127,12 +146,13 @@ def create_train_state(model: nn.Module, optimizer: Adam, cfg: EspressoConfig) -
     """The train state of ``model``'s current weights (a seeded init, or
     weights carried across by ``bridge.load_jax_variables``), on the
     model's device, with an EMA copy when ``optimization.ema_decay > 0``.
-    The model's parameters become views of the state's compute buffer; its
-    batch-norm statistics stay f32 buffers of the model, updated in place by
-    each step."""
+    The model's parameters become views of the state's compute buffer (the
+    master buffer itself in f32; a step with quant noise gives such a state
+    a compute buffer of its own); its batch-norm statistics stay f32
+    buffers of the model, updated in place by each step."""
     dtype = _DTYPES[cfg.common.dtype]
     params = torch.cat([p.detach().float().reshape(-1) for p in model.parameters()])
-    compute = params if dtype == torch.float32 else params.to(dtype)
+    compute = params.to(dtype) if dtype != torch.float32 else params
     grads = torch.zeros_like(compute)
     _flatten_into(model, compute, grads)
     return TrainState(
@@ -146,14 +166,64 @@ def create_train_state(model: nn.Module, optimizer: Adam, cfg: EspressoConfig) -
     )
 
 
+def make_device_feature_fn(cfg: EspressoConfig):
+    """On-device fbank for waveform batches (``fbank_fused``), then global
+    CMVN and delta-deltas. Returns ``prepare(mb) -> mb``: a batch with
+    ``src_waveforms`` [B, S] and ``num_samples`` [B] gets ``src_frames``
+    [B, T, F] f32 and ``src_lengths`` [B] int32 in their place, on the
+    batch's device, without a host sync; with ``feature_type ==
+    "waveform"`` the samples pass through as frames; a batch of frames is
+    returned as it is. The CMVN stats are read from their ``.npz`` here and
+    copied to the batches' device at the first batch."""
+    feat_dim = cfg.dataset.feat_dim
+    sample_rate = float(cfg.dataset.sample_rate)
+    path = cfg.dataset.global_cmvn_stats_path
+    cmvn = GlobalCMVN(path) if path else None
+
+    @torch.no_grad()
+    def prepare(mb: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if "src_waveforms" not in mb:
+            return mb
+        out = dict(mb)
+        waveforms, num_samples = out.pop("src_waveforms"), out.pop("num_samples")
+        if cfg.dataset.feature_type == "waveform":
+            # raw-waveform models: the samples are the frames
+            out["src_frames"], out["src_lengths"] = waveforms, num_samples
+            return out
+        frames, lengths = fbank_fused(
+            waveforms, num_samples, sample_rate=sample_rate, num_mel_bins=feat_dim
+        )
+        if cmvn is not None:
+            if cmvn.mean.device != frames.device:
+                cmvn.to(frames.device)
+            frames = cmvn(frames)
+        if cfg.dataset.delta_deltas:
+            frames = delta_deltas(frames)
+        out["src_frames"], out["src_lengths"] = frames, lengths
+        return out
+
+    return prepare
+
+
 def make_train_step(model: nn.Module, criterion, optimizer: Adam, cfg: EspressoConfig):
     """Returns ``train_step(state, batch, generator=None) -> (state,
     metrics)``. ``batch`` tensors have a leading microbatch axis
     [n_micro, B, ...] (1 for no accumulation); ``generator`` (a
     ``torch.Generator`` on the model's device) drives every dropout of the
     step. The metrics are tensors on the device: reading one is the
-    caller's choice of host sync."""
+    caller's choice of host sync. The same generator draws SpecAugment's
+    random numbers and the quant-noise masks."""
     compute_dtype = _DTYPES[cfg.common.dtype]
+    prepare_features = make_device_feature_fn(cfg)
+    specaug = (
+        SpecAugmentConfig.from_string(cfg.dataset.specaugment_config)
+        if cfg.dataset.specaugment_config
+        else None
+    )
+    qn_p = cfg.optimization.quant_noise_pq
+    quant_noise = (
+        QuantNoise(model, qn_p, cfg.optimization.quant_noise_block_size) if qn_p > 0.0 else None
+    )
     clip_norm = cfg.optimization.clip_norm
     ema_decay = cfg.optimization.ema_decay
     ema_start_update = cfg.optimization.ema_start_update
@@ -165,17 +235,34 @@ def make_train_step(model: nn.Module, criterion, optimizer: Adam, cfg: EspressoC
         model.train()
         set_dropout_generator(model, generator)
         dev = state.params.device
+        if quant_noise is not None and state.compute is state.params:
+            # f32: the model's weights are the masters themselves; the noise
+            # needs a compute buffer of its own, never the masters
+            state.compute = state.params.clone()
+            _flatten_into(model, state.compute, state.grads)
         zero = lambda: torch.zeros((), dtype=torch.float32, device=dev)
         grads = torch.zeros_like(state.params)
         loss_sum, size_sum = zero(), zero()
         logs = {k: zero() for k in criterion.logging_keys}
         for i in range(batch["prev_output_tokens"].shape[0]):
             mb = {k: v[i] for k, v in batch.items()}
-            mb["src_frames"] = mb["src_frames"].float().to(compute_dtype)
+            if quant_noise is not None:
+                # noise the masters, then cast (trainer.py:234-246); the
+                # update below writes the compute copies anew from the masters
+                keep = quant_noise.mask(quant_noise.draw(generator))
+                with torch.no_grad():
+                    state.compute.copy_(quant_noise.apply(state.params, keep))
+            mb = prepare_features(mb)
+            frames = mb["src_frames"].float()
+            if specaug is not None:
+                draws = draw_specaugment(frames.shape[0], frames.shape[-1], specaug, generator, dev)
+                frames = apply_specaugment(frames, mb["src_lengths"], draws, specaug)
+            mb["src_frames"] = frames.to(compute_dtype)
             state.grads.zero_()
             loss, sample_size, logging = criterion(model, mb)
             loss.backward()
-            grads += state.grads.float()
+            g = state.grads.float()
+            grads += g if quant_noise is None else quant_noise.apply(g, keep)
             loss_sum += loss.detach().float()
             size_sum += sample_size.detach().float()
             for k in logs:

@@ -178,3 +178,64 @@ def test_train_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="transposed view"):
         rk.rnnt_joint_lp(r["enc_proj"], r["dec_proj"], r["fc_kernel"].contiguous(),
                          r["fc_bias"], r["targets"], 0)
+
+
+# ---------------------------------------------------------------------------
+# the feature front's fbank kernel and the w8a8 kernel (inputs and checks in
+# ops/front_kernel_checks.py, which chip_smoke.py runs at the flagship
+# shapes too)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "num_samples,S",
+    [
+        ([16400, 9000, 350], 16400),  # ragged, one utterance under one window
+        ([399, 400, 16000], 16000),  # the edges of the first frame
+        ([4321], 4321),  # B = 1, S not a multiple of the shift
+        ([250], 250),  # S under one window: T = 1, no valid frame
+        ([100080, 70000] * 3, 100080),  # serving length, several frame tiles
+    ],
+)
+def test_fbank_kernel_matches_plain_version(dev, num_samples, S):
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+
+    errs = fc.check_fbank(fc.waveform_inputs(num_samples, S, seed=S, dev=dev))
+    assert errs["log"] < fc.FBANK_LOG_TOL
+
+
+def test_fbank_kernel_at_40_bins(dev):
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+
+    fc.check_fbank(fc.waveform_inputs([16000, 8000], 16000, seed=1, dev=dev), num_mel_bins=40)
+
+
+@pytest.mark.parametrize(
+    "M,K,N,dtype",
+    [
+        (256, 512, 256, torch.float32),
+        (1000, 200, 300, torch.float32),  # ragged: K not a multiple of 16
+        (37, 2048, 129, torch.bfloat16),
+        (1, 1, 1, torch.float32),
+        (130, 64, 8, torch.bfloat16),
+    ],
+)
+def test_int8_matmul_kernel_matches_plain_version_bit_exact(dev, M, K, N, dtype):
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+
+    assert fc.check_int8_matmul(fc.int8_inputs(M, K, N, seed=M + K, dev=dev, dtype=dtype)) == 0.0
+
+
+def test_front_kernels_reject_what_they_do_not_take(dev):
+    from espresso_tpu_torch.features.fbank_kernels import fbank_fused
+    from espresso_tpu_torch.ops.quantization import int8_matmul
+
+    wav = torch.zeros(2, 1000, device=dev)
+    with pytest.raises(ValueError, match="num_samples"):
+        fbank_fused(wav, torch.zeros(3, dtype=torch.int32, device=dev))
+    x = torch.zeros(4, 32, device=dev)
+    w = torch.zeros(8, 32, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="transposed"):
+        int8_matmul(x, w.t().contiguous(), torch.ones(8, device=dev))
+    with pytest.raises(ValueError, match="w_scale"):
+        int8_matmul(x, w.t(), torch.ones(7, device=dev))

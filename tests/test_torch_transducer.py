@@ -243,7 +243,11 @@ def test_port_imports_no_jax():
         "for m in names: importlib.import_module(m)\n"
         "assert len(names) >= 15, names\n"
         "new = {'espresso_tpu_torch.train.trainer', 'espresso_tpu_torch.criterions',\n"
-        "       'espresso_tpu_torch.config', 'espresso_tpu_torch.ops.rnnt_kernels'}\n"
+        "       'espresso_tpu_torch.config', 'espresso_tpu_torch.ops.rnnt_kernels',\n"
+        "       'espresso_tpu_torch.features.fbank', 'espresso_tpu_torch.features.fbank_kernels',\n"
+        "       'espresso_tpu_torch.features.cmvn', 'espresso_tpu_torch.features.transforms',\n"
+        "       'espresso_tpu_torch.features.specaugment', 'espresso_tpu_torch.ops.quantization',\n"
+        "       'espresso_tpu_torch.ops.front_kernel_checks'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = [m for m in ('jax', 'flax', 'espresso_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
