@@ -12,8 +12,10 @@ eleven Hopper kernels:
    library, all at once, and prints the build time;
 2. holds each kernel against its plain PyTorch version on the card at the
    flagship shapes and at edge shapes (``rel_attention`` in bf16 with
-   ragged key masks; ``fused_joint_topk`` at V=1024 and V=5003, with eos
-   folding and an LM label bias; ``lstm_step_reorder``; ``aes_merge`` with
+   ragged key masks; ``fused_joint_topk`` at V=1024, 5003, 1032 and 67,
+   J=128, 512 and 640, n=1 to 32, BK=2550, with eos folding and an LM label
+   bias; ``lstm_step_reorder`` at BK=1, 12, 2550 and 2560, H=64 to 1024,
+   L=1 to 3, every row dead or live; ``aes_merge`` with
    dead slots and duplicate hashes; ``aes_backtrace``; the train kernels
    ``rel_attention_train_fwd``/``_bwd`` at B=16, T'=256 and odd or short
    shapes with ragged key masks, at dropout 0 and 0.1 with one seed;
@@ -23,7 +25,8 @@ eleven Hopper kernels:
    400, one window short, one utterance) by the Kaldi goldens' rule;
    ``int8_matmul`` at the flagship FFN shapes over a serving batch's frames
    and a ragged one, bit for bit), and times kernel and plain version at
-   the flagship shape;
+   the flagship shape (and, beside B6 and B7, their products alone through
+   cuBLAS as a yardstick);
 3. builds the flagship model (16 conformer layers, d=512, ffn 2048, 8 heads,
    depthwise kernel 31, relative positions, batch norm; 2x512 LSTM
    prediction net, joint 512, V=1024) from a seeded init in bf16, and
@@ -87,6 +90,19 @@ BEAM = dict(
     max_out_factor=0.35, prefix_alpha=1,
 )
 ATTN_SHAPES = [(256, 156), (4, 2), (4, 37), (2, 1024)]  # (B, T') at H=8, d=64
+# B6's edge shapes beside the flagship: (B, K, V, J = H, n, fold eos, label bias)
+JOINT_EDGES = [
+    (256, 10, 5003, 512, 12, False, False), (4, 4, 5003, 512, 6, True, True),
+    (1, 1, 1024, 512, 3, False, True), (3, 4, 67, 512, 6, True, False),
+    (255, 10, 1024, 512, 12, False, False), (255, 10, 1032, 640, 32, True, True),
+    (8, 4, 1032, 128, 32, False, True), (8, 4, 1024, 640, 1, True, False),
+    (3, 4, 67, 128, 1, False, True),
+]
+# B7's: (B, K, H, L, share of live rows)
+LSTM_EDGES = [
+    (1, 1, 512, 2, 0.8), (3, 4, 512, 3, 0.8), (1, 12, 512, 2, 0.8), (255, 10, 512, 2, 0.8),
+    (3, 4, 64, 1, 0.8), (2, 6, 1024, 3, 0.8), (255, 10, 512, 2, 0.0), (4, 3, 512, 2, 1.0),
+]
 H, D = 8, 512
 FRAME_SHIFT_S = 0.01
 # the encoder output after 16 bf16 layers, kernel vs plain attention: each
@@ -183,33 +199,50 @@ def median_ms(fn, samples: int = 20, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20, kernel: str = "") -> float:
+def device_ms(fn, calls: int = 20, kernel: str = "", per_call=None) -> float:
     """Device time per call of ``fn`` from a ``torch.profiler`` trace of
     ``calls`` calls: the time of the CUDA kernels whose name contains
     ``kernel`` (or of every kernel, when it is empty), without the host's
-    launch gaps. Raises if the trace holds no device time."""
+    launch gaps. Raises if the trace holds no device time. With
+    ``per_call``, the kernels one call launches: a trace that holds fewer
+    launches than that (the tracer can drop kernel records) is taken again,
+    up to three times, and then the time comes from CUDA events of
+    back-to-back calls instead (launch gaps included), as the log says."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        e.self_device_time_total for e in prof.key_averages() if kernel in e.key
-    )
-    if total_us <= 0:
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        total_us = sum(e.self_device_time_total for e in events)
+        launched = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+        if total_us > 0 and (per_call is None or launched >= calls * per_call):
+            return total_us / calls / 1e3
+        log(f"profiler trace {attempt} of {kernel or fn}: {launched} kernel launches of "
+            f"{calls * (per_call or 0)}, {total_us} us")
+        if per_call is None:
+            break
+    if per_call is None:
         raise RuntimeError(f"the profiler saw no device time for {kernel or fn}")
-    return total_us / calls / 1e3
+    ms = median_ms(fn)
+    log(f"{kernel or fn}: the profiler missed launches three times; CUDA events give {ms} ms")
+    return ms
 
 
-def time_pair(name: str, kernel_fn, plain_fn, kernel: str, plain_calls: int = 10) -> dict:
+def time_pair(name: str, kernel_fn, plain_fn, kernel: str, plain_calls: int = 10,
+              per_call=None) -> dict:
     """Kernel and plain version at one shape: device time from the profiler
     (``ms``, ``plain_ms``) and, for the log, CUDA-event time of back-to-back
-    calls, which also counts the host's launch gaps."""
-    row = dict(ms=device_ms(kernel_fn, kernel=kernel), plain_ms=device_ms(plain_fn, plain_calls))
+    calls, which also counts the host's launch gaps. ``per_call``: the
+    kernels one call launches (see ``device_ms``)."""
+    row = dict(ms=device_ms(kernel_fn, kernel=kernel, per_call=per_call),
+               plain_ms=device_ms(plain_fn, plain_calls))
     row["ms_events"] = median_ms(kernel_fn)
     log(
         f"{name} flagship: kernel {row['ms']} ms device ({row['ms_events']} ms by events of "
@@ -288,38 +321,54 @@ def check_decode_kernels(dev) -> dict:
     n, BK, L = K + BEAM["expansion_beta"], B * K, 2
     rows = {}
 
-    # fused_joint_topk
+    # fused_joint_topk: the flagship, then the edges: V = 5003, 67 and 1032
+    # (ragged last tiles of each CTA's share), BK = 2550 (not a multiple of
+    # the 64-row tile), J = 128 and 640, n = 1 and 32, a label bias with and
+    # without the eos fold
     errs = [kc.check_joint(kc.joint_inputs(B, K, V, J, J, seed=0, dev=dev), K, n)]
-    for Bx, Kx, Vx, fold, bias in [
-        (B, K, 5003, False, False), (4, 4, 5003, True, True), (1, 1, V, False, True),
-        (3, 4, 67, True, False),
-    ]:
-        a = kc.joint_inputs(Bx, Kx, Vx, J, J, seed=Vx + Kx, dev=dev, bias=bias)
-        errs.append(kc.check_joint(a, Kx, Kx + 2, blank=0, eos=2, fold=fold))
+    for Bx, Kx, Vx, Jx, nx, fold, bias in JOINT_EDGES:
+        a = kc.joint_inputs(Bx, Kx, Vx, Jx, Jx, seed=Vx + Kx, dev=dev, bias=bias)
+        errs.append(kc.check_joint(a, Kx, nx, blank=0, eos=2, fold=fold))
     log(f"fused_joint_topk max_abs_err per shape {errs} (bound {kc.JOINT_TOL})")
     a = kc.joint_inputs(B, K, V, J, J, seed=0, dev=dev)
     n_bytes = (BK * J + BK * J + J * J + J * V) * 2 + (BK + 3 * J + V) * 4 + BK * 4 + BK * n * 8
     row = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, 2 * BK * J * (J + V), PEAK_BF16)))
+    # every kernel the call launches (one)
     row.update(time_pair(
         "fused_joint_topk", lambda: dk.fused_joint_topk(**a, K=K, n_cand=n),
-        lambda: dk.fused_joint_topk_reference(**a, K=K, n_cand=n), "fused_joint_topk_kernel",
+        lambda: dk.fused_joint_topk_reference(**a, K=K, n_cand=n), "", per_call=1,
     ))
+    # a yardstick, not a library call for the function: the call's two
+    # products alone through cuBLAS ([BK, H] . [H, J] and [BK, J] . [J, V])
+    x1, x2 = a["feat"].contiguous(), a["enc_t"]
+    wd, wo = a["w_dec"].contiguous(), a["w_out"].contiguous()
+    row["cublas_products_ms"] = device_ms(lambda: (x1 @ wd, x2 @ wo))
     rows["fused_joint_topk"] = dict(row, max_abs_err=max(errs))
 
-    # lstm_step_reorder
+    # lstm_step_reorder: the flagship, then BK = 1, 12 and 2550, H = 64 and
+    # 1024, L = 1 and 3, every row dead and every row live
     errs = [kc.check_lstm(kc.lstm_inputs(B, K, J, L, seed=1, dev=dev), B, K)]
-    for Bx, Kx, Lx in [(1, 1, L), (3, 4, 3)]:
-        errs.append(kc.check_lstm(kc.lstm_inputs(Bx, Kx, J, Lx, seed=Bx, dev=dev), Bx, Kx))
+    for Bx, Kx, Hx, Lx, live in LSTM_EDGES:
+        errs.append(kc.check_lstm(
+            kc.lstm_inputs(Bx, Kx, Hx, Lx, seed=Bx + Hx, dev=dev, live_frac=live), Bx, Kx))
     log(f"lstm_step_reorder max_abs_err per shape {errs} (bound {kc.LSTM_TOL})")
     s = kc.lstm_inputs(B, K, J, L, seed=1, dev=dev)
     # x, S in and out (bf16), the weights, the bias, src (int64), live
     n_bytes = (BK * J + 2 * BK * 2 * L * J + 2 * L * J * 4 * J) * 2 + L * 4 * J * 4 + BK * 9
     row = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, L * 2 * BK * 2 * J * 4 * J, PEAK_BF16)))
+    # every kernel the call launches (one a layer)
     row.update(time_pair(
         "lstm_step_reorder", lambda: dk.lstm_step_reorder(**s, B=B, K=K),
-        lambda: dk.lstm_step_reorder_reference(**s, B=B, K=K), "lstm_layer_kernel",
+        lambda: dk.lstm_step_reorder_reference(**s, B=B, K=K), "", per_call=L,
     ))
+    # the yardstick: a layer's product on pre-gathered rows, [BK, 2H] .
+    # [2H, 4H], twice, through cuBLAS
+    xa = torch.cat([s["x"], s["S"][s["src"], :J]], 1)
+    wa = torch.cat([s["w_ih"][0], s["w_hh"][0]], 0).contiguous()
+    row["cublas_products_ms"] = device_ms(lambda: (xa @ wa, xa @ wa))
     rows["lstm_step_reorder"] = dict(row, max_abs_err=max(errs))
+    for name in ("fused_joint_topk", "lstm_step_reorder"):
+        log(f"{name} flagship: cuBLAS products alone {rows[name]['cublas_products_ms']} ms device")
 
     # aes_merge
     errs = [kc.check_merge(kc.merge_inputs(Bx, Kx, seed=Kx, dev=dev)) for Bx, Kx in [(B, K), (1, 1), (1, 4), (5, 20)]]
@@ -661,11 +710,19 @@ def profile_batch(decoder, batch) -> dict:
     avgs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in avgs) / 1e3
     top = [(e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count) for e in avgs[:12]]
+    # the two costliest decode kernels' device time in the batch (ms, launches)
+    decode = {
+        name: [sum(e.self_device_time_total for e in avgs if name in e.key) / 1e3,
+               sum(e.count for e in avgs if name in e.key)]
+        for name in ("fused_joint_topk_kernel", "lstm_layer_kernel")
+    }
     log(
         f"profiled batch: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms:.1%}); top kernels (name, ms, count): {top}"
+        f"({busy_ms / wall_ms:.1%}); B6 and B7 (ms, launches): {decode}; "
+        f"top kernels (name, ms, count): {top}"
     )
-    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms)
+    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / wall_ms, decode_kernels=decode)
 
 
 def run_greedy(model, batch, dev, enc_ms: float) -> dict:
@@ -1366,6 +1423,8 @@ def main() -> int:
             # no single PyTorch call computes any of these functions (for
             # int8_matmul, torch._int_mm covers only the int8 product)
             "library_ms": None,
+            # B6's and B7's products alone through cuBLAS: a yardstick
+            **({"cublas_products_ms": r["cublas_products_ms"]} if "cublas_products_ms" in r else {}),
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

@@ -1,7 +1,7 @@
-// Tensor-core helpers shared by the bf16 kernels (rel_attention.cu,
-// rel_attention_train.cu, fused_joint_topk.cu, lstm_step_reorder.cu and the
-// RNNT joint kernels): register fragments of mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate) loaded from shared-memory tiles, and bf16 rounding.
+// Tensor-core helpers shared by the mma.sync bf16 kernels (rel_attention.cu,
+// rel_attention_train.cu and the RNNT joint kernels): register fragments of
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate) loaded from shared-memory
+// tiles, and bf16 rounding. The wgmma kernels use hopper_sm90.cuh.
 
 #pragma once
 

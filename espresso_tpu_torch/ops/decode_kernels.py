@@ -12,6 +12,10 @@ the AES frame step are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``:
 * ``aes_backtrace`` (``csrc/aes_backtrace.cu``): the reverse walk of the
   merge and expansion backpointers.
 
+The first two run their products on ``wgmma`` from weight tiles that TMA
+brings into mbarrier-guarded rings (``csrc/hopper_sm90.cuh``); the weights'
+layout and tensor maps are made once per weight set.
+
 Each wrapper runs its plain PyTorch version (``*_reference``) for a tensor
 on the CPU; for a CUDA tensor it launches the kernel or raises, and counts
 its launches (``fn.launches``). The plain versions take the wrappers'
@@ -26,8 +30,10 @@ joint always returns per-row candidates (the JAX ``row_level=True`` form);
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -38,20 +44,24 @@ NEG_INF = -1.0e9
 LN_EPS = 1e-6  # the joint's ln_dec epsilon, as the TPU kernel hard-codes it
 MAX_CAND = 32  # the joint kernel keeps per-thread top lists of 16 or 32
 
-# library name -> its CUDA source under csrc/ (with the header it includes)
+# library name -> its CUDA source under csrc/ (with the headers it includes)
 LIBRARIES = {
-    "fused_joint_topk": ("fused_joint_topk.cu", "bf16_mma.cuh"),
-    "lstm_step_reorder": ("lstm_step_reorder.cu", "bf16_mma.cuh"),
+    "fused_joint_topk": ("fused_joint_topk.cu", "hopper_sm90.cuh"),
+    "lstm_step_reorder": ("lstm_step_reorder.cu", "hopper_sm90.cuh"),
     "aes_merge": ("aes_merge.cu",),
     "aes_backtrace": ("aes_backtrace.cu",),
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry -> (library, argument types); a launching entry ends in (device, stream)
 _SIGNATURES = {
-    "fused_joint_topk": ("fused_joint_topk_bf16", [_P, _P, _I] + [_P] * 12 + [_I] * 9 + [_P]),
-    "lstm_step_reorder": ("lstm_step_reorder_bf16", [_P] * 9 + [_I] * 4 + [_P]),
-    "aes_merge": ("aes_merge_f32", [_P] * 6 + [_I] * 3 + [_P] * 6 + [_I, _P]),
-    "aes_backtrace": ("aes_backtrace_i32", [_P] * 8 + [_I] * 5 + [_P]),
+    "fused_joint_topk_bf16": ("fused_joint_topk", [_P, _P, _I] + [_P] * 11 + [_I] * 9 + [_P]),
+    "fused_joint_topk_tmaps": ("fused_joint_topk", [_P, _P, _I, _I, _I, _P]),
+    "lstm_step_reorder_bf16": ("lstm_step_reorder", [_P] * 8 + [_I] * 4 + [_P]),
+    "lstm_step_reorder_tmap": ("lstm_step_reorder", [_P, _I, _I, _P]),
+    "aes_merge_f32": ("aes_merge", [_P] * 6 + [_I] * 3 + [_P] * 6 + [_I, _P]),
+    "aes_backtrace_i32": ("aes_backtrace", [_P] * 8 + [_I] * 5 + [_P]),
 }
+TMAP_BYTES = 128  # a CUtensorMap
 
 
 # ---------------------------------------------------------------------------
@@ -332,24 +342,57 @@ def aes_backtrace_reference(
 
 
 @functools.lru_cache(maxsize=None)
-def _fn(name: str):
+def _fn(symbol: str):
     from espresso_tpu_torch.ops import cuda_build
 
-    symbol, argtypes = _SIGNATURES[name]
-    fn = getattr(cuda_build.load(name, LIBRARIES[name]), symbol)
+    lib, argtypes = _SIGNATURES[symbol]
+    fn = getattr(cuda_build.load(lib, LIBRARIES[lib]), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call the C entry ``name`` on ``device``'s current stream; raise on a
-    CUDA error of the launch."""
+def _launch(symbol: str, device: torch.device, *args) -> None:
+    """Call the C entry ``symbol`` on ``device``'s current stream; raise on
+    a CUDA error of the launch."""
     index = device.index  # a CUDA tensor's device always has its index
     stream = torch.cuda.current_stream(index).cuda_stream
-    rc = _fn(name)(*args, index, stream)
+    rc = _fn(symbol)(*args, index, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {rc}")
+
+
+def _tensor_maps(symbol: str, count: int, *args) -> ctypes.Array:
+    """``count`` TMA tensor maps encoded by the C entry ``symbol`` into a
+    host buffer, which a launch passes on by value."""
+    buf = ctypes.create_string_buffer(count * TMAP_BYTES)
+    rc = _fn(symbol)(*args, ctypes.addressof(buf))
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {rc}")
+    return buf
+
+
+class _PerWeightSet:
+    """What a kernel derives from a weight set (a layout, its tensor maps),
+    made at the first call with those weight tensors and reused while they
+    live and are not written in place (keyed on identity, storage and
+    version counter); at most ``size`` sets are kept."""
+
+    def __init__(self, make, size: int = 8):
+        self._make, self._size = make, size
+        self._entries: "collections.OrderedDict" = collections.OrderedDict()
+
+    def __call__(self, *weights: torch.Tensor):
+        key = tuple((id(w), w.data_ptr(), w._version) for w in weights)
+        hit = self._entries.get(key)
+        if hit is not None and all(ref() is w for ref, w in zip(hit[0], weights)):
+            self._entries.move_to_end(key)
+            return hit[1]
+        value = self._make(*weights)
+        self._entries[key] = (tuple(weakref.ref(w) for w in weights), value)
+        while len(self._entries) > self._size:
+            self._entries.popitem(last=False)
+        return value
 
 
 def _route(name: str, x: torch.Tensor) -> bool:
@@ -386,6 +429,44 @@ def _vec(x: torch.Tensor) -> torch.Tensor:
     return x.float().contiguous()
 
 
+def lstm_gate_interleave(H: int, device=None) -> torch.Tensor:
+    """Row n of the kernel layout is row ``perm[n]`` of the gate kernels'
+    transpose [4H, ...] (gate order i, f, g, o): n = 32 b + 8 gate + j
+    holds gate ``gate`` of unit 8 b + j, so each 8-row group is one gate of
+    8 units and the groups cycle i, f, g, o."""
+    n = torch.arange(4 * H, device=device)
+    return (n // 8 % 4) * H + n // 32 * 8 + n % 8
+
+
+def lstm_kernel_layout(w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """The ``lstm_step_reorder`` kernel's weight layout: [L, H, 4H] gate
+    kernels (``x @ w``) -> [L * 4H, 2H], layer l's rows the transpose of
+    [w_ih[l]; w_hh[l]] with the gate columns in :func:`lstm_gate_interleave`
+    order. A permutation: every weight appears once, unchanged."""
+    L, H, _ = w_ih.shape
+    w = torch.cat([w_ih, w_hh], 1).transpose(1, 2)  # [L, 4H, 2H]
+    return w[:, lstm_gate_interleave(H, w.device)].reshape(L * 4 * H, 2 * H).contiguous()
+
+
+def _make_lstm_weights(w_ih: torch.Tensor, w_hh: torch.Tensor):
+    wk = lstm_kernel_layout(w_ih, w_hh)
+    L, H = w_ih.shape[0], w_ih.shape[1]
+    return wk, _tensor_maps("lstm_step_reorder_tmap", 1, wk.data_ptr(), L, H)
+
+
+def _make_joint_weights(w_dec: torch.Tensor, w_out: torch.Tensor):
+    wdT, woT = w_dec.t().contiguous(), w_out.t().contiguous()
+    H, J, V = w_dec.shape[0], w_dec.shape[1], w_out.shape[1]
+    _need("fused_joint_topk", wdT.data_ptr() % 16 == 0 and woT.data_ptr() % 16 == 0,
+          "w_dec and w_out must be 16-byte aligned")
+    tmaps = _tensor_maps("fused_joint_topk_tmaps", 2, wdT.data_ptr(), woT.data_ptr(), H, J, V)
+    return wdT, woT, tmaps
+
+
+_lstm_weights = _PerWeightSet(_make_lstm_weights)
+_joint_weights = _PerWeightSet(_make_joint_weights)
+
+
 def fused_joint_topk(
     enc_t: torch.Tensor,
     feat: torch.Tensor,
@@ -408,10 +489,11 @@ def fused_joint_topk(
     ``enc_t`` [BK, J] and ``w_dec``/``w_out`` bf16, ``feat`` bf16 [BK, H]
     with unit column stride (``lstm_feat``'s strided view is taken as is);
     ``scores`` and ``label_bias`` fp32; J a multiple of 64, H of 16,
-    ``n_cand`` at most 32 and at most the unmasked vocab. The weights are
-    read as their transposes ([J, H] and [V, J], the ``nn.Linear`` layout),
-    with no copy when ``w_dec``/``w_out`` are transposed views of contiguous
-    tensors. ``fused_joint_topk.launches`` counts kernel launches."""
+    ``n_cand`` at most 32 and at most the unmasked vocab; J and H at most
+    1024. The weights are read as their transposes ([J, H] and [V, J], the
+    ``nn.Linear`` layout; no copy when ``w_dec``/``w_out`` are transposed
+    views of contiguous tensors) through TMA tensor maps encoded once per
+    weight set. ``fused_joint_topk.launches`` counts kernel launches."""
     name = "fused_joint_topk"
     if not _route(name, enc_t):
         return fused_joint_topk_reference(
@@ -436,7 +518,8 @@ def fused_joint_topk(
         feat.stride(1) == 1 and feat.stride(0) % 8 == 0 and feat.data_ptr() % 16 == 0,
         "feat rows must be unit-stride, 16-byte aligned",
     )
-    wdT, woT = w_dec.t().contiguous(), w_out.t().contiguous()
+    _need(name, J <= 1024 and H <= 1024, f"J={J} and H={H} must be at most 1024")
+    *_, tmaps = _joint_weights(w_dec, w_out)  # the transposes stay alive beside their maps
     vecs = [_vec(v) for v in (b_dec, ln_scale, ln_bias, b_out)]
     for key, v, n in zip(("b_dec", "ln_scale", "ln_bias", "b_out"), vecs, (J, J, J, V)):
         _need(name, v.device == dev and v.shape == (n,), f"{key} must be [{n}] on {dev}")
@@ -452,10 +535,10 @@ def fused_joint_topk(
     vals = torch.empty(BK, n_cand, dtype=torch.float32, device=dev)
     flat = torch.empty(BK, n_cand, dtype=torch.int32, device=dev)
     _launch(
-        name, dev,
+        "fused_joint_topk_bf16", dev,
         enc_t.data_ptr(), feat.data_ptr(), feat.stride(0), scores.data_ptr(),
-        wdT.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
-        woT.data_ptr(), vecs[3].data_ptr(), bias_ptr,
+        ctypes.addressof(tmaps), vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
+        vecs[3].data_ptr(), bias_ptr,
         blank_lp.data_ptr(), vals.data_ptr(), flat.data_ptr(),
         None if factor is None else factor.data_ptr(),
         BK, H, J, V, K, n_cand, blank, eos if fold else -1,
@@ -479,10 +562,10 @@ def lstm_step_reorder(
     """Fused beam reorder + L-layer LSTM step + live mask on the packed state
     (see the plain version). Returns the new packed state [BK, 2LH]. On the
     card: ``x`` [BK, H], ``S`` and the weights bf16 (the kernel takes no
-    other dtype), ``src`` int32 or int64, ``live`` bool, H a multiple of 64.
-    The gate kernels are read as their transposes [L, 4H, H] (no copy when
-    ``w_ih``/``w_hh`` are transposed views of contiguous stacks). One launch
-    per layer; ``lstm_step_reorder.launches`` counts calls."""
+    other dtype), ``src`` int64 (int32 is converted), ``live`` bool, H a
+    multiple of 64. The gate kernels are read in :func:`lstm_kernel_layout`,
+    made with its TMA tensor map once per weight set. One launch per layer;
+    ``lstm_step_reorder.launches`` counts calls."""
     name = "lstm_step_reorder"
     if not _route(name, S):
         return lstm_step_reorder_reference(x, S, src, live, w_ih, b_ih, w_hh, B, K)
@@ -499,16 +582,16 @@ def lstm_step_reorder(
     _need(name, live.device == dev and live.dtype == torch.bool and live.shape == (BK,), "live must be [BK] bool")
     b = _vec(b_ih)
     _need(name, b.device == dev and b.shape == (L, 4 * H), f"b_ih must be [{L}, {4 * H}]")
-    wihT, whhT = w_ih.transpose(1, 2).contiguous(), w_hh.transpose(1, 2).contiguous()
-    src32 = src.to(torch.int32).contiguous()
+    _, tmap = _lstm_weights(w_ih, w_hh)
+    src64 = src.to(torch.int64).contiguous()
     live = live.contiguous()
     _contig(name, x=x, S=S)
     out = torch.empty_like(S)
     scratch = torch.empty((2, BK, H), dtype=torch.bfloat16, device=dev)
     _launch(
-        name, dev,
-        x.data_ptr(), S.data_ptr(), src32.data_ptr(), live.data_ptr(), wihT.data_ptr(),
-        whhT.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(), BK, H, L,
+        "lstm_step_reorder_bf16", dev,
+        x.data_ptr(), S.data_ptr(), src64.data_ptr(), live.data_ptr(), ctypes.addressof(tmap),
+        b.data_ptr(), out.data_ptr(), scratch.data_ptr(), BK, H, L,
     )
     lstm_step_reorder.launches += 1
     return out
@@ -545,7 +628,7 @@ def aes_merge(
     top = torch.empty((B, K), dtype=torch.float32, device=dev)
     ints = [torch.empty((B, K), dtype=torch.int32, device=dev) for _ in range(5)]
     _launch(
-        name, dev, *(x.data_ptr() for x in ins.values()), round_j, B, K,
+        "aes_merge_f32", dev, *(x.data_ptr() for x in ins.values()), round_j, B, K,
         top.data_ptr(), *(x.data_ptr() for x in ints),
     )
     aes_merge.launches += 1
@@ -580,7 +663,7 @@ def aes_backtrace(
     toks = torch.empty((T, E, B, K), dtype=torch.int32, device=dev)
     valid = torch.empty_like(toks)
     _launch(
-        name, dev, *(x.data_ptr() for x in ins.values()), toks.data_ptr(), valid.data_ptr(),
+        "aes_backtrace_i32", dev, *(x.data_ptr() for x in ins.values()), toks.data_ptr(), valid.data_ptr(),
         T, B, K, n_exp,
     )
     aes_backtrace.launches += 1

@@ -113,9 +113,10 @@ def check_joint(a: Tensors, K, n, blank=0, eos=None, fold=False, tol=JOINT_TOL) 
     return max(errs)
 
 
-def lstm_inputs(B, K, H, L, seed, dev) -> Tensors:
+def lstm_inputs(B, K, H, L, seed, dev, live_frac=0.8) -> Tensors:
     """bf16 packed state (tanh-range h, unit-normal c), sources within each
-    utterance's K rows, 80 % live rows, gate kernels at init scale."""
+    utterance's K rows, live rows drawn with probability ``live_frac`` (0:
+    every row dead, 1: every row live), gate kernels at init scale."""
     g = _gen(seed)
     BK = B * K
     bf = lambda x: x.to(dev, torch.bfloat16)
@@ -126,7 +127,7 @@ def lstm_inputs(B, K, H, L, seed, dev) -> Tensors:
         x=bf(torch.randn(BK, H, generator=g)),
         S=bf(torch.cat([h, torch.randn(BK, L * H, generator=g)], 1)),
         src=src.to(dev),
-        live=(torch.rand(BK, generator=g) < 0.8).to(dev),
+        live=(torch.rand(BK, generator=g) < live_frac).to(dev),
         w_ih=bf(uni(L, 4 * H, H)).transpose(1, 2),  # transposed nn.Linear stacks
         b_ih=uni(L, 4 * H).to(dev),
         w_hh=bf(uni(L, 4 * H, H)).transpose(1, 2),

@@ -85,9 +85,50 @@ def test_fused_joint_topk_kernel_matches_plain_version(dev, B, K, V, fold, bias)
     kc.check_joint(a, K, K + 2, blank=0, eos=2, fold=fold)
 
 
+# the cluster tiling's edges: BK = 2550 (not a multiple of the 64-row tile),
+# J = 128 and 640 (d tiles dealt unevenly over the cluster), V = 67 and
+# 1032 (a ragged last tile), n = 1 and 32, a label bias with and without
+# the eos fold
+@pytest.mark.parametrize(
+    "B,K,V,J,n,fold,bias",
+    [
+        (255, 10, 1024, 512, 12, False, False),
+        (255, 10, 1032, 640, 32, True, True),
+        (8, 4, 1032, 128, 32, False, True),
+        (8, 4, 1024, 640, 1, True, False),
+        (3, 4, 67, 128, 1, False, True),
+        (255, 10, 5003, 512, 32, False, True),
+        (64, 4, 1032, 512, 1, True, True),
+    ],
+)
+def test_fused_joint_topk_kernel_at_tiling_edges(dev, B, K, V, J, n, fold, bias):
+    a = kc.joint_inputs(B, K, V, J, J, seed=V + J + n, dev=dev, bias=bias)
+    kc.check_joint(a, K, n, blank=0, eos=2, fold=fold)
+
+
 @pytest.mark.parametrize("B,K,H_,L", [(256, 10, 512, 2), (1, 1, 64, 1), (3, 4, 128, 3)])
 def test_lstm_step_reorder_kernel_matches_plain_version(dev, B, K, H_, L):
     kc.check_lstm(kc.lstm_inputs(B, K, H_, L, seed=B + H_, dev=dev), B, K)
+
+
+# the 128 x 128 tiling's edges: BK = 1, 12 and 2550, H = 64 and 1024, L = 1
+# and 3, every row dead and every row live (dead rows bit for bit)
+@pytest.mark.parametrize(
+    "B,K,H_,L,live",
+    [
+        (1, 1, 512, 2, 0.8),
+        (1, 12, 512, 2, 0.8),
+        (255, 10, 512, 2, 0.8),
+        (3, 4, 64, 1, 0.8),
+        (2, 6, 1024, 3, 0.8),
+        (255, 10, 512, 2, 0.0),
+        (255, 10, 512, 2, 1.0),
+        (4, 3, 1024, 1, 1.0),
+    ],
+)
+def test_lstm_step_reorder_kernel_at_tiling_edges(dev, B, K, H_, L, live):
+    a = kc.lstm_inputs(B, K, H_, L, seed=B + H_ + L, dev=dev, live_frac=live)
+    kc.check_lstm(a, B, K)
 
 
 @pytest.mark.parametrize("B,K", [(256, 10), (1, 1), (1, 4), (5, 20), (3, 40)])
@@ -110,6 +151,8 @@ def test_decode_kernels_reject_what_they_do_not_take(dev):
         dk.fused_joint_topk(**dict(a, scores=a["scores"][:1]), K=4, n_cand=6)
     with pytest.raises(ValueError, match="n_cand"):
         dk.fused_joint_topk(**a, K=4, n_cand=33)
+    with pytest.raises(ValueError, match="at most 1024"):
+        dk.fused_joint_topk(**kc.joint_inputs(2, 4, 128, 1088, 64, seed=0, dev=dev), K=4, n_cand=6)
     s = kc.lstm_inputs(2, 4, 64, 2, seed=0, dev=dev)
     with pytest.raises(ValueError, match="bfloat16"):
         dk.lstm_step_reorder(**dict(s, S=s["S"].float()), B=2, K=4)
