@@ -17,16 +17,19 @@ eleven Hopper kernels:
    bias; ``lstm_step_reorder`` at BK=1, 12, 2550 and 2560, H=64 to 1024,
    L=1 to 3, every row dead or live; ``aes_merge`` with
    dead slots and duplicate hashes; ``aes_backtrace``; the train kernels
-   ``rel_attention_train_fwd``/``_bwd`` at B=16, T'=256 and odd or short
-   shapes with ragged key masks, at dropout 0 and 0.1 with one seed;
-   ``rnnt_joint_lp``/``_bwd`` at B=16, T'=256, U1=101, J=512, V=1024 and
-   V=5003 with the blank in a later tile and ragged lengths; ``fbank`` at
+   ``rel_attention_train_fwd``/``_bwd`` at B=16, T'=256, at B=40 and at
+   odd or short shapes (T'=1 included) with ragged key masks, at dropout 0
+   and 0.1 with one seed; ``rnnt_joint_lp``/``_bwd`` at B=16, T'=256,
+   U1=101, J=512, V=1024 and V=5003 with the blank in a later tile, ragged
+   lengths, T'=1 and U=0; ``fbank`` at
    the 256-utterance serving batch as PCM and at edge sample counts (399,
    400, one window short, one utterance) by the Kaldi goldens' rule;
    ``int8_matmul`` at the flagship FFN shapes over a serving batch's frames
    and a ragged one, bit for bit), and times kernel and plain version at
-   the flagship shape (and, beside B6 and B7, their products alone through
-   cuBLAS as a yardstick);
+   the flagship shape (and, beside B5, B6 and B7, their products alone
+   through cuBLAS as a yardstick, beside B3 the backward of
+   ``scaled_dot_product_attention``; for B3 and B5 also every kernel the
+   call runs and the split by kernel);
 3. builds the flagship model (16 conformer layers, d=512, ffn 2048, 8 heads,
    depthwise kernel 31, relative positions, batch norm; 2x512 LSTM
    prediction net, joint 512, V=1024) from a seeded init in bf16, and
@@ -120,10 +123,14 @@ ENCODER_ATOL = 0.25
 BEAM_SCORE_RTOL = 0.01
 # the train path: bench_train.py:59-140's operating point
 TRAIN = dict(B=16, T_FRAMES=1024, U=100, STEPS=10, DROPOUT=0.1)
-ATTN_TRAIN_SHAPES = [(16, 256), (3, 2), (3, 37)]  # (B, T') at H=8, d=64
+# (B, T') at H=8, d=64: the flagship, short and odd lengths (T'=1: one key,
+# ds exactly 0), and B=40 (dp summed over more utterances than at the
+# flagship)
+ATTN_TRAIN_SHAPES = [(16, 256), (3, 1), (3, 2), (3, 37), (40, 64)]
 # (B, T', U, V, blank): the flagship, V=5003 with the blank in the third
-# 64-column tile, and a small ragged edge
-RNNT_SHAPES = [(16, 256, 100, 1024, 0), (16, 256, 100, 5003, 131), (3, 37, 9, 5003, 4999)]
+# 64-column tile, a small ragged edge, T'=1, and U=0 (U1=1)
+RNNT_SHAPES = [(16, 256, 100, 1024, 0), (16, 256, 100, 5003, 131), (3, 37, 9, 5003, 4999),
+               (2, 1, 5, 1024, 0), (2, 9, 0, 1024, 0)]
 # one train step of a 2-utterance sub-batch at dropout 0, kernels vs plain
 # versions: both round every bf16 activation at the same points but sum in
 # other orders, and a rounding flip in one of 16 layers moves the loss by
@@ -233,6 +240,51 @@ def device_ms(fn, calls: int = 20, kernel: str = "", per_call=None) -> float:
     ms = median_ms(fn)
     log(f"{kernel or fn}: the profiler missed launches three times; CUDA events give {ms} ms")
     return ms
+
+
+def device_split(fn, calls: int = 10) -> dict:
+    """Device ms per call of ``fn`` by CUDA kernel name (every kernel the
+    call runs, its launches included), from one ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def rnnt_bwd_cublas_ms(B: int, T: int, U1: int, J: int, V: int, dev) -> float:
+    """A yardstick for B5, not a library call for its function: its three
+    products alone through cuBLAS on a materialised bf16 joint hidden
+    [B T U1, J] and glog_c [B T U1, V] (the logits, g_pre and g_W)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev, dtype=torch.bfloat16)
+    pre, glog, w = mk(B * T * U1, J), mk(B * T * U1, V), mk(V, J)
+    ms = device_ms(lambda: (pre @ w.t(), glog @ w, glog.t() @ pre), calls=5)
+    del pre, glog
+    torch.cuda.empty_cache()
+    return ms
+
+
+def sdpa_bwd_ms(B: int, T: int, heads: int, d: int, rate: float, dev) -> float:
+    """A yardstick for B3, not the same function (no relative positions):
+    the device time of ``scaled_dot_product_attention``'s backward with
+    dropout at B3's shape, as the device time of forward and backward less
+    that of the forward alone."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    mk = lambda: torch.randn(B, heads, T, d, generator=g, device=dev, dtype=torch.bfloat16)
+    q, k, v, up = (mk().requires_grad_(i < 3) for i in range(4))
+    fwd = lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate)
+    both = lambda: torch.autograd.grad(fwd(), (q, k, v), up)
+    return device_ms(both) - device_ms(fwd)
 
 
 def time_pair(name: str, kernel_fn, plain_fn, kernel: str, plain_calls: int = 10,
@@ -448,6 +500,14 @@ def check_train_kernels(dev) -> dict:
         lambda: ak.rel_attention_train_backward_reference(*args, a["g"], H, scale, rate, a["seed"]),
         "rel_attention_train_bwd", plain_calls=3,
     ))
+    bwd_fn = lambda: ak.rel_attention_train_bwd(*args, a["seed"], a["g"], H, scale, rate)
+    # the wrapper's whole device time (its dp fill included) and the split
+    # by kernel; a yardstick of the order of size, not the same function:
+    # scaled_dot_product_attention's backward, which has no relative positions
+    row["ms_all_kernels"] = device_ms(bwd_fn)
+    row["sdpa_bwd_ms"] = sdpa_bwd_ms(B, T, H, D // H, rate, dev)
+    log(f"rel_attention_train_bwd flagship: every kernel of the call {row['ms_all_kernels']} ms, "
+        f"split {device_split(bwd_fn)}; sdpa backward {row['sdpa_bwd_ms']} ms device")
     rows["rel_attention_train_bwd"] = dict(row, max_abs_err=bwd_err)
 
     # rnnt_joint_lp and rnnt_joint_bwd
@@ -483,6 +543,13 @@ def check_train_kernels(dev) -> dict:
         lambda: rk.rnnt_joint_bwd_reference(*ja, lse, ob, ol, blank), "rnnt_joint_bwd",
         plain_calls=2,
     ))
+    bwd_fn = lambda: rk.rnnt_joint_bwd(*ja, lse, ob, ol, blank)
+    # the wrapper's whole device time (its zero fills included) and the
+    # split by kernel; a yardstick: the three products alone through cuBLAS
+    row["ms_all_kernels"] = device_ms(bwd_fn)
+    row["cublas_products_ms"] = rnnt_bwd_cublas_ms(B, T, U1, J, V, dev)
+    log(f"rnnt_joint_bwd flagship: every kernel of the call {row['ms_all_kernels']} ms, "
+        f"split {device_split(bwd_fn)}; cuBLAS products alone {row['cublas_products_ms']} ms device")
     rows["rnnt_joint_bwd"] = dict(row, max_abs_err=bwd_err)
     for name, r in rows.items():
         log(f"{name} flagship bound: {r['bound_ms']} ms ({r['bound_by']})")
@@ -1423,8 +1490,10 @@ def main() -> int:
             # no single PyTorch call computes any of these functions (for
             # int8_matmul, torch._int_mm covers only the int8 product)
             "library_ms": None,
-            # B6's and B7's products alone through cuBLAS: a yardstick
-            **({"cublas_products_ms": r["cublas_products_ms"]} if "cublas_products_ms" in r else {}),
+            # yardsticks, not library calls for the function: B5's, B6's and
+            # B7's products alone through cuBLAS, scaled_dot_product_attention's
+            # backward beside B3; and B3's and B5's whole device time a call
+            **{k: r[k] for k in ("cublas_products_ms", "sdpa_bwd_ms", "ms_all_kernels") if k in r},
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

@@ -338,8 +338,8 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
         sm90::wgmma_fence();
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          sm90::wgmma_m64n64k16(dv[s], sm90::wgmma_desc(sX + kb * BLOCK_BYTES + 32 * k),
-                                sm90::wgmma_desc(ring + slot * STAGE_BYTES + 32 * k), 1);
+          sm90::wgmma_ss_n64<0, 0>(dv[s], sm90::wgmma_desc(sX + kb * BLOCK_BYTES + 32 * k),
+                                   sm90::wgmma_desc(ring + slot * STAGE_BYTES + 32 * k), 1);
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();  // the previous stage's products are done
         if (prev >= 0 && t == 0) sm90::mbar_arrive(&empty[prev]);
@@ -521,8 +521,8 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
         sm90::wgmma_fence();
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          sm90::wgmma_m64n64k16(acc, sm90::wgmma_desc(sX + kb * BLOCK_BYTES + 32 * k),
-                                sm90::wgmma_desc(ring + slot * STAGE_BYTES + 32 * k), 1);
+          sm90::wgmma_ss_n64<0, 0>(acc, sm90::wgmma_desc(sX + kb * BLOCK_BYTES + 32 * k),
+                                   sm90::wgmma_desc(ring + slot * STAGE_BYTES + 32 * k), 1);
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();  // the previous stage's products are done
         if (prev >= 0 && t == 0) sm90::mbar_arrive(&empty[prev]);

@@ -1,18 +1,22 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
-// (lstm_step_reorder.cu, fused_joint_topk.cu): shared-memory addresses,
-// mbarriers (local and across a thread-block cluster), TMA tile loads and
-// their tensor maps, cp.async with zero fill, wgmma descriptors for K-major
-// tiles in the 128-byte swizzle and the bf16 m64nNk16 products, named
-// barriers, and the cluster's distributed shared memory.
+// (lstm_step_reorder.cu, fused_joint_topk.cu, rnnt_joint_bwd.cu and the
+// backward of rel_attention_train.cu): shared-memory addresses, mbarriers
+// (local and across a thread-block cluster), TMA tile loads (2-D and 3-D)
+// and their tensor maps, cp.async with zero fill, wgmma descriptors for
+// K-major and MN-major tiles in the 128-byte swizzle and the bf16 m64nNk16
+// products (A from shared memory or registers), named barriers, the
+// cluster's distributed shared memory, and paired f32 atomics.
 //
-// Tile layout: every operand tile is K-major, 64 bf16 (128 bytes) of K per
-// row, rows 128 bytes apart, the 16-byte chunk c of row r stored at chunk
-// c ^ (r % 8), and the tile based on a 1024-byte boundary. That is what a TMA
-// load with CU_TENSOR_MAP_SWIZZLE_128B writes (box {64, rows}), what a copy
-// or a store to offset swz(row, chunk) writes by hand, and what a wgmma
-// descriptor of layout type 1 (128B swizzle) with a stride of 1024 bytes
-// between 8-row groups reads. The k16 step inside a 64-wide tile advances
-// the descriptor's start address by 32 bytes.
+// Tile layout: every operand tile holds 64 bf16 (128 bytes) a row, rows 128
+// bytes apart, the 16-byte chunk c of row r stored at chunk c ^ (r % 8), and
+// the tile based on a 1024-byte boundary. That is what a TMA load with
+// CU_TENSOR_MAP_SWIZZLE_128B writes (box {64, rows}), what a copy or a store
+// to offset swz(row, chunk) writes by hand, and what a wgmma descriptor of
+// layout type 1 (128B swizzle) reads. Read K-major (a row holds 64 values
+// of K: wgmma_desc, 1024 bytes between 8-row groups), the k16 step inside
+// the tile advances the start address by 32 bytes; read MN-major (a row
+// holds 64 values of M or N, rows run along K: wgmma_desc_mn), it advances
+// by 16 rows, 2048 bytes.
 
 #pragma once
 
@@ -216,36 +220,90 @@ __device__ inline void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// d[64 x 64] += A[64 x 16] * B[16 x 64], both K-major in shared memory, fp32
+// descriptor of an MN-major, 128B-swizzled operand at shared address
+// `addr`: 8-row groups of K (rows 128 bytes apart, 64 MN elements a row)
+// 1024 bytes apart, consecutive 64-wide MN blocks `mn_stride` bytes apart
+// (+2048 bytes per k16 step)
+__device__ inline uint64_t wgmma_desc_mn(uint32_t addr, uint32_t mn_stride) {
+  uint64_t d = 0;
+  d |= (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)(mn_stride >> 4) << 16;  // leading byte offset: the next 64 MN elements
+  d |= (uint64_t)(1024 >> 4) << 32;       // stride byte offset: the next 8 rows of K
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+// The bf16 m64nNk16 products for N = 32, 64, 128, 256 with fp32
 // accumulators: thread (warp w, lane 4g + q) holds rows 16w + g (d[4j],
-// d[4j+1]) and 16w + g + 8 (d[4j+2], d[4j+3]) of columns 8j + 2q, 8j + 2q + 1
-__device__ inline void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+// d[4j+1]) and 16w + g + 8 (d[4j+2], d[4j+3]) of columns 8j + 2q, 8j + 2q +
+// 1. wgmma_ss_nN<TA, TB> takes both operands from shared memory (TA, TB = 1
+// for an MN-major operand, whose descriptor is wgmma_desc_mn);
+// wgmma_rs_n64<TB> takes A from registers: the mma.sync m16n8k16 A fragment
+// of each warp's 16 rows, a[0..3] = (row g, columns 2q, 2q+1), (row g+8, the
+// same), (row g, columns 2q+8, 2q+9), (row g+8, the same), which is how an
+// accumulator's n8 blocks 2k and 2k+1 pack into k16 step k.
+
+template <int TA, int TB>
+__device__ inline void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ inline void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// the same for N = 128 (d[4j..4j+3] for the n8 block j = 0..15)
-__device__ inline void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
-                                        int accumulate) {
+template <int TB>
+__device__ inline void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                    int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ inline void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -257,7 +315,85 @@ __device__ inline void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ inline void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// TMA: the box at (c0, c1, c2) of a 3-D tensor map (c0 innermost)
+__device__ inline void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                   int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// f32 pair added to global memory in one atomic (sm_90)
+__device__ inline void atomic_add2(float* p, float x, float y) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(x, y));
+}
+
+// a 32-bit global store under a predicate, without a branch: a value taken
+// from wgmma's registers inside a divergent branch makes ptxas serialize
+// every wgmma of the kernel, so epilogues store through a predicate
+__device__ inline void st_global_if(void* p, uint32_t v, bool cond) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q st.global.b32 [%0], %1;\n}" ::"l"(p),
+      "r"(v), "r"((int)cond)
+      : "memory");
+}
+
+// move registers between warpgroups: the calling warpgroup's threads get at
+// most N (dec) or at least N (inc) registers
+template <int N>
+__device__ inline void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ inline void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- host: tensor maps ----------------------------------------------------
@@ -282,26 +418,40 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// a tensor map of a bf16 tensor of `rank` (2 or 3) dimensions, dims[0]
+// innermost, strides[i] the bytes between steps of dimension i + 1, read in
+// boxes of box[] elements (box[0] = 64: 128 bytes) with the 128-byte swizzle;
+// elements outside the tensor read zeros. Returns a CUDA error code.
+inline int encode_tmap_bf16_nd(void* out, const void* ptr, int rank, const uint64_t* dims,
+                               const uint64_t* strides, const uint32_t* box) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return (int)cudaErrorNotSupported;
+  if (rank < 2 || rank > 3) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  cuuint64_t d[3], s[2];
+  cuuint32_t b[3], elem[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+  }
+  for (int i = 0; i + 1 < rank; ++i) s[i] = strides[i];
+  const CUresult r = fn(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), d,
+                        s, b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  memcpy(out, &map, sizeof(map));
+  return 0;
+}
+
 // a tensor map of the row-major bf16 matrix [rows, cols] at `ptr` (16-byte
 // aligned, cols % 8 == 0) read in boxes of 64 columns x `box_rows` rows with
 // the 128-byte swizzle; boxes past the edge read zeros. Writes the 128-byte
 // map to `out`; returns a CUDA error code (0 on success).
 inline int encode_tmap_bf16(void* out, const void* ptr, uint64_t rows, uint64_t cols,
                             uint32_t box_rows) {
-  EncodeTiledFn fn = encode_tiled_fn();
-  if (!fn) return (int)cudaErrorNotSupported;
-  CUtensorMap map;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {64, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  memcpy(out, &map, sizeof(map));
-  return 0;
+  const uint64_t dims[2] = {cols, rows}, strides[1] = {cols * 2};
+  const uint32_t box[2] = {64, box_rows};
+  return encode_tmap_bf16_nd(out, ptr, 2, dims, strides, box);
 }
 
 inline int sm_count(int device) {

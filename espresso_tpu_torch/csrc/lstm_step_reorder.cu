@@ -201,8 +201,8 @@ lstm_layer_kernel(const __grid_constant__ CUtensorMap wmap, const bf16* __restri
         const uint32_t a = sA + slot * TILE_BYTES + cw * 64 * 128, bb = sB + slot * TILE_BYTES;
 #pragma unroll
         for (int k = 0; k < KC / 16; ++k)
-          sm90::wgmma_m64n128k16(acc, sm90::wgmma_desc(a + 32 * k), sm90::wgmma_desc(bb + 32 * k),
-                                 1);
+          sm90::wgmma_ss_n128<0, 0>(acc, sm90::wgmma_desc(a + 32 * k),
+                                    sm90::wgmma_desc(bb + 32 * k), 1);
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();  // the previous stage's products are done
         if (prev >= 0 && t == 0) sm90::mbar_arrive(&empty[prev]);

@@ -1,5 +1,6 @@
-// Shared device code of the RNNT joint kernels (rnnt_joint_lp.cu,
-// rnnt_joint_bwd.cu): the joint hidden staged in shared memory, the
+// Device code of the RNNT joint forward kernel (rnnt_joint_lp.cu; the
+// backward, rnnt_joint_bwd.cu, is built on hopper_sm90.cuh): the joint hidden
+// staged in shared memory, the
 // vocabulary tiles of the output weights, and the tensor-core product of a
 // warp's 16 rows with a V tile.
 //

@@ -37,7 +37,7 @@ from espresso_tpu_torch.ops.masking import NEG_INF
 HEAD_DIM = 64  # the kernels' only head width (the flagship's d = 512 / 8)
 _HEADERS = ("rel_attention_common.cuh", "bf16_mma.cuh")
 _SOURCES = ("rel_attention.cu", *_HEADERS)
-_TRAIN_SOURCES = ("rel_attention_train.cu", *_HEADERS)
+_TRAIN_SOURCES = ("rel_attention_train.cu", *_HEADERS, "hopper_sm90.cuh")
 # library name -> its CUDA sources (with the headers they include)
 LIBRARIES = {"rel_attention": _SOURCES, "rel_attention_train": _TRAIN_SOURCES}
 
@@ -301,6 +301,16 @@ def _train_lib() -> ctypes.CDLL:
     return lib
 
 
+def train_bwd_tmap_specs(B: int, T: int, D: int) -> list:
+    """The tensor maps of the backward kernels, as {rank, dims (innermost
+    first), strides (bytes), box} each: q_u, q_v, k, v and g as [D, T, B]
+    read in boxes of one head (64 columns) x 64 positions x one utterance,
+    so that a box never reaches into the next utterance and reads zeros
+    past T; p as [D, 2T-1] in boxes of 64 x 64, zeros outside the table."""
+    seq = [3, D, T, B, D * 2, T * D * 2, HEAD_DIM, 64, 1]
+    return [seq] * 5 + [[2, D, 2 * T - 1, 0, D * 2, 0, HEAD_DIM, 64, 0]]
+
+
 def _train_launch_args(q_u, seed, H, scale, rate):
     B, T, _ = q_u.shape
     if seed.device != q_u.device or seed.dtype != torch.int32 or seed.numel() != 1:
@@ -348,15 +358,16 @@ def rel_attention_train_bwd(q_u, q_v, k, v, p, key_valid, seed, g, H, scale, rat
     tail = _train_launch_args(q_u, seed, H, scale, rate)
     B, T, D = q_u.shape
     dqu, dqv, dk, dv = (torch.empty_like(q_u) for _ in range(4))
-    dp = torch.empty(2 * T - 1, D, dtype=torch.float32, device=q_u.device)
-    # ds and the dropped weights of every (item, head), for the key-side and
-    # position-side products of the second and third passes
-    scratch = torch.empty(2, B, H, T, T, dtype=torch.bfloat16, device=q_u.device)
+    # the query pass adds each block's dp window into dp by atomics, and
+    # leaves each row's softmax statistics (m, 1/l, sum dw w) for the key pass
+    dp = torch.zeros(2 * T - 1, D, dtype=torch.float32, device=q_u.device)
+    stats = torch.empty(3, B, H, T, dtype=torch.float32, device=q_u.device)
+    specs = (ctypes.c_longlong * 54)(*sum(train_bwd_tmap_specs(B, T, D), []))
     rc = _train_lib().rel_attention_train_bwd_bf16(
         q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
         key_valid.data_ptr(), seed.data_ptr(), g.data_ptr(), dqu.data_ptr(), dqv.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dp.data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), *tail,
+        dk.data_ptr(), dv.data_ptr(), dp.data_ptr(), stats.data_ptr(), ctypes.addressof(specs),
+        *tail,
     )
     if rc != 0:
         raise RuntimeError(f"rel_attention_train_bwd launch failed at T={T}: CUDA error {rc}")

@@ -37,12 +37,15 @@ from espresso_tpu_torch.ops.rnnt import NEG_INF
 # library name -> its CUDA sources (with the headers they include)
 LIBRARIES = {
     "rnnt_joint_lp": ("rnnt_joint_lp.cu", "rnnt_joint_common.cuh", "bf16_mma.cuh"),
-    "rnnt_joint_bwd": ("rnnt_joint_bwd.cu", "rnnt_joint_common.cuh", "bf16_mma.cuh"),
+    "rnnt_joint_bwd": ("rnnt_joint_bwd.cu", "hopper_sm90.cuh"),
 }
 # joint widths the kernels take: they stage [rows, J] bf16 tiles in shared
 # memory, and the backward keeps J-wide register tiles (a template per width)
 JOINT_WIDTHS = (128, 256, 512)
 _FRAME_CHUNK = 16  # frames per step of the plain versions (bounds their memory)
+# rnnt_joint_bwd's tiles: 8 values of u x 8 frames of one utterance (64
+# lattice rows), and 64 vocab columns per W tile
+TILE_U, TILE_T, TILE_V = 8, 8, 64
 
 
 def _targets_u1(targets: torch.Tensor, U1: int) -> torch.Tensor:
@@ -129,10 +132,31 @@ def _lib(name: str) -> ctypes.CDLL:
 
     lib = cuda_build.load(name, LIBRARIES[name])
     fn = getattr(lib, name + "_bf16")
-    n_ptr = 8 if name == "rnnt_joint_lp" else 12
-    fn.argtypes = [_P] * n_ptr + [_I] * 7 + [_P]  # B, T, U1, J, V, blank, device, stream
+    if name == "rnnt_joint_lp":
+        fn.argtypes = [_P] * 8 + [_I] * 7 + [_P]  # B, T, U1, J, V, blank, device, stream
+    else:  # 12 tensors, the tensor map, B, T, U1, J, V, blank, the schedule, device, stream
+        fn.argtypes = [_P] * 13 + [_I] * 11 + [_P]
     fn.restype = _I
     return lib
+
+
+def joint_bwd_schedule(B: int, T: int, U1: int, V: int, n_sm: int) -> dict:
+    """The work split of ``rnnt_joint_bwd``'s two kernels: tiles of 8 values
+    of u x 8 frames of one utterance, tile i = (b * nu + ug) * nt + ts; the
+    rows kernel's blocks take contiguous shares of the tiles, the columns
+    kernel's of the (V tile, tile) units, V tile slowest; a block per SM."""
+    nu, nt = -(-U1 // TILE_U), -(-T // TILE_T)
+    tiles = B * nu * nt
+    units = tiles * -(-V // TILE_V)
+    return dict(nu=nu, nt=nt, tiles=tiles, units=units, grid_rows=min(tiles, n_sm),
+                grid_cols=min(units, n_sm))
+
+
+def joint_bwd_tmap_spec(J: int, V: int) -> list:
+    """The tensor map of the output weights, the [V, J] bf16 rows of the
+    nn.Linear layout, as {rank, dims (innermost first), strides (bytes),
+    box}: boxes of 64 columns x 64 vocab rows, zeros past V."""
+    return [2, J, V, 0, J * 2, 0, 64, TILE_V, 0]
 
 
 def _check(name, enc_proj, dec_proj, fc_kernel, fc_bias, targets):
@@ -211,15 +235,18 @@ def rnnt_joint_bwd(enc_proj, dec_proj, fc_kernel, fc_bias, targets, lse, occb_n,
     dev = enc_proj.device
     # the kernels add their partial sums into these with atomics
     g_enc = torch.zeros(B, T, J, device=dev)
-    g_dec = torch.empty(B, U1, J, device=dev)
+    g_dec = torch.zeros(B, U1, J, device=dev)
     g_Wt = torch.zeros(V, J, device=dev)
     g_b = torch.zeros(V, device=dev)
     bias = fc_bias.float()
+    sched = joint_bwd_schedule(B, T, U1, V, torch.cuda.get_device_properties(dev).multi_processor_count)
+    spec = (ctypes.c_longlong * 9)(*joint_bwd_tmap_spec(J, V))
     rc = _lib("rnnt_joint_bwd").rnnt_joint_bwd_bf16(
         enc_proj.data_ptr(), dec_proj.data_ptr(), fc_kernel.data_ptr(),
         bias.data_ptr(), tgt.data_ptr(), lse.data_ptr(), occb_n.data_ptr(),
         occl_n.data_ptr(), g_enc.data_ptr(), g_dec.data_ptr(), g_Wt.data_ptr(),
-        g_b.data_ptr(), *_launch_tail(enc_proj, dec_proj, fc_kernel, blank),
+        g_b.data_ptr(), ctypes.addressof(spec), B, T, U1, J, V, blank, sched["nu"], sched["nt"],
+        sched["grid_rows"], sched["grid_cols"], dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"rnnt_joint_bwd launch failed: CUDA error {rc}")

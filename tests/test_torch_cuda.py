@@ -203,6 +203,56 @@ def test_rnnt_joint_kernels_match_plain_versions(dev, B, T, U, V, blank):
     assert (rk.rnnt_joint_lp.launches, rk.rnnt_joint_bwd.launches) == (before[0] + 1, before[1] + 1)
 
 
+# the redesigned B5's tilings' edges (tiles of 8 values of u x 8 frames, W
+# tiles of 64 vocab rows, J split over two warpgroups): J = 128 and 256; U1
+# and T not multiples of 8, T = 1, U = 0; V = 67 and V = 5003 with the
+# blank in the last column; at today's bound (1e-3 of each gradient's
+# largest magnitude, ops/train_kernel_checks.py)
+@pytest.mark.parametrize(
+    "B,T,U,J,V,blank",
+    [
+        (4, 40, 20, 128, 1024, 0),
+        (4, 40, 20, 256, 1024, 0),
+        (3, 37, 12, 512, 1024, 0),
+        (2, 1, 5, 512, 1024, 0),
+        (2, 9, 0, 512, 1024, 0),
+        (3, 19, 6, 512, 67, 66),
+        (2, 23, 11, 512, 5003, 5002),
+    ],
+)
+def test_rnnt_joint_bwd_kernel_at_tiling_edges(dev, B, T, U, J, V, blank):
+    from espresso_tpu_torch.ops import rnnt_kernels as rk
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    before = rk.rnnt_joint_bwd.launches
+    tc.check_rnnt_joint(tc.rnnt_inputs(B, T, U, J, V, seed=V + T + J, dev=dev, blank=blank), blank)
+    assert rk.rnnt_joint_bwd.launches == before + 1
+
+
+# the redesigned B3's edges (64-row query and key tiles, the [128 j'] skew
+# windows, TMA boxes that stop at T): T = 1, 2, 63, 65, 300 and the largest
+# T the forward takes (its 64 x T bf16 score rows fill the shared memory at
+# T = 1408); B = 40, so that dp sums over more utterances than a block
+# holds; at rates 0 and 0.1; at today's bound (8 bf16 ulps)
+@pytest.mark.parametrize("B,T", [(3, 1), (3, 2), (2, 63), (2, 65), (2, 300), (2, 1408), (40, 64)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rel_attention_train_bwd_kernel_at_tiling_edges(dev, B, T, rate):
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    tc.check_attention_train(tc.attention_train_inputs(B, T, seed=T + B, dev=dev), H, rate)
+
+
+# an utterance whose keys are all masked past a short length (2 of 200),
+# beside a full one
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rel_attention_train_bwd_kernel_with_a_short_utterance(dev, rate):
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    a = tc.attention_train_inputs(2, 200, seed=7, dev=dev)
+    a["key_valid"] = (torch.arange(200)[None, :] < torch.tensor([200, 2])[:, None]).to(dev)
+    tc.check_attention_train(a, H, rate)
+
+
 def test_train_kernels_reject_what_they_do_not_take(dev):
     from espresso_tpu_torch.ops import attention_kernels as ak
     from espresso_tpu_torch.ops import rnnt_kernels as rk
