@@ -1,17 +1,20 @@
-"""Where B5 (``rnnt_joint_bwd``) and B3 (the ``rel_attention_train``
-backward) spend their time on one NVIDIA H100: each kernel timed with one
-part of it left out.
+"""Where B1 (``rel_attention``), B4 (``rnnt_joint_lp``), B5
+(``rnnt_joint_bwd``) and B3 (the ``rel_attention_train`` backward) spend
+their time on one NVIDIA H100: each kernel timed with one part of it left
+out.
 
-    python3 chip_kernel_ablation.py
+    python3 chip_kernel_ablation.py [SOURCE ...]
 
 Copies ``espresso_tpu_torch/csrc`` into ``_checkout/ablation/csrc_<n>``
 (gitignored) for each variant n, inserts a guard ``EXP`` at the part it
 leaves out (in the copy only: the sources are not changed), lets the
-wrapper build its library from there with ``-DEXP=<n>`` and times it at the flagship train shapes (B5:
-B=16, T'=256, U1=101, J=512, V=1024; B3: B=16, T'=256, H=8, d=64, dropout
-0.1) by the profiler's device time per kernel. A variant computes wrong
-gradients; only its time is read. Prints one JSON line per variant, then
-the card's name and power limit. Exits nonzero without a card.
+wrapper build its library from there with ``-DEXP=<n>`` and times it at the flagship shapes (B1:
+B=256, T'=156, H=8, d=64; B4 and B5: B=16, T'=256, U1=101, J=512, V=1024;
+B3: B=16, T'=256, H=8, d=64, dropout 0.1) by the profiler's device time per
+kernel. A variant computes wrong outputs; only its time is read. With
+source file names as arguments (e.g. ``rel_attention.cu``), only their
+variants run. Prints one JSON line per variant, then the card's name and
+power limit. Exits nonzero without a card.
 """
 
 from __future__ import annotations
@@ -52,6 +55,40 @@ VARIANTS = [
     ("rnnt_joint_bwd.cu", 7, "rows: the consumers' waits for the W tiles", [(
         "        mbar_wait(&full[slot], (it / S) & 1);\n        float acc[16];",
         "        if (EXP != 7) mbar_wait(&full[slot], (it / S) & 1);\n        float acc[16];")]),
+    ("rel_attention.cu", 22, "the bd window (its stores and skewed reads)", [
+        ("    for (int j = 0; j < 16; ++j)\n#pragma unroll\n      for (int hh = 0; hh < 2; ++hh)\n"
+         "        *reinterpret_cast<uint32_t*>(win + qr[hh] * WLD",
+         "    for (int j = 0; j < 16 * (EXP != 22); ++j)\n#pragma unroll\n      for (int hh = 0; hh < 2; ++hh)\n"
+         "        *reinterpret_cast<uint32_t*>(win + qr[hh] * WLD"),
+        ("          bdp.x = bdr[0];\n          bdp.y = bdr[1];\n",
+         "          bdp = __float2bfloat162_rn(0.f);\n"
+         "          if (EXP != 22) {\n          bdp.x = bdr[0];\n          bdp.y = bdr[1];\n          }\n")]),
+    ("rel_attention.cu", 23, "the softmax's exp (both passes)", [(
+        "__device__ inline float e_of(float x, float m) { return expf(x - m); }",
+        "__device__ inline float e_of(float x, float m) { return EXP == 23 ? x - m : expf(x - m); }")]),
+    ("rel_attention.cu", 24, "the bd product (the [64 x 128] window)", [(
+        "      wgmma_ss_n128<0, 0>(bd, wgmma_desc(base + Layout::qv + 32 * k),",
+        "      if (EXP != 24) wgmma_ss_n128<0, 0>(bd, wgmma_desc(base + Layout::qv + 32 * k),")]),
+    ("rel_attention.cu", 25, "the PV products (their w fragments kept)", [(
+        "        wgmma_rs_n64<1>(o, a[kk],",
+        "        if (EXP == 25) o[kk] += __uint_as_float(a[kk][0] ^ a[kk][1] ^ a[kk][2] ^ a[kk][3]);\n"
+        "        else wgmma_rs_n64<1>(o, a[kk],")]),
+    ("rel_attention.cu", 26, "the scores' scalar work (skewed reads, roundings, max)", [(
+        "    if (live) {\n#pragma unroll\n      for (int j = 0; j < 8; ++j) {",
+        "    if (live && EXP != 26) {\n#pragma unroll\n      for (int j = 0; j < 8; ++j) {")]),
+    ("rnnt_joint_lp.cu", 31, "the consumers' waits for the W stages", [(
+        "    mbar_wait(&full[slot], (it / S) & 1);\n    const uint32_t st = base + L::ring + slot * STAGE;",
+        "    if (EXP != 31) mbar_wait(&full[slot], (it / S) & 1);\n"
+        "    const uint32_t st = base + L::ring + slot * STAGE;")]),
+    ("rnnt_joint_lp.cu", 32, "the epilogue's exp", [(
+        "    float add = 0.f;\n#pragma unroll\n    for (int j = 0; j < 16; ++j)",
+        "    float add = 0.f;\n#pragma unroll\n    for (int j = 0; j < 16 * (EXP != 32); ++j)")]),
+    ("rnnt_joint_lp.cu", 33, "the whole epilogue (bias, max, exp, picks)", [(
+        "                            const float* __restrict__ bias, int q, RowState& rs) {\n",
+        "                            const float* __restrict__ bias, int q, RowState& rs) {\n"
+        "  if (EXP == 33) { rs.m[0] += acc[0]; rs.m[1] += acc[63]; return; }\n")]),
+    ("rnnt_joint_lp.cu", 34, "the consumers' stores of the joint hidden", [(
+        "      jh.store(smem + (pre - base)", "      if (EXP != 34) jh.store(smem + (pre - base)")]),
     ("rel_attention_train.cu", 11, "query pass: the dp atomics", [(
         "    add_dp(dp, dpc, j0, T, D, h, qr, f.q);",
         "    if (EXP != 11) add_dp(dp, dpc, j0, T, D, h, qr, f.q);")]),
@@ -113,25 +150,32 @@ def main() -> int:
     ob, ol = tc.occupancy_grads(r, lpb, lpl)
     a = tc.attention_train_inputs(B, T, seed=T, dev=dev)
     args = (a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"])
+    b1 = cs.attn_inputs(256, 156, seed=0, dev=dev) + (8, ak.HEAD_DIM ** -0.5)
     calls = {
+        "rel_attention.cu": lambda: ak.rel_attention(*b1),
+        "rnnt_joint_lp.cu": lambda: rk.rnnt_joint_lp(*ja, 0),
         "rnnt_joint_bwd.cu": lambda: rk.rnnt_joint_bwd(*ja, lse, ob, ol, 0),
         "rel_attention_train.cu": lambda: ak.rel_attention_train_bwd(
             *args, a["seed"], a["g"], 8, ak.HEAD_DIM ** -0.5, 0.1),
     }
+    only = set(sys.argv[1:]) or set(calls)
     runs = [(src, 0, "nothing") for src in calls]
     runs += [(src, n, what) for src, n, what, _ in VARIANTS]
-    for src_name, exp, what in sorted(runs, key=lambda x: (x[0] != "rnnt_joint_bwd.cu", x[1])):
+    for src_name, exp, what in sorted(runs, key=lambda x: (list(calls).index(x[0]), x[1])):
+        if src_name not in only:
+            continue
         # the wrappers build and load their library from these on first use
         csrc = os.path.join(root, f"csrc_{exp}")
         variant_sources(csrc, src_name, exp)
         cuda_build.CSRC_DIR, cuda_build.BUILD_DIR = csrc, os.path.join(csrc, "build")
         cuda_build.NVCC_FLAGS = base_flags + (f"-DEXP={exp}",)
         rk._lib.cache_clear()
+        ak._lib.cache_clear()
         ak._train_lib.cache_clear()
         split = cs.device_split(calls[src_name])
         kernels = {}
         for name, ms in split.items():
-            m = re.search(r"(rnnt_joint_bwd_\w+?_kernel|rel_attention_train_bwd_\w+?_kernel)", name)
+            m = re.search(r"(rnnt_joint_\w+?_kernel|rel_attention\w*?_kernel)", name)
             if m:
                 kernels[m.group(1)] = ms
         print(json.dumps({"source": src_name, "variant": exp, "left_out": what, "ms": kernels}),

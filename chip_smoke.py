@@ -92,7 +92,11 @@ BEAM = dict(
     beam_size=10, expansion_beta=2, expansion_gamma=2.3, max_num_expansions_per_step=2,
     max_out_factor=0.35, prefix_alpha=1,
 )
-ATTN_SHAPES = [(256, 156), (4, 2), (4, 37), (2, 1024)]  # (B, T') at H=8, d=64
+# (B, T') at H=8, d=64: the flagship, then B1's tiling edges (64-row query
+# and key tiles, scores in registers up to three key tiles and in shared
+# memory past them, up to the longest T' it takes)
+ATTN_SHAPES = [(256, 156), (4, 2), (4, 37), (2, 1024), (3, 1), (3, 63), (3, 64), (3, 65),
+               (3, 129), (3, 200), (2, 1344)]
 # B6's edge shapes beside the flagship: (B, K, V, J = H, n, fold eos, label bias)
 JOINT_EDGES = [
     (256, 10, 5003, 512, 12, False, False), (4, 4, 5003, 512, 6, True, True),
@@ -128,9 +132,12 @@ TRAIN = dict(B=16, T_FRAMES=1024, U=100, STEPS=10, DROPOUT=0.1)
 # flagship)
 ATTN_TRAIN_SHAPES = [(16, 256), (3, 1), (3, 2), (3, 37), (40, 64)]
 # (B, T', U, V, blank): the flagship, V=5003 with the blank in the third
-# 64-column tile, a small ragged edge, T'=1, and U=0 (U1=1)
+# 64-column tile, a small ragged edge, T'=1, and U=0 (U1=1); then V=67 and
+# V=5003 with the blank in the last column, an odd number of 64-row tiles
+# (B4 pairs them), and T'=1 with U=0
 RNNT_SHAPES = [(16, 256, 100, 1024, 0), (16, 256, 100, 5003, 131), (3, 37, 9, 5003, 4999),
-               (2, 1, 5, 1024, 0), (2, 9, 0, 1024, 0)]
+               (2, 1, 5, 1024, 0), (2, 9, 0, 1024, 0), (3, 19, 6, 67, 66),
+               (2, 23, 11, 5003, 5002), (3, 17, 4, 1024, 3), (1, 1, 0, 5003, 5002)]
 # one train step of a 2-utterance sub-batch at dropout 0, kernels vs plain
 # versions: both round every bf16 activation at the same points but sum in
 # other orders, and a rounding flip in one of 16 layers moves the loss by
@@ -210,11 +217,11 @@ def device_ms(fn, calls: int = 20, kernel: str = "", per_call=None) -> float:
     """Device time per call of ``fn`` from a ``torch.profiler`` trace of
     ``calls`` calls: the time of the CUDA kernels whose name contains
     ``kernel`` (or of every kernel, when it is empty), without the host's
-    launch gaps. Raises if the trace holds no device time. With
-    ``per_call``, the kernels one call launches: a trace that holds fewer
-    launches than that (the tracer can drop kernel records) is taken again,
-    up to three times, and then the time comes from CUDA events of
-    back-to-back calls instead (launch gaps included), as the log says."""
+    launch gaps. The tracer can drop kernel records: a trace that holds no
+    device time or, with ``per_call`` (the kernels one call launches),
+    fewer launches than that is taken again, up to three times, and then
+    the time comes from CUDA events of back-to-back calls instead (launch
+    gaps included), as the log says."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -233,10 +240,6 @@ def device_ms(fn, calls: int = 20, kernel: str = "", per_call=None) -> float:
             return total_us / calls / 1e3
         log(f"profiler trace {attempt} of {kernel or fn}: {launched} kernel launches of "
             f"{calls * (per_call or 0)}, {total_us} us")
-        if per_call is None:
-            break
-    if per_call is None:
-        raise RuntimeError(f"the profiler saw no device time for {kernel or fn}")
     ms = median_ms(fn)
     log(f"{kernel or fn}: the profiler missed launches three times; CUDA events give {ms} ms")
     return ms
@@ -270,6 +273,31 @@ def rnnt_bwd_cublas_ms(B: int, T: int, U1: int, J: int, V: int, dev) -> float:
     del pre, glog
     torch.cuda.empty_cache()
     return ms
+
+
+def rnnt_lp_cublas_ms(B: int, T: int, U1: int, J: int, V: int, dev) -> float:
+    """A yardstick for B4, not a library call for its function: its logits
+    product alone through cuBLAS on a materialised bf16 joint hidden
+    [B T U1, J] times W^T [J, V]."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev, dtype=torch.bfloat16)
+    pre, w = mk(B * T * U1, J), mk(V, J)
+    ms = device_ms(lambda: pre @ w.t(), calls=5)
+    del pre
+    torch.cuda.empty_cache()
+    return ms
+
+
+def sdpa_fwd_ms(B: int, T: int, heads: int, d: int, dev) -> float:
+    """A yardstick for B1, not the same function (no relative positions):
+    the device time of ``scaled_dot_product_attention``'s forward at B1's
+    shape."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(B, heads, T, d, generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    return device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
 
 
 def sdpa_bwd_ms(B: int, T: int, heads: int, d: int, rate: float, dev) -> float:
@@ -323,10 +351,14 @@ def build_kernels() -> str:
 
 
 def attn_inputs(B: int, T: int, seed: int, dev):
+    """q+u, q+v, k, v, p and ragged key masks: the first utterance full and,
+    from B = 3 on, the last with one valid key."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     mk = lambda *s: torch.randn(*s, generator=g).to(dev, torch.bfloat16)
     lens = torch.randint(1, T + 1, (B,), generator=g)
     lens[0] = T
+    if B >= 3:
+        lens[-1] = 1
     key_valid = (torch.arange(T)[None, :] < lens[:, None]).to(dev)
     return mk(B, T, D), mk(B, T, D), mk(B, T, D), mk(B, T, D), mk(2 * T - 1, D), key_valid
 
@@ -358,6 +390,11 @@ def check_attention(dev) -> dict:
                 "rel_attention", lambda: rel_attention(*args),
                 lambda: rel_attention_reference(*args), "rel_attention_kernel",
             ))
+            # a yardstick of the order of size, not the same function:
+            # scaled_dot_product_attention's forward, which has no relative
+            # positions
+            row["sdpa_fwd_ms"] = sdpa_fwd_ms(B, T, H, D // H, dev)
+            log(f"rel_attention flagship: sdpa forward {row['sdpa_fwd_ms']} ms device")
     row["max_abs_err"] = worst
     return row
 
@@ -530,6 +567,9 @@ def check_train_kernels(dev) -> dict:
         "rnnt_joint_lp", lambda: rk.rnnt_joint_lp(*ja, blank),
         lambda: rk.rnnt_joint_lp_reference(*ja, blank), "rnnt_joint_lp_kernel", plain_calls=2,
     ))
+    # a yardstick: the logits product alone through cuBLAS
+    row["cublas_products_ms"] = rnnt_lp_cublas_ms(B, T, U1, J, V, dev)
+    log(f"rnnt_joint_lp flagship: cuBLAS logits product alone {row['cublas_products_ms']} ms device")
     rows["rnnt_joint_lp"] = dict(row, max_abs_err=lp_err)
     lpb, lpl, lse = rk.rnnt_joint_lp_reference(*ja, blank)
     ob, ol = tc.occupancy_grads(r, lpb, lpl)
@@ -777,15 +817,16 @@ def profile_batch(decoder, batch) -> dict:
     avgs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in avgs) / 1e3
     top = [(e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count) for e in avgs[:12]]
-    # the two costliest decode kernels' device time in the batch (ms, launches)
+    # the two costliest decode kernels' and B1's device time in the batch
+    # (ms, launches)
     decode = {
         name: [sum(e.self_device_time_total for e in avgs if name in e.key) / 1e3,
                sum(e.count for e in avgs if name in e.key)]
-        for name in ("fused_joint_topk_kernel", "lstm_layer_kernel")
+        for name in ("fused_joint_topk_kernel", "lstm_layer_kernel", "rel_attention_kernel")
     }
     log(
         f"profiled batch: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms:.1%}); B6 and B7 (ms, launches): {decode}; "
+        f"({busy_ms / wall_ms:.1%}); B6, B7 and B1 (ms, launches): {decode}; "
         f"top kernels (name, ms, count): {top}"
     )
     return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -1131,6 +1172,7 @@ def profile_train_step(step, state, batch, gen) -> dict:
     parts = {
         "attention_kernels_device_ms": by_kernel("rel_attention_train"),
         "joint_kernels_device_ms": by_kernel("rnnt_joint"),
+        "joint_lp_device_ms": by_kernel("rnnt_joint_lp"),
     }
     for name in ("dp_alpha", "dp_beta", "lstm_sequence_fwd", "optimizer"):
         ranges = [e for e in host_ops if e.name == name]
@@ -1490,10 +1532,12 @@ def main() -> int:
             # no single PyTorch call computes any of these functions (for
             # int8_matmul, torch._int_mm covers only the int8 product)
             "library_ms": None,
-            # yardsticks, not library calls for the function: B5's, B6's and
-            # B7's products alone through cuBLAS, scaled_dot_product_attention's
-            # backward beside B3; and B3's and B5's whole device time a call
-            **{k: r[k] for k in ("cublas_products_ms", "sdpa_bwd_ms", "ms_all_kernels") if k in r},
+            # yardsticks, not library calls for the function: B4's, B5's, B6's
+            # and B7's products alone through cuBLAS, scaled_dot_product_attention's
+            # forward beside B1 and backward beside B3; and B3's and B5's whole
+            # device time a call
+            **{k: r[k] for k in ("cublas_products_ms", "sdpa_fwd_ms", "sdpa_bwd_ms",
+                                 "ms_all_kernels") if k in r},
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

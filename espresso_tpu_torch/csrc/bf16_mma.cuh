@@ -1,5 +1,5 @@
-// Tensor-core helpers shared by the mma.sync bf16 kernels (rel_attention.cu,
-// rel_attention_train.cu and the RNNT joint kernels): register fragments of
+// Tensor-core helpers of the mma.sync bf16 kernel that is left (the
+// training forward in rel_attention_train.cu): register fragments of
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) loaded from shared-memory
 // tiles, and bf16 rounding. The wgmma kernels use hopper_sm90.cuh.
 

@@ -6,221 +6,429 @@
 //
 //   ac[q,k] = (q+u)[q] . k[k]                    fp32 sum of bf16 products
 //   bd[q,k] = (q+v)[q] . p[k - q + T - 1]        the espnet relative shift
-//   s       = bf16(bf16(ac) + bf16(bd)) * bf16(scale), rounded to bf16
-//   w       = bf16(softmax_fp32(s + mask))       mask 0 or -1e8 (not -inf)
+//   s       = bf16(bf16(bf16(ac) + bf16(bd)) * bf16(scale))
+//   w       = bf16(e / z), e = exp(s + mask - max), z = sum_k e over the
+//             full row, fp32                     mask 0 or -1e8 (not -inf)
 //   out[q]  = bf16(sum_k w[q,k] v[k])            fp32 sum
 //
-// exactly the arithmetic of the Pallas kernel (attention_kernels.py:140-180).
+// exactly the arithmetic of the Pallas kernel (attention_kernels.py:140-180):
+// the softmax is over the whole row, not online (an online softmax rounds w
+// from other partial sums and is another function).
 //
 // What bounds it on an H100: at the flagship decode shape (B=256, T'=156,
 // H=8, d=64) one layer moves about 200 MB of bf16 I/O (q+u, q+v, k, v, out:
-// 5*B*T*D*2 bytes) and does about 19 GFLOP (ac, bd and PV at ~6.4 each):
+// 5 B T D 2 bytes) and does about 19 GFLOP (ac, bd and PV at ~6.4 each):
 // ~95 FLOP a byte, below the card's bf16 ridge of ~295, so a kernel that
-// keeps the [T, T] scores on chip is bounded by memory traffic.
+// keeps the [T, T] scores on chip is bounded by memory traffic (0.061 ms).
+// Every score also costs some 20 instructions of scalar work (the bf16
+// roundings, the skewed read of bd, the max, one exp), and each key tile
+// is a chain of dependent steps, so latency and the SM's issue slots come
+// first in practice.
 //
-// What the design does about it: one block owns QT=64 query rows of one
-// (b, h) and keeps their whole score row block in shared memory (bf16,
-// 64 x T), so nothing of size [B, H, T, T] reaches device memory and q/k/v/p
-// are read once per block (k, v and the p window are re-read by the T/QT
-// query tiles of a head, which the 50 MB L2 serves). The products run on
-// the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate), each warp
-// owning 16 query rows:
-//   - ac: the warp's [16, 64] tile against a 64-key tile;
-//   - bd: the TPU kernel's [T, 2T-1] bd_full matrix and its bit-decomposed
-//     roll are not carried over. Per key tile the warp multiplies its rows
-//     by the 80 rows of p its (row, key) pairs can reach, a [16, 80] window
-//     product, rounds it to bf16 into shared memory, and reads
-//     bd[r, c] = window[r, c - r + 15] back shifted;
-//   - the softmax runs in fp32 over each full row without a pass of its own:
-//     the row max comes from the score fragments in registers, one pass over
-//     the stored s gives the sum, and w = bf16(e / z) is formed in the
-//     A fragments of the last product (on an H100 at the flagship shape, a
-//     first version with a separate per-row softmax pass spent 0.52 of its
-//     0.91 ms there);
-//   - out: w [16, T] times v, tile by tile.
-// Loads are plain 16-byte loads without pipelining (cp.async / TMA and
-// wgmma are later work).
+// Design: a block is one warpgroup and owns 64 query rows of one (b, h)
+// (grid: query tiles x H x B, the query tiles of a head side by side so
+// that its K, V and p rows come from L2 after the first); three blocks share
+// an SM (168 registers, ~75 KB of shared memory at T' = 156). Its thread 0
+// brings every operand tile by TMA: q+u and q+v once, then per key tile K
+// and the 128-row p window into a ring of two stages guarded by mbarriers,
+// then the V tiles, three to a stage, so that the next tile's loads run
+// under this tile's work and the V tiles arrive during the softmax. The
+// maps (built by the C entry) are 3-D over [D, T, B] for q+u, q+v, k and v,
+// so that a 64-row box of one head never reaches into the next utterance
+// and reads zeros past T, and 2-D over [D, 2T-1] for p, zeros outside the
+// table (as the training backward's, ops/attention_kernels.py::
+// train_bwd_tmap_specs). Per key tile:
+//   - ac = (q+u) K^T on wgmma m64n64k16, rounded to bf16 pairs, then the
+//     window BD = (q+v) p_win^T [64 q][128 j'] on wgmma m64n128k16 (one after
+//     the other: at most 64 accumulator registers in flight);
+//   - BD is written bf16 over the stage's K and p window, rows 136 wide and
+//     not swizzled, so that every skewed read bd[q, k] = BD[q, k - q + 63]
+//     is one load at a constant offset from the lane's row; a row of BD is
+//     written and read by the one warp that owns that query row;
+//   - s by packed bf16x2 arithmetic (an f32 sum or product of two bf16
+//     values rounds to bf16 as the bf16x2 instruction does), x = s + mask in
+//     f32 (-inf past T) and the row maximum, from registers;
+//   - the first two key tiles keep x in registers; later tiles store s in
+//     shared memory (bf16, 64 rows), and the third is read back once the
+//     scores are done.
+// Then e = exp(x - max) once for the first three key tiles (kept in
+// registers) with z, and w = bf16(e * (1/z)) formed directly as the A
+// fragments of the PV product (wgmma m64n64k16, A from registers, V read
+// MN-major from the ring), a stage's products in one commit group. A tile
+// past the third computes its exp twice (for z and for w). e * (1/z) is
+// within an f32 ulp of e / z before the bf16 rounding. A warp whose 16 rows
+// all lie past T, and the upper 32 keys of a tile when they lie past T,
+// skip their scalar work and exps; 16 keys past T skip their PV step. No
+// epilogue reads wgmma's registers in a divergent branch (ptxas would
+// serialise every wgmma): the output is stored through a predicate.
+//
+// What holds it back (chip_kernel_ablation.py on an H100 at the flagship,
+// ~0.18 ms in all): the scores' scalar work (~0.08 ms), the bd window's
+// stores and skewed reads, the exp, the bd product and the PV products
+// (0.02-0.04 ms each); each key tile's steps run one after another in a
+// warpgroup, with two other blocks of the SM to overlap them, and the 168
+// registers of three blocks an SM spill ~170 bytes a thread.
 //
 // C entry: rel_attention_bf16(...) returns the CUDA error of the launch; it
 // launches on the given stream and does not synchronise.
 
-#include "rel_attention_common.cuh"
+#include "hopper_sm90.cuh"
+#include <math.h>
 
 namespace {
 
-static_assert(2 * QT <= PW, "q+u and q+v are staged in the p window's space");
+using namespace sm90;
 
-__host__ inline size_t smem_bytes(int T) {
-  const int Tp = padded_len(T);
-  return sizeof(float) * Tp +
-         sizeof(bf16) * (KT * LDH + PW * LDH + NWARPS * 16 * LDB +
-                         QT * (Tp + 8));
+constexpr int TILE = 64;            // query rows a block, keys a tile, the head width
+constexpr int BOX = TILE * 128;     // a [64 x 64] bf16 tile, 128-byte swizzled (8 KB)
+constexpr int THREADS = 128;        // one warpgroup
+constexpr int S = 2;                // ring stages: {K, p window} of a key tile, or VG V tiles
+constexpr int NR = 2;               // key tiles whose scores stay in registers
+constexpr int VG = 3;               // V tiles a ring stage; also the key tiles whose e
+                                    // stays in registers once the scores are done
+static_assert(NR <= VG, "e of the first VG key tiles in registers");
+constexpr int WLD = 2 * TILE + 8;   // bf16 row stride of the [64 q][128 j'] bd window
+constexpr float kMaskFill = -1.0e8f;
+
+__host__ __device__ inline int padded_len(int T) { return (T + TILE - 1) / TILE * TILE; }
+
+// bf16 row stride of the shared score rows of the key tiles past NR (0: none)
+__host__ __device__ inline int tail_ld(int T) {
+  const int n = padded_len(T) - NR * TILE;
+  return n > 0 ? n + 8 : 0;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-rel_attention_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
-                     const bf16* __restrict__ kmat, const bf16* __restrict__ vmat,
-                     const bf16* __restrict__ p, const uint8_t* __restrict__ key_valid,
+// the operands: q+u, q+v, k, v as [D, T, B] (box 64 x 64 x 1) and p as
+// [D, 2T-1] (box 64 x 64)
+struct Maps {
+  CUtensorMap qu, qv, k, v, p;
+};
+
+struct Layout {
+  static constexpr uint32_t qu = 0, qv = BOX;
+  static constexpr uint32_t ring = 2 * BOX;       // S x {K or V, p window (2 boxes)}
+  static constexpr uint32_t stage = 3 * BOX;
+  static constexpr uint32_t bars = ring + S * stage;  // q, full[S]
+  static constexpr uint32_t mask = bars + 64;         // [Tp] f32, then the tail scores
+};
+
+__host__ inline size_t smem_bytes(int T) {
+  return 1024 + Layout::mask + sizeof(float) * padded_len(T) +
+         sizeof(bf16) * (size_t)TILE * tail_ld(T);
+}
+
+static_assert(TILE * WLD * 2 <= 3 * BOX, "the bd window fits in a stage");
+
+// the softmax's e of a score x + mask under the row maximum m
+__device__ inline float e_of(float x, float m) { return expf(x - m); }
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
+rel_attention_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ key_valid,
                      bf16* __restrict__ out, int T, int H, float scale_f) {
-  extern __shared__ float smem[];
-  const int Tp = padded_len(T), LDS = Tp + 8;
-  float* sMask = smem;                                   // [Tp] additive key mask
-  bf16* sKV = reinterpret_cast<bf16*>(sMask + Tp);       // [KT][LDH]: K, later V
-  bf16* sP = sKV + KT * LDH;                             // [PW][LDH]: p window
-  bf16* sBD = sP + PW * LDH;                             // [NWARPS][16][LDB]
-  bf16* sS = sBD + NWARPS * 16 * LDB;                    // [QT][LDS]: scores s
-  // q+u and q+v are read once into registers, so they are staged in the
-  // p window's space before the first p tile arrives
-  bf16* sQu = sP;                                        // [QT][LDH]
-  bf16* sQv = sP + QT * LDH;                             // [QT][LDH]
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + Layout::bars);
+  uint64_t* full = qbar + 1;
+  float* mask = reinterpret_cast<float*>(smem + Layout::mask);
+  const int Tp = padded_len(T), nk = Tp / TILE, D = H * TILE, LDT = tail_ld(T);
+  bf16* tail = reinterpret_cast<bf16*>(mask + Tp);  // [64][LDT]: s of key tiles NR..
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int t = threadIdx.x;
 
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * HD, col0 = h * HD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t row0 = (size_t)b * T;
-  const float scale = round_bf16(scale_f);
-
-  stage_rows(sQu, qu, row0, q0, QT, T, D, col0);
-  stage_rows(sQv, qv, row0, q0, QT, T, D, col0);
-  for (int k = threadIdx.x; k < Tp; k += NTHREADS)
-    sMask[k] = (k < T && key_valid[row0 + k]) ? 0.f : kMaskFill;
+  // load `it` of the ring: {K, p window} of key tile it, then the V tiles,
+  // VG a stage (V tile kt in box kt % VG of load nk + kt / VG)
+  const int nit = nk + (nk + VG - 1) / VG;
+  auto refill = [&](int it) {
+    if (it >= nit) return;
+    const int slot = it % S;
+    const uint32_t st = base + Layout::ring + slot * Layout::stage;
+    if (it < nk) {
+      const int k0 = it * TILE;
+      // window row j' <-> relative position T - 1 + k0 - q0 - 63 + j'
+      const int j0 = T - 1 + k0 - q0 - (TILE - 1);
+      mbar_arrive_expect_tx(&full[slot], 3 * BOX);
+      tma_load_3d(st, &maps.k, &full[slot], h * TILE, k0, b);
+      tma_load_2d(st + BOX, &maps.p, &full[slot], h * TILE, j0);
+      tma_load_2d(st + 2 * BOX, &maps.p, &full[slot], h * TILE, j0 + TILE);
+    } else {
+      const int kt0 = VG * (it - nk), n = nk - kt0 < VG ? nk - kt0 : VG;
+      mbar_arrive_expect_tx(&full[slot], n * BOX);
+      for (int i = 0; i < n; ++i)
+        tma_load_3d(st + i * BOX, &maps.v, &full[slot], h * TILE, (kt0 + i) * TILE, b);
+    }
+  };
+  if (t == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+    mbar_arrive_expect_tx(qbar, 2 * BOX);
+    tma_load_3d(base + Layout::qu, &maps.qu, qbar, h * TILE, q0, b);
+    tma_load_3d(base + Layout::qv, &maps.qv, qbar, h * TILE, q0, b);
+    for (int it = 0; it < S; ++it) refill(it);
+  }
+  // additive key mask; -inf past T, so that padded keys add nothing
+  for (int k = t; k < Tp; k += THREADS)
+    mask[k] = k < T ? (key_valid[(size_t)b * T + k] ? 0.f : kMaskFill) : -INFINITY;
   __syncthreads();
 
-  // the warp's 16 query rows as A fragments, for the 4 k-steps of d = 64
-  uint32_t au[4][4], av[4][4];
+  // the lane's accumulator rows qr[hh] = 16 warp + g + 8 hh, columns 8 j + 2 q
+  const int warp = t / 32, g = (t % 32) / 4, q = t % 4;
+  const int qr[2] = {16 * warp + g, 16 * warp + g + 8};
+  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale_f);
+  float mx[2] = {-INFINITY, -INFINITY};
+  mbar_wait(qbar, 0);
+
+  // a warp whose 16 query rows all lie past T skips its scalar work (it
+  // still takes part in the products and barriers)
+  const bool live = q0 + 16 * warp < T;
+
+  // key tile kt: x[4 j + 2 hh + e] = s + mask of row qr[hh], key 64 kt + 8 j +
+  // 2 q + e, and the row maxima; with `to_tail`, s also goes to the shared
+  // score rows. The products run one after the other, ac rounded to bf16
+  // pairs before bd's starts, so that at most 64 accumulator registers are
+  // in flight. The stage of tile kt - 1 goes back to TMA once every warp is
+  // past this tile's products.
+  auto score_tile = [&](int kt, float (&x)[32], bool to_tail) {
+    const int slot = kt % S;
+    const uint32_t st = base + Layout::ring + slot * Layout::stage;
+    mbar_wait(&full[slot], (kt / S) & 1);
+    __nv_bfloat162 acp[16];  // bf16(ac) of rows qr[hh], columns 8 j + 2 q (+1): [2 j + hh]
+    {
+      float ac[32];
+      wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    load_a(au[kk], sQu + warp * 16 * LDH + kk * 16, LDH, g, t);
-    load_a(av[kk], sQv + warp * 16 * LDH + kk * 16, LDH, g, t);
+      for (int k = 0; k < 4; ++k)
+        wgmma_ss_n64<0, 0>(ac, wgmma_desc(base + Layout::qu + 32 * k), wgmma_desc(st + 32 * k),
+                           k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acp[i] = __floats2bfloat162_rn(ac[2 * i], ac[2 * i + 1]);
+    }
+    float bd[64];
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_ss_n128<0, 0>(bd, wgmma_desc(base + Layout::qv + 32 * k),
+                          wgmma_desc(st + BOX + 32 * k), k > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    named_sync(1, THREADS);  // K and the p window are read; so is tile kt - 1's bd window
+    if (t == 0 && kt > 0) refill(kt - 1 + S);
+    // BD (bf16, rows WLD apart, not swizzled: every access below is one
+    // load or store at a constant offset from the lane's row) over the
+    // stage's K and p window: rows qr, columns 8 j + 2 q (+1)
+    bf16* win = reinterpret_cast<bf16*>(smem + (st - base));
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(win + qr[hh] * WLD + 8 * j + 2 * q) =
+            pack_bf16(bd[4 * j + 2 * hh], bd[4 * j + 2 * hh + 1]);
+    __syncwarp();  // a row of the window is written and read by one warp
+    // the upper 32 keys of a tile that lie past T: x = -inf without the work
+    const bool upper = kt * TILE + TILE / 2 < T;
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * q;
+        if (j >= 4 && !upper) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[4 * j + e] = -INFINITY;
+          continue;
+        }
+        const float2 mk = *reinterpret_cast<const float2*>(mask + kt * TILE + c);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // bd[q, k] = BD[q, k - q + 63]
+          const bf16* bdr = win + qr[hh] * WLD + c - qr[hh] + TILE - 1;
+          __nv_bfloat162 bdp;
+          bdp.x = bdr[0];
+          bdp.y = bdr[1];
+          const __nv_bfloat162 sp = __hmul2(__hadd2(acp[2 * j + hh], bdp), scale2);
+          if (to_tail)
+            *reinterpret_cast<__nv_bfloat162*>(tail + qr[hh] * LDT + (kt - NR) * TILE + c) = sp;
+          const float x0 = __low2float(sp) + mk.x, x1 = __high2float(sp) + mk.y;
+          x[4 * j + 2 * hh] = x0;
+          x[4 * j + 2 * hh + 1] = x1;
+          mx[hh] = fmaxf(mx[hh], fmaxf(x0, x1));
+        }
+      }
+    }
+    // the window's generic writes, before TMA overwrites the stage
+    fence_proxy_async();
+  };
+
+  // ---- scores
+  float xr[VG][32];  // x, then e: tiles 0 .. NR - 1 from the scores, NR .. VG - 1 read back
+#pragma unroll
+  for (int kt = 0; kt < NR; ++kt)
+    if (kt < nk) score_tile(kt, xr[kt], false);
+  for (int kt = NR; kt < nk; ++kt) {
+    float x[32];
+    score_tile(kt, x, true);
   }
-  bf16* bdw = sBD + warp * 16 * LDB;
-  bf16* srows = sS + warp * 16 * LDS;
-  // block row r = 16*warp + rl and key k0 + c need p-window row
-  // c - r + QT - 1 = wb + (c - rl + 15), with the warp's window base wb
-  const int wb = QT - 16 - 16 * warp;
-  // row maxima of s + mask for the lane's rows g and g + 8 (exact: max does
-  // not depend on order), combined over the 4 lanes of a row below
-  float mrow[2] = {-__int_as_float(0x7f800000), -__int_as_float(0x7f800000)};
+  named_sync(1, THREADS);  // every warp is done with the last key tile's stage
+  if (t == 0) refill(nk - 1 + S);
 
-  // ---- scores: s into shared memory (bf16), row maxima in registers
-  for (int k0 = 0; k0 < Tp; k0 += KT) {
-    __syncthreads();  // the previous tile's readers are done with sKV / sP
-    stage_rows(sKV, kmat, row0, k0, KT, T, D, col0);
-    // p-window row j <-> table row k0 - q0 - (QT - 1) + (T - 1) + j
-    stage_rows(sP, p, 0, k0 - q0 - (QT - 1) + (T - 1), PW, 2 * T - 1, D, col0);
-    __syncthreads();
-
-    {  // window[rl, j] = (q+v)[rl] . p_window[wb + j], rounded to bf16
-      float acc[BDW / 8][4] = {};
+  // ---- softmax over the full row: max and sum over the 4 lanes of a row.
+  // e is formed once and kept in registers for the first VG key tiles (tile
+  // NR's s is read back from the shared rows, the lane's own elements);
+  // tiles past them form it again for w. A key past T has x = -inf, so e =
+  // 0; a warp whose rows all lie past T skips the exps.
+  float zinv[2];
+  {
+    float z[2] = {0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    }
 #pragma unroll
-        for (int nt = 0; nt < BDW / 8; ++nt) {
-          const bf16* pb = sP + (wb + nt * 8 + g) * LDH + kk * 16 + 2 * t;
-          mma_bf16(acc[nt], av[kk], ld32(pb), ld32(pb + 8));
+    for (int kt = NR; kt < VG; ++kt)
+      if (kt < nk && live) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * q;
+          const float2 mk = *reinterpret_cast<const float2*>(mask + kt * TILE + c);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const __nv_bfloat162 sp = *reinterpret_cast<const __nv_bfloat162*>(
+                tail + qr[hh] * LDT + (kt - NR) * TILE + c);
+            xr[kt][4 * j + 2 * hh] = __low2float(sp) + mk.x;
+            xr[kt][4 * j + 2 * hh + 1] = __high2float(sp) + mk.y;
+          }
+        }
+      }
+    if (live) {
+#pragma unroll
+      for (int kt = 0; kt < VG; ++kt)
+        if (kt < nk) {
+          // the upper 32 keys of the tile, when they lie past T, hold e = 0
+          const bool upper = kt * TILE + TILE / 2 < T;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int hh = (i >> 1) & 1;
+            xr[kt][i] = e_of(xr[kt][i], mx[hh]);
+            z[hh] += xr[kt][i];
+          }
+          if (upper) {
+#pragma unroll
+            for (int i = 16; i < 32; ++i) {
+              const int hh = (i >> 1) & 1;
+              xr[kt][i] = e_of(xr[kt][i], mx[hh]);
+              z[hh] += xr[kt][i];
+            }
+          } else {
+#pragma unroll
+            for (int i = 16; i < 32; ++i) xr[kt][i] = 0.f;
+          }
+        }
+    } else {
+#pragma unroll
+      for (int kt = 0; kt < VG; ++kt)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) xr[kt][i] = 0.f;
+    }
+    for (int kt = VG; kt < nk; ++kt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * q;
+        if (!live || kt * TILE + 8 * j >= T) continue;
+        const float2 mk = *reinterpret_cast<const float2*>(mask + kt * TILE + c);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const __nv_bfloat162 sp = *reinterpret_cast<const __nv_bfloat162*>(
+              tail + qr[hh] * LDT + (kt - NR) * TILE + c);
+          z[hh] += e_of(__low2float(sp) + mk.x, mx[hh]) + e_of(__high2float(sp) + mk.y, mx[hh]);
         }
       }
 #pragma unroll
-      for (int nt = 0; nt < BDW / 8; ++nt) {
-        *reinterpret_cast<uint32_t*>(bdw + g * LDB + nt * 8 + 2 * t) =
-            pack2f(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<uint32_t*>(bdw + (g + 8) * LDB + nt * 8 + 2 * t) =
-            pack2f(acc[nt][2], acc[nt][3]);
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      z[hh] += __shfl_xor_sync(0xffffffffu, z[hh], 1);
+      z[hh] += __shfl_xor_sync(0xffffffffu, z[hh], 2);
+      zinv[hh] = 1.f / z[hh];
     }
-    float ac[KT / 8][4] = {};
+  }
+
+  // ---- out = w v, w = bf16(e / z) as wgmma's A fragments (the k16 step kk
+  // of a tile is its n8 blocks 2 kk and 2 kk + 1: rows g, g + 8 x columns
+  // 2 q, 2 q + 1 and 2 q + 8, 2 q + 9). Each ring stage holds VG V tiles:
+  // their products go out tile by tile, as each tile's fragments are formed,
+  // in one commit group (B = V tile kt [64 keys][64], MN-major; 16 keys
+  // past T are not run).
+  float o[32];
+  auto pv_issue = [&](uint32_t vtile, int kt, const uint32_t (&a)[4][4]) {
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < 4; ++kk)
+      if (kt * TILE + 16 * kk < T)
+        wgmma_rs_n64<1>(o, a[kk], wgmma_desc_mn(vtile + 2048 * kk, BOX), kt > 0 || kk > 0);
+  };
+  auto pv_done = [&](int it) {
+    wgmma_commit();
+    wgmma_wait<0>();
+    named_sync(1, THREADS);  // every warp's products are done with the stage
+    if (t == 0) refill(it + S);
+  };
+  for (int it = nk; it < nit; ++it) {
+    const int slot = it % S;
+    const uint32_t st = base + Layout::ring + slot * Layout::stage;
+    mbar_wait(&full[slot], (it / S) & 1);
+    uint32_t a[VG][4][4];
+    if (it == nk) {  // the first VG key tiles: e in registers
 #pragma unroll
-      for (int nt = 0; nt < KT / 8; ++nt) {
-        const bf16* kb = sKV + (nt * 8 + g) * LDH + kk * 16 + 2 * t;
-        mma_bf16(ac[nt], au[kk], ld32(kb), ld32(kb + 8));
+      for (int kt = 0; kt < VG; ++kt) {
+        if (kt >= nk) break;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 8 * kk + 2 * r;
+            a[kt][kk][r] = pack_bf16(xr[kt][i] * zinv[r & 1], xr[kt][i + 1] * zinv[r & 1]);
+          }
+        pv_issue(st + kt * BOX, kt, a[kt]);
       }
-    }
-    __syncwarp();  // the window is written by the whole warp
+    } else {  // later key tiles: e again from the shared scores
 #pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) {
+      for (int i = 0; i < VG; ++i) {
+        const int kt = VG * (it - nk) + i;
+        if (kt >= nk) break;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rl = g + 8 * half, c = nt * 8 + 2 * t;
-        float s[2];
+        for (int kk = 0; kk < 4; ++kk) {
+          if (kt * TILE + 16 * kk >= T) continue;  // not run
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float bd = __bfloat162float(bdw[rl * LDB + c + e - rl + 15]);
-          // a product of two bf16 values is exact in fp32; round it to bf16
-          s[e] = round_bf16(round_bf16(round_bf16(ac[nt][2 * half + e]) + bd) * scale);
-          if (k0 + c + e < T) mrow[half] = fmaxf(mrow[half], s[e] + sMask[k0 + c + e]);
+          for (int r = 0; r < 4; ++r) {
+            const int hh = r & 1, c = 16 * kk + 2 * q + 8 * (r >> 1);
+            const float2 mk = *reinterpret_cast<const float2*>(mask + kt * TILE + c);
+            const __nv_bfloat162 sp = *reinterpret_cast<const __nv_bfloat162*>(
+                tail + qr[hh] * LDT + (kt - NR) * TILE + c);
+            a[i][kk][r] = pack_bf16(e_of(__low2float(sp) + mk.x, mx[hh]) * zinv[hh],
+                                    e_of(__high2float(sp) + mk.y, mx[hh]) * zinv[hh]);
+          }
         }
-        *reinterpret_cast<uint32_t*>(srows + rl * LDS + k0 + c) = pack2f(s[0], s[1]);
+        pv_issue(st + i * BOX, kt, a[i]);
       }
     }
-  }
-  __syncwarp();
-
-  // ---- softmax, fp32 over each full row: the lane's fragment columns of its
-  // rows (2t, 2t+1, 2t+8, 2t+9 of every 16), so the 4 lanes of a row
-  // (t = 0..3) cover it and combine with two shuffles
-  float z[2] = {0.f, 0.f};  // row sums, then their reciprocals
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    mrow[half] = fmaxf(mrow[half], __shfl_xor_sync(0xffffffffu, mrow[half], 1));
-    mrow[half] = fmaxf(mrow[half], __shfl_xor_sync(0xffffffffu, mrow[half], 2));
-    const bf16* srow = srows + (g + 8 * half) * LDS;
-    for (int c0 = 0; c0 < T; c0 += 16) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = c0 + 2 * t + (j & 1) + 8 * (j >> 1);
-        if (k < T) z[half] += expf(__bfloat162float(srow[k]) + sMask[k] - mrow[half]);
-      }
-    }
-    z[half] += __shfl_xor_sync(0xffffffffu, z[half], 1);
-    z[half] += __shfl_xor_sync(0xffffffffu, z[half], 2);
-    // e * (1/z) is within an fp32 ulp of e / z before the bf16 rounding, and
-    // a division per element cost 0.11 of 0.87 ms (H100, flagship shape)
-    z[half] = 1.f / z[half];
+    pv_done(it);
   }
 
-  // ---- out = w @ v, with w = bf16(e / z) formed in the A fragments from s.
-  // Columns past T give w = 0 (and their V rows are staged as zeros).
-  float o[HD / 8][4] = {};
-  for (int k0 = 0; k0 < T; k0 += KT) {
-    __syncthreads();  // the previous V tile is consumed
-    stage_rows(sKV, vmat, row0, k0, KT, T, D, col0);
-    __syncthreads();
+  // rows past T are not stored (a predicate, not a branch over o)
 #pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      uint32_t a[4];  // rows g, g+8 (r & 1) by columns 2t, 2t+1 (+8 for r >= 2)
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qq = q0 + qr[hh];
+    const bool ok = qq < T;
+    bf16* orow = out + ((size_t)b * T + (ok ? qq : 0)) * D + h * TILE + 2 * q;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int half = r & 1, k = k0 + kk * 16 + 2 * t + 8 * (r >> 1);
-        const bf16* sp = srows + (g + 8 * half) * LDS + k;
-        float w[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          w[e] = k + e < T
-                     ? expf(__bfloat162float(sp[e]) + sMask[k + e] - mrow[half]) * z[half]
-                     : 0.f;
-        a[r] = pack2f(w[0], w[1]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        // B[k][n] = v[key k][feature n]: rows 2t, 2t+1 and 2t+8, 2t+9
-        const bf16* vb = sKV + (kk * 16 + 2 * t) * LDH + nt * 8 + g;
-        mma_bf16(o[nt], a, pack2(vb[0], vb[LDH]), pack2(vb[8 * LDH], vb[9 * LDH]));
-      }
-    }
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int q = q0 + warp * 16 + g + 8 * half;
-    if (q < T) {
-      bf16* orow = out + (row0 + q) * D + col0;
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt)
-        *reinterpret_cast<uint32_t*>(orow + nt * 8 + 2 * t) =
-            pack2f(o[nt][2 * half], o[nt][2 * half + 1]);
-    }
+    for (int j = 0; j < 8; ++j)
+      st_global_if(orow + 8 * j, pack_bf16(o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]), ok);
   }
 }
 
@@ -232,26 +440,38 @@ extern "C" {
 // p: [2T-1, H*64] bf16; key_valid: [B, T] bytes (bool); all on card
 // `device`. Launches on `stream` (a stream of that card); returns the CUDA
 // error code of the first call that failed (0 on success). The shared
-// memory grows with T (64 x T bf16 scores): T = 1024 takes ~171 KB of the
-// 227 KB a block may have.
-int rel_attention_bf16(const void* q_u, const void* q_v, const void* k,
-                       const void* v, const void* p, const void* key_valid,
-                       void* out, int B, int T, int H, float scale, int device,
-                       void* stream) {
+// memory grows with T past 64 NR (64 x T bf16 scores); above T = 1344 it
+// exceeds the 227 KB a block may have and the launch is refused (the
+// wrapper raises first).
+int rel_attention_bf16(const void* q_u, const void* q_v, const void* k, const void* v,
+                       const void* p, const void* key_valid, void* out, int B, int T, int H,
+                       float scale, int device, void* stream) {
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: select the tensors' card explicitly
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const int D = H * TILE;
+  Maps maps;
+  {
+    const uint64_t dims[3] = {(uint64_t)D, (uint64_t)T, (uint64_t)B};
+    const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)T * D * 2};
+    const uint32_t box[3] = {64, TILE, 1};
+    CUtensorMap* dst[4] = {&maps.qu, &maps.qv, &maps.k, &maps.v};
+    const void* src[4] = {q_u, q_v, k, v};
+    for (int i = 0; i < 4; ++i) {
+      const int rc = encode_tmap_bf16_nd(dst[i], src[i], 3, dims, strides, box);
+      if (rc != 0) return rc;
+    }
+    const int rc = encode_tmap_bf16(&maps.p, p, (uint64_t)(2 * T - 1), (uint64_t)D, TILE);
+    if (rc != 0) return rc;
+  }
   const size_t smem = smem_bytes(T);
-  err = cudaFuncSetAttribute(
-      rel_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(rel_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + QT - 1) / QT, H, B);
-  rel_attention_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q_u), static_cast<const bf16*>(q_v),
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(p), static_cast<const uint8_t*>(key_valid),
-      static_cast<bf16*>(out), T, H, scale);
+  const dim3 grid((T + TILE - 1) / TILE, H, B);
+  rel_attention_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      maps, static_cast<const uint8_t*>(key_valid), static_cast<bf16*>(out), T, H, scale);
   return (int)cudaGetLastError();
 }
 

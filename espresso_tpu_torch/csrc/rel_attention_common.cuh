@@ -1,7 +1,7 @@
-// Tiling shared by the relative-position attention kernels
-// (rel_attention.cu for inference, rel_attention_train.cu for training): a
+// Tiling of the mma.sync training forward (rel_attention_train.cu): a
 // block owns QT query rows of one (utterance, head), 16 per warp, and
-// stages 64-wide rows of q, k, v and p in shared memory.
+// stages 64-wide rows of q, k, v and p in shared memory. (The inference
+// kernel, rel_attention.cu, is built on hopper_sm90.cuh.)
 
 #pragma once
 

@@ -13,11 +13,7 @@
 //   g_enc[b, t] = sum_u g_pre;   g_dec[b, u] = sum_t g_pre
 //
 // with ob, ol the occupancy-weighted upstream gradients of the blank and
-// label moves (rnnt_pallas.py:299-331). The sum of two bf16 values rounds
-// to bf16 the same whether it is formed in f32 first or by one bf16x2
-// operation (an f32 sum of two bf16 values is exact or rounds below the bf16
-// half ulp), so the joint hidden is formed by packed fma(enc, 1, dec) with
-// relu, two values an instruction.
+// label moves (rnnt_pallas.py:299-331).
 //
 // What bounds it on an H100: three products of the forward's size (the
 // logits again, g_W and g_pre), 3 x 433.8 GFLOP at the flagship (B=16,
@@ -30,7 +26,8 @@
 // column chunk, loads its 8 enc and its dec chunks at once with the tile's
 // row data (one round of memory latency a tile) and forms the rows by packed
 // bf16x2 fma-relu, into the 128-byte-swizzled layout the wgmma descriptors
-// name, in 64-column blocks of J. A block of each kernel runs on every SM
+// name, in 64-column blocks of J (the tiles and their forming are in
+// rnnt_joint_common.cuh, shared with the forward). A block of each kernel runs on every SM
 // and takes a contiguous share of the work (tiles ordered utterance, u
 // group, frame group: ops/rnnt_kernels.py::joint_bwd_schedule), so the grid
 // fills the card whatever the shape. Each block is two consumer warpgroups
@@ -80,65 +77,27 @@
 // it launches on the given stream and does not synchronise. g_enc, g_dec,
 // g_W and g_b must be zero on entry.
 
-#include "hopper_sm90.cuh"
+#include "rnnt_joint_common.cuh"
 #include <math.h>
 
 namespace {
 
-using namespace sm90;
+using namespace rnnt;
 
-constexpr int ROWS = 64;             // lattice rows per tile
-constexpr int UT = 8, FT = 8;        // values of u and frames per tile: row r = 8 ul + f
 constexpr int VT = 64;               // vocab columns per W tile
 constexpr int NCONS = 256;           // two consumer warpgroups
 constexpr int RING_BYTES = 131072;   // the ring: W tiles (rows) or joint hidden tiles (cols)
-constexpr int BOX = ROWS * 128;      // a [64 x 64] bf16 block (8 KB)
 constexpr int ROW_INFO = ROWS * 16;  // lse, ob, ol (f32) and the target of each row
 
 __host__ __device__ constexpr int stages(int J) { return RING_BYTES / (ROWS * J * 2); }
 
-// the tiles: utterance b, u group ug (8 values of u), frame group ts (8
-// frames); tile i = (b * nu + ug) * nt + ts
-struct Tiles {
-  int T, U1, nu, nt;
-  long long n;
-};
-
-__device__ inline void tile_of(const Tiles& tl, long long i, int& b, int& ug, int& ts) {
-  ts = (int)(i % tl.nt);
-  const long long r = i / tl.nt;
-  ug = (int)(r % tl.nu);
-  b = (int)(r / tl.nu);
-}
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
-}
-
-// relu(x + y) of two bf16 pairs in one instruction: fma(x, 1, y) rounds the
-// exact sum once, as the add does
-__device__ inline uint32_t relu_add2(uint32_t x, uint32_t y) {
-  const __nv_bfloat162 one = __float2bfloat162_rn(1.f);
-  __nv_bfloat162 s = __hfma2_relu(*reinterpret_cast<__nv_bfloat162*>(&x), one,
-                                  *reinterpret_cast<__nv_bfloat162*>(&y));
-  return *reinterpret_cast<uint32_t*>(&s);
-}
-
-// A tile's joint hidden and row data, formed by threads `tid` of NT in two
-// steps: load() starts every global load at once (one round of latency a
-// tile), store() writes them. A thread owns one 16-byte column chunk of NU
-// consecutive values of u: it loads the tile's 8 enc chunks and its NU dec
-// chunks of that column (each chunk is read once per tile) and writes 8 rows
-// per value of u into `pre` (J / 64 swizzled [64 x 64] blocks; rows past T or
-// U1 zero); threads below 64 also carry row tid's lse, ob, ol and target.
+// A tile's joint hidden (rnnt_joint_common.cuh) and row data, formed by
+// threads `tid` of NT in two steps: load() starts every global load at once,
+// store() writes them; threads below 64 also carry row tid's lse, ob, ol and
+// target.
 template <int J, int NT>
 struct TileForm {
-  static constexpr int CPR = J / 8;                          // 16-byte chunks a row
-  static constexpr int NTU = NT < UT * CPR ? NT : UT * CPR;  // threads that form rows
-  static constexpr int NU = UT * CPR / NTU;                  // values of u a thread
-  static_assert(UT % NU == 0, "threads per tile");
-  uint4 e[FT], d[NU];
+  JointHidden<J, NT> jh;
   float lse_r, ob_r, ol_r;
   int tgt_r;
 
@@ -146,21 +105,7 @@ struct TileForm {
                               const int* __restrict__ tgt, const float* __restrict__ lse,
                               const float* __restrict__ ob, const float* __restrict__ ol,
                               const Tiles& tl, int b, int ug, int ts, int tid) {
-    const int c = tid % CPR, u0 = (tid / CPR) * NU;
-#pragma unroll
-    for (int f = 0; f < FT; ++f) {
-      const int t = ts * FT + f;
-      e[f] = make_uint4(0u, 0u, 0u, 0u);
-      if (tid < NTU && t < tl.T)
-        e[f] = __ldg(reinterpret_cast<const uint4*>(enc + ((size_t)b * tl.T + t) * J) + c);
-    }
-#pragma unroll
-    for (int x = 0; x < NU; ++x) {
-      const int u = ug * UT + u0 + x;
-      d[x] = make_uint4(0u, 0u, 0u, 0u);
-      if (tid < NTU && u < tl.U1)
-        d[x] = __ldg(reinterpret_cast<const uint4*>(dec + ((size_t)b * tl.U1 + u) * J) + c);
-    }
+    jh.load(enc, dec, tl, b, ug, ts, tid, true);
     const int t = ts * FT + (tid & 7), u = ug * UT + (tid >> 3);
     const bool ok = tid < ROWS && t < tl.T && u < tl.U1;
     const size_t cell = ((size_t)b * tl.T + t) * tl.U1 + u;
@@ -179,21 +124,7 @@ struct TileForm {
       fi[2 * ROWS + tid] = ol_r;
       reinterpret_cast<int*>(fi)[3 * ROWS + tid] = tgt_r;
     }
-    if (tid >= NTU) return;
-    const int c = tid % CPR, u0 = (tid / CPR) * NU;
-#pragma unroll
-    for (int x = 0; x < NU; ++x) {
-      const bool uok = ug * UT + u0 + x < tl.U1;
-#pragma unroll
-      for (int f = 0; f < FT; ++f) {
-        const bool ok = uok && ts * FT + f < tl.T;
-        uint4 o = make_uint4(relu_add2(e[f].x, d[x].x), relu_add2(e[f].y, d[x].y),
-                             relu_add2(e[f].z, d[x].z), relu_add2(e[f].w, d[x].w));
-        if (!ok) o = make_uint4(0u, 0u, 0u, 0u);
-        const int r = (u0 + x) * FT + f;
-        *reinterpret_cast<uint4*>(pre + (c / 8) * BOX + swz(r, c % 8)) = o;
-      }
-    }
+    jh.store(pre, tl, ug, ts, tid);
   }
 };
 

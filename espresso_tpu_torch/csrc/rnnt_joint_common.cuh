@@ -1,81 +1,108 @@
-// Device code of the RNNT joint forward kernel (rnnt_joint_lp.cu; the
-// backward, rnnt_joint_bwd.cu, is built on hopper_sm90.cuh): the joint hidden
-// staged in shared memory, the
-// vocabulary tiles of the output weights, and the tensor-core product of a
-// warp's 16 rows with a V tile.
+// The lattice tiles of the RNNT joint kernels (rnnt_joint_lp.cu, the
+// forward, and rnnt_joint_bwd.cu, the backward), and the forming of a
+// tile's joint hidden.
 //
-// Rows are (b, t, u) triples of the lattice; the joint hidden of a row is
+// Rows are (b, t, u) cells of the lattice; the joint hidden of a row is
 // pre = bf16(relu(enc_proj[b, t] + dec_proj[b, u])), summed in f32 and
-// rounded to bf16 as the TPU kernel rounds it (rnnt_pallas.py:128-133).
-// The output weights are read in the nn.Linear layout W [V, J]; a V tile is
-// VT = 64 rows of it, rows past V are zero (the ragged tail of the vocab).
+// rounded to bf16 as the TPU kernel rounds it (rnnt_pallas.py:128-133). A
+// tile is 64 rows of one utterance: 8 values of u x 8 frames, row r = 8 ul
+// + f, so that its joint hidden needs 8 rows of enc and 8 of dec. Tiles are
+// ordered utterance, u group, frame group: tile i = (b nu + ug) nt + ts
+// (ops/rnnt_kernels.py::joint_bwd_schedule). The sum of two bf16 values
+// rounds to bf16 the same whether it is formed in f32 first or by one
+// bf16x2 operation (an f32 sum of two bf16 values is exact or rounds below
+// the bf16 half ulp), so the joint hidden is formed by packed fma(enc, 1,
+// dec) with relu, two values an instruction.
 
 #pragma once
 
-#include "bf16_mma.cuh"
+#include "hopper_sm90.cuh"
 
 namespace rnnt {
 
-constexpr int VT = 64;                 // vocab columns per tile
-constexpr float kNegInf = -1.0e30f;    // NEG_INF of ops/rnnt.py
+using namespace sm90;
 
-__host__ __device__ inline int pre_ld(int J) { return J + 8; }  // bf16 row stride
+constexpr int ROWS = 64;         // lattice rows per tile
+constexpr int UT = 8, FT = 8;    // values of u and frames per tile: row r = 8 ul + f
+constexpr int BOX = ROWS * 128;  // a [64 x 64] bf16 block, 128-byte swizzled (8 KB)
 
-// Stage nrows joint-hidden rows into dst (row stride pre_ld(J)): row i is
-// (b, t, u) = row_of(i) and is zero when row_of says it is not valid.
-template <typename RowOf>
-__device__ inline void stage_pre(bf16* dst, const bf16* __restrict__ enc,
-                                 const bf16* __restrict__ dec, int nrows, int T, int U1,
-                                 int J, RowOf row_of) {
-  const int ld = pre_ld(J), cpr = J / 8;
-  for (int i = threadIdx.x; i < nrows * cpr; i += blockDim.x) {
-    const int r = i / cpr, c = (i % cpr) * 8;
-    int b, t, u;
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (row_of(r, b, t, u)) {
-      const uint4 e = *reinterpret_cast<const uint4*>(enc + ((size_t)b * T + t) * J + c);
-      const uint4 d = *reinterpret_cast<const uint4*>(dec + ((size_t)b * U1 + u) * J + c);
-      const bf16* ep = reinterpret_cast<const bf16*>(&e);
-      const bf16* dp = reinterpret_cast<const bf16*>(&d);
-      bf16* op = reinterpret_cast<bf16*>(&out);
+struct Tiles {
+  int T, U1, nu, nt;
+  long long n;
+};
+
+__device__ inline void tile_of(const Tiles& tl, long long i, int& b, int& ug, int& ts) {
+  ts = (int)(i % tl.nt);
+  const long long r = i / tl.nt;
+  ug = (int)(r % tl.nu);
+  b = (int)(r / tl.nu);
+}
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+// relu(x + y) of two bf16 pairs in one instruction: fma(x, 1, y) rounds the
+// exact sum once, as the add does
+__device__ inline uint32_t relu_add2(uint32_t x, uint32_t y) {
+  const __nv_bfloat162 one = __float2bfloat162_rn(1.f);
+  __nv_bfloat162 s = __hfma2_relu(*reinterpret_cast<__nv_bfloat162*>(&x), one,
+                                  *reinterpret_cast<__nv_bfloat162*>(&y));
+  return *reinterpret_cast<uint32_t*>(&s);
+}
+
+// A tile's joint hidden, formed by threads `tid` of NT in two steps: load()
+// starts every global load at once (one round of latency a tile), store()
+// writes the rows. A thread owns one 16-byte column chunk of NU consecutive
+// values of u: it loads the tile's 8 enc chunks and its NU dec chunks of
+// that column (each chunk is read once per tile) and writes 8 rows per
+// value of u into `pre` (J / 64 swizzled [64 x 64] blocks; rows past T or
+// U1, and every row of a tile that is not `live`, zero).
+template <int J, int NT>
+struct JointHidden {
+  static constexpr int CPR = J / 8;                          // 16-byte chunks a row
+  static constexpr int NTU = NT < UT * CPR ? NT : UT * CPR;  // threads that form rows
+  static constexpr int NU = UT * CPR / NTU;                  // values of u a thread
+  static_assert(UT % NU == 0, "threads per tile");
+  uint4 e[FT], d[NU];
+
+  __device__ inline void load(const bf16* __restrict__ enc, const bf16* __restrict__ dec,
+                              const Tiles& tl, int b, int ug, int ts, int tid, bool live) {
+    const int c = tid % CPR, u0 = (tid / CPR) * NU;
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        op[k] = __float2bfloat16(fmaxf(__bfloat162float(ep[k]) + __bfloat162float(dp[k]), 0.f));
+    for (int f = 0; f < FT; ++f) {
+      const int t = ts * FT + f;
+      e[f] = make_uint4(0u, 0u, 0u, 0u);
+      if (live && tid < NTU && t < tl.T)
+        e[f] = __ldg(reinterpret_cast<const uint4*>(enc + ((size_t)b * tl.T + t) * J) + c);
     }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = out;
-  }
-}
-
-// Stage W rows [v0, v0 + VT) (zero past V) into dst (row stride pre_ld(J)).
-__device__ inline void stage_w_tile(bf16* dst, const bf16* __restrict__ w, int v0, int V,
-                                    int J) {
-  const int ld = pre_ld(J), cpr = J / 8;
-  for (int i = threadIdx.x; i < VT * cpr; i += blockDim.x) {
-    const int r = i / cpr, c = (i % cpr) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (v0 + r < V) x = *reinterpret_cast<const uint4*>(w + (size_t)(v0 + r) * J + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = x;
-  }
-}
-
-// acc[nt] = pre[rows] . W_tile[cols]^T for the 16 rows at `pre_rows` and the
-// NT * 8 tile columns starting at `w_rows` (both row stride pre_ld(J)),
-// summed over J in f32.
-template <int NT>
-__device__ inline void warp_logits(float (&acc)[NT][4], const bf16* pre_rows,
-                                   const bf16* w_rows, int J, int g, int t) {
-  const int ld = pre_ld(J);
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  for (int k0 = 0; k0 < J; k0 += 16) {
-    uint32_t a[4];
-    load_a(a, pre_rows + k0, ld, g, t);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const bf16* wb = w_rows + (nt * 8 + g) * ld + k0 + 2 * t;
-      mma_bf16(acc[nt], a, ld32(wb), ld32(wb + 8));
+    for (int x = 0; x < NU; ++x) {
+      const int u = ug * UT + u0 + x;
+      d[x] = make_uint4(0u, 0u, 0u, 0u);
+      if (live && tid < NTU && u < tl.U1)
+        d[x] = __ldg(reinterpret_cast<const uint4*>(dec + ((size_t)b * tl.U1 + u) * J) + c);
     }
   }
-}
+
+  __device__ inline void store(uint8_t* pre, const Tiles& tl, int ug, int ts, int tid) const {
+    if (tid >= NTU) return;
+    const int c = tid % CPR, u0 = (tid / CPR) * NU;
+#pragma unroll
+    for (int x = 0; x < NU; ++x) {
+      const bool uok = ug * UT + u0 + x < tl.U1;
+#pragma unroll
+      for (int f = 0; f < FT; ++f) {
+        const bool ok = uok && ts * FT + f < tl.T;
+        uint4 o = make_uint4(relu_add2(e[f].x, d[x].x), relu_add2(e[f].y, d[x].y),
+                             relu_add2(e[f].z, d[x].z), relu_add2(e[f].w, d[x].w));
+        if (!ok) o = make_uint4(0u, 0u, 0u, 0u);
+        const int r = (u0 + x) * FT + f;
+        *reinterpret_cast<uint4*>(pre + (c / 8) * BOX + swz(r, c % 8)) = o;
+      }
+    }
+  }
+};
 
 }  // namespace rnnt

@@ -6,7 +6,9 @@ the flattened-heads layout of the JAX call site: ``q_u, q_v, k, v``
 
 * Inference: ``rel_attention`` wraps ``csrc/rel_attention.cu`` (which
   replaces the Pallas ``rel_attention_fused``); ``rel_attention_reference``
-  is its plain version (attention_kernels.py:106-128).
+  is its plain version (attention_kernels.py:106-128). The kernel keeps a
+  query tile's scores in shared memory past its first two key tiles, so
+  it takes T up to ``REL_ATTENTION_MAX_T``.
 * Training: ``rel_attention_train`` is a ``torch.autograd.Function`` around
   ``rel_attention_train_fwd`` and ``rel_attention_train_bwd``, which wrap the
   two halves of ``csrc/rel_attention_train.cu`` (the Pallas
@@ -35,11 +37,30 @@ import torch
 from espresso_tpu_torch.ops.masking import NEG_INF
 
 HEAD_DIM = 64  # the kernels' only head width (the flagship's d = 512 / 8)
-_HEADERS = ("rel_attention_common.cuh", "bf16_mma.cuh")
-_SOURCES = ("rel_attention.cu", *_HEADERS)
-_TRAIN_SOURCES = ("rel_attention_train.cu", *_HEADERS, "hopper_sm90.cuh")
+_SOURCES = ("rel_attention.cu", "hopper_sm90.cuh")
+_TRAIN_SOURCES = (
+    "rel_attention_train.cu", "rel_attention_common.cuh", "bf16_mma.cuh", "hopper_sm90.cuh",
+)
 # library name -> its CUDA sources (with the headers they include)
 LIBRARIES = {"rel_attention": _SOURCES, "rel_attention_train": _TRAIN_SOURCES}
+# the dynamic shared memory a block may have on an H100
+SMEM_LIMIT = 232448
+
+
+def rel_attention_smem_bytes(T: int) -> int:
+    """The dynamic shared memory of ``csrc/rel_attention.cu`` at length T
+    (its ``smem_bytes``): 1024 bytes of alignment slack; q+u, q+v and a ring
+    of two stages of three 8 KB tiles; 64 bytes of barriers; the f32 key
+    mask of the padded length; and, past the two key tiles whose scores
+    stay in registers, 64 bf16 score rows of the rest (plus 8 columns)."""
+    tile, box = 64, 8192
+    Tp = -(-T // tile) * tile
+    rest = Tp - 2 * tile
+    return 1024 + (2 + 3 * 2) * box + 64 + 4 * Tp + (2 * tile * (rest + 8) if rest > 0 else 0)
+
+
+# the longest T the inference kernel takes (1344)
+REL_ATTENTION_MAX_T = max(T for T in range(64, 4097, 64) if rel_attention_smem_bytes(T) <= SMEM_LIMIT)
 
 
 def rel_attention_reference(
@@ -126,6 +147,11 @@ def rel_attention(
         raise ValueError(f"rel_attention: unsupported device {q_u.device}")
     _check(q_u, q_v, k, v, p, key_valid, H)
     B, T, D = q_u.shape
+    if T > REL_ATTENTION_MAX_T:
+        raise ValueError(
+            f"rel_attention: T={T} needs {rel_attention_smem_bytes(T)} bytes of shared memory "
+            f"(the kernel takes T <= {REL_ATTENTION_MAX_T})"
+        )
     out = torch.empty_like(q_u)
     device = q_u.device.index  # a CUDA tensor's device always has its index
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -134,8 +160,6 @@ def rel_attention(
         key_valid.data_ptr(), out.data_ptr(), B, T, H, float(scale), device, stream,
     )
     if rc != 0:
-        # e.g. cudaErrorInvalidValue when T needs more shared memory than a
-        # block may have (the score rows grow with T)
         raise RuntimeError(f"rel_attention kernel launch failed at T={T}: CUDA error {rc}")
     rel_attention.launches += 1
     return out

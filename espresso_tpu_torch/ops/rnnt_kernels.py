@@ -36,8 +36,8 @@ from espresso_tpu_torch.ops.rnnt import NEG_INF
 
 # library name -> its CUDA sources (with the headers they include)
 LIBRARIES = {
-    "rnnt_joint_lp": ("rnnt_joint_lp.cu", "rnnt_joint_common.cuh", "bf16_mma.cuh"),
-    "rnnt_joint_bwd": ("rnnt_joint_bwd.cu", "hopper_sm90.cuh"),
+    "rnnt_joint_lp": ("rnnt_joint_lp.cu", "rnnt_joint_common.cuh", "hopper_sm90.cuh"),
+    "rnnt_joint_bwd": ("rnnt_joint_bwd.cu", "rnnt_joint_common.cuh", "hopper_sm90.cuh"),
 }
 # joint widths the kernels take: they stage [rows, J] bf16 tiles in shared
 # memory, and the backward keeps J-wide register tiles (a template per width)

@@ -151,10 +151,10 @@ def occupancy_grads(a: Tensors, lpb, lpl):
     return (-ob).contiguous(), (-ol).contiguous()
 
 
-def check_rnnt_joint(a: Tensors, blank: int) -> Dict[str, float]:
-    """``rnnt_joint_lp`` and ``rnnt_joint_bwd`` against their plain versions
-    (the backward fed the plain forward's lse and the DP's occupancies);
-    returns the max abs error of each output."""
+def check_rnnt_joint_lp(a: Tensors, blank: int):
+    """``rnnt_joint_lp`` against its plain version, and the loss of each;
+    returns the max abs error of each output and the loss's relative error,
+    and the plain version's outputs."""
     lp = rk.rnnt_joint_lp(*_joint_args(a), blank)
     torch.cuda.synchronize()
     lp_ref = rk.rnnt_joint_lp_reference(*_joint_args(a), blank)
@@ -172,6 +172,14 @@ def check_rnnt_joint(a: Tensors, blank: int) -> Dict[str, float]:
     if not err <= LOSS_RTOL:
         raise AssertionError(f"rnnt loss from rnnt_joint_lp: relative error {err} > {LOSS_RTOL}")
     errs["loss_rel"] = err
+    return errs, lp_ref
+
+
+def check_rnnt_joint(a: Tensors, blank: int) -> Dict[str, float]:
+    """``rnnt_joint_lp`` and ``rnnt_joint_bwd`` against their plain versions
+    (the backward fed the plain forward's lse and the DP's occupancies);
+    returns the max abs error of each output."""
+    errs, lp_ref = check_rnnt_joint_lp(a, blank)
     ob, ol = occupancy_grads(a, lp_ref[0], lp_ref[1])
     grads = rk.rnnt_joint_bwd(*_joint_args(a), lp_ref[2], ob, ol, blank)
     torch.cuda.synchronize()

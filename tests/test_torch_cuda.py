@@ -64,6 +64,37 @@ def test_rel_attention_rejects_what_it_does_not_take(dev):
         rel_attention(q_u, q_v, k, v, p, key_valid, 4, 0.125)
 
 
+# the redesigned B1's edges (64-row query and key tiles, the [128 j'] skew
+# window, TMA boxes that stop at T, scores in registers for the first three
+# key tiles and in shared memory past them): T' = 1, 63, 64, 65, 129, 156,
+# 200, 1024 and the longest T' it takes, each with ragged key masks: the
+# first utterance full, the last with one valid key; at today's bound (2
+# bf16 ulps of the output's largest magnitude)
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 156, 200, 1024, 1344])
+def test_rel_attention_kernel_at_tiling_edges(dev, T):
+    from espresso_tpu_torch.ops.train_kernel_checks import bf16_ulp
+
+    q_u, q_v, k, v, p, key_valid = _inputs(3, T, seed=T + 3, dev=dev)
+    key_valid[2] = torch.arange(T, device=dev) < 1
+    args = (q_u, q_v, k, v, p, key_valid, H, 0.125)
+    out = rel_attention(*args)
+    torch.cuda.synchronize()
+    ref = rel_attention_reference(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(out.float()).all()
+    assert err <= 2 * bf16_ulp(ref.float().abs().max().item()), err
+
+
+def test_rel_attention_rejects_a_length_past_its_shared_memory(dev):
+    from espresso_tpu_torch.ops.attention_kernels import REL_ATTENTION_MAX_T
+
+    args = _inputs(1, REL_ATTENTION_MAX_T + 1, seed=0, dev=dev) + (H, 0.125)
+    before = rel_attention.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        rel_attention(*args)
+    assert rel_attention.launches == before
+
+
 # ---------------------------------------------------------------------------
 # the AES decode kernels (inputs and checks in ops/kernel_checks.py, which
 # chip_smoke.py runs at the flagship shapes too)
@@ -227,6 +258,32 @@ def test_rnnt_joint_bwd_kernel_at_tiling_edges(dev, B, T, U, J, V, blank):
     before = rk.rnnt_joint_bwd.launches
     tc.check_rnnt_joint(tc.rnnt_inputs(B, T, U, J, V, seed=V + T + J, dev=dev, blank=blank), blank)
     assert rk.rnnt_joint_bwd.launches == before + 1
+
+
+# the redesigned B4's edges (units of two 64-row tiles of 8 values of u x 8
+# frames, an odd tile count leaving a warpgroup without rows, V tiles of 128
+# columns padded to an even count): J = 128, 256 and 512; T' and U1 not
+# multiples of 8, T' = 1, U = 0; V = 67 and V = 5003 with the blank in the
+# last column; at today's bound (1e-3 on log-probs)
+@pytest.mark.parametrize(
+    "B,T,U,J,V,blank",
+    [
+        (4, 40, 20, 128, 1024, 0),
+        (3, 37, 12, 256, 5003, 5002),
+        (3, 37, 12, 512, 67, 66),
+        (3, 17, 4, 512, 1024, 3),
+        (2, 1, 5, 128, 67, 66),
+        (2, 9, 0, 256, 1024, 0),
+        (1, 1, 0, 512, 5003, 5002),
+    ],
+)
+def test_rnnt_joint_lp_kernel_at_tiling_edges(dev, B, T, U, J, V, blank):
+    from espresso_tpu_torch.ops import rnnt_kernels as rk
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    before = rk.rnnt_joint_lp.launches
+    tc.check_rnnt_joint_lp(tc.rnnt_inputs(B, T, U, J, V, seed=V + T + J, dev=dev, blank=blank), blank)
+    assert rk.rnnt_joint_lp.launches == before + 1
 
 
 # the redesigned B3's edges (64-row query and key tiles, the [128 j'] skew

@@ -166,3 +166,77 @@ def test_train_bwd_tmap_boxes_stay_in_one_utterance_and_head(B, T, H):
             ref = torch.zeros(128, 64, dtype=p.dtype)
             ref[ok] = p[j[ok], h * 64:(h + 1) * 64]
             assert torch.equal(rows, ref)
+
+
+# ---------------------------------------------------------------------------
+# rel_attention (B1): its tiles, the skew of its bd window and its shared
+# memory; rnnt_joint_lp (B4): its units of two of the backward's tiles and
+# its V tiles
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 156, 200, 1024, 1344])
+def test_rel_attention_tiles_cover_every_score_once(T):
+    """Each block owns query rows [q0, q0 + 64) and walks key tiles k0 = 64 kt
+    (rel_attention.cu); the bd of (query q0 + r, key k0 + c) is read from
+    window row c - r + 63 of the p rows [j0, j0 + 128), j0 = T - 1 + k0 - q0
+    - 63: every (query, key) pair is met once, at the p row of its relative
+    position T - 1 + k - q, inside the window."""
+    nt = -(-T // 64)
+    seen = torch.zeros(T, T, dtype=torch.int64)
+    r = torch.arange(64)[:, None]
+    c = torch.arange(64)[None, :]
+    for qt in range(nt):
+        for kt in range(nt):
+            q0, k0 = 64 * qt, 64 * kt
+            j0 = T - 1 + k0 - q0 - 63
+            jp = c - r + 63
+            assert int(jp.min()) >= 0 and int(jp.max()) + 1 < 128  # jp and jp + 1 in the window
+            q, k = q0 + r, k0 + c
+            assert torch.equal(j0 + jp, T - 1 + k - q)
+            qs, ks = q[:, 0][q[:, 0] < T], k[0][k[0] < T]
+            seen[qs[:, None], ks[None, :]] += 1
+    assert torch.equal(seen, torch.ones(T, T, dtype=torch.int64))
+
+
+def test_rel_attention_shared_memory_limits_its_length():
+    # the flagship's blocks fit three an SM (228 KB, 1 KB of it reserved a
+    # block); the longest T fits one block
+    assert 3 * (ak.rel_attention_smem_bytes(156) + 1024) <= 228 * 1024
+    assert ak.rel_attention_smem_bytes(ak.REL_ATTENTION_MAX_T) <= ak.SMEM_LIMIT
+    assert ak.rel_attention_smem_bytes(ak.REL_ATTENTION_MAX_T + 1) > ak.SMEM_LIMIT
+    assert ak.REL_ATTENTION_MAX_T == 1344
+    # up to two key tiles the scores stay in registers: no shared score rows
+    assert ak.rel_attention_smem_bytes(128) - ak.rel_attention_smem_bytes(64) == 4 * 64
+
+
+@pytest.mark.parametrize(
+    "B,T,U1,V,n_sm",
+    [(2, 37, 9, 5003, 132), (1, 1, 1, 67, 132), (3, 17, 5, 1024, 7), (16, 256, 101, 1024, 132)],
+)
+def test_joint_lp_units_cover_every_lattice_row_and_column_once(B, T, U1, V, n_sm):
+    """rnnt_joint_lp.cu's schedule: the backward's tiles in their order,
+    unit k = tiles 2k (first warpgroup) and 2k + 1 (second; none past the
+    last tile), blocks min(units, SMs) with contiguous shares; V tiles of
+    128 columns padded to an even count, a tile past V reloading the last."""
+    s = rk.joint_bwd_schedule(B, T, U1, V, n_sm)
+    units = -(-s["tiles"] // 2)
+    grid = min(units, n_sm)
+    shares = [_block_share(units, grid, k) for k in range(grid)]
+    assert [i for sh in shares for i in sh] == list(range(units))
+    seen = {}
+    for un in range(units):
+        for w in range(2):
+            i = 2 * un + w
+            if i >= s["tiles"]:
+                assert i == s["tiles"] and s["tiles"] % 2 == 1  # only the last unit's second
+                continue
+            for r, c in enumerate(_tile_rows(i, T, U1, s["nu"], s["nt"])):
+                if c is not None:
+                    assert c not in seen
+                    seen[c] = (un, w, r)
+    assert sorted(seen) == [(b, t, u) for b in range(B) for t in range(T) for u in range(U1)]
+    nv, vlast = 2 * -(-V // 256), (V - 1) // 128
+    cols = [v for vt in range(nv) for v in range(128 * min(vt, vlast), 128 * min(vt, vlast) + 128)
+            if v < V and vt <= vlast]
+    assert nv % 2 == 0 and sorted(cols) == list(range(V))
