@@ -1,7 +1,7 @@
 """Where B1 (``rel_attention``), B4 (``rnnt_joint_lp``), B5
-(``rnnt_joint_bwd``) and B3 (the ``rel_attention_train`` backward) spend
-their time on one NVIDIA H100: each kernel timed with one part of it left
-out.
+(``rnnt_joint_bwd``), B3 (the ``rel_attention_train`` backward), B8
+(``aes_merge``) and B10 (``fbank``) spend their time on one NVIDIA H100:
+each kernel timed with one part of it left out.
 
     python3 chip_kernel_ablation.py [SOURCE ...]
 
@@ -10,7 +10,9 @@ Copies ``espresso_tpu_torch/csrc`` into ``_checkout/ablation/csrc_<n>``
 leaves out (in the copy only: the sources are not changed), lets the
 wrapper build its library from there with ``-DEXP=<n>`` and times it at the flagship shapes (B1:
 B=256, T'=156, H=8, d=64; B4 and B5: B=16, T'=256, U1=101, J=512, V=1024;
-B3: B=16, T'=256, H=8, d=64, dropout 0.1) by the profiler's device time per
+B3: B=16, T'=256, H=8, d=64, dropout 0.1; B8: B=256, K=10 with the blank
+add; B10: the serving batch, B=256, S=100,080) by the profiler's device
+time per
 kernel. A variant computes wrong outputs; only its time is read. With
 source file names as arguments (e.g. ``rel_attention.cu``), only their
 variants run. Prints one JSON line per variant, then the card's name and
@@ -104,6 +106,35 @@ VARIANTS = [
         "#pragma unroll\n    for (int n = 0; n < 8; ++n)\n#pragma unroll\n      for (int e2 = 0; e2 < 2; ++e2) {",
         "#pragma unroll\n    for (int n = 0; n < 8 * (EXP != 14); ++n)\n#pragma unroll\n"
         "      for (int e2 = 0; e2 < 2; ++e2) {")]),
+    ("aes_merge.cu", 41, "the dedup (each column keeps its own score)", [
+        ("  // exact duplicate merge: logaddexp", "  if (EXP != 41) {\n  // exact duplicate merge: logaddexp"),
+        ("  // rank select: slot r", "  } else {\n    for (int c = lane; c < K2; c += 32) comb[c] = merged[c];\n"
+         "    __syncwarp();\n  }\n  // rank select: slot r")]),
+    ("aes_merge.cu", 42, "the rank select (column c writes slot c mod K)", [(
+        "    if (rank < K) {\n      const size_t o = row + rank;",
+        "    if (EXP == 42) rank = c < K ? c : K;\n    if (rank < K) {\n      const size_t o = row + rank;")]),
+    ("fbank.cu", 31, "the FFT (its three stages and two transposes; z goes to the split as Z)", [
+        ("    // stage 1 (f32): 8-point DFT over j", "    if (EXP != 31) {\n    // stage 1 (f32): 8-point DFT over j"),
+        ("    // the real spectrum from Z[k] and Z[256 - k], k = lane + 32 i (i < 4),",
+         "    } else {\n#pragma unroll\n      for (int j = 0; j < 8; ++j) u[j] = make_double2(z[j].x, z[j].y);\n"
+         "    }\n    // the real spectrum from Z[k] and Z[256 - k], k = lane + 32 i (i < 4),")]),
+    ("fbank.cu", 33, "the split (|Z[k]|^2 for X[k], no mirror shuffles, no f64 split)", [
+        ("    double2 zm[4];\n", "    if (EXP != 33) {\n    double2 zm[4];\n"),
+        ("    if (lane == 0) P[NZ / 2] = (float)fma(ZI(4).x, ZI(4).x, ZI(4).y * ZI(4).y);\n",
+         "    if (lane == 0) P[NZ / 2] = (float)fma(ZI(4).x, ZI(4).x, ZI(4).y * ZI(4).y);\n    } else {\n"
+         "#pragma unroll\n      for (int i = 0; i < 8; ++i) P[lane + 32 * i] = (float)fma(ZI(i).x, ZI(i).x, ZI(i).y * ZI(i).y);\n"
+         "    }\n")]),
+    ("fbank.cu", 34, "the waveform's copy into shared memory (its cp.async)", [(
+        "  for (int i = tid; i < span; i += NTHREADS) {\n    const bool valid",
+        "  for (int i = tid; i < span * (EXP != 34); i += NTHREADS) {\n    const bool valid")]),
+    ("fbank.cu", 35, "the output stores (the mel bins' logs still formed)", [(
+        "      if (meta >= 0) orow[meta >> 16] = logf(fmaxf(acc, kEps));",
+        "      const float v = logf(fmaxf(acc, kEps));\n"
+        "      if (meta >= 0 && (EXP != 35 || v == 12345.f)) orow[meta >> 16] = v;")]),
+    ("fbank.cu", 32, "the mel product (each mel bin reads one power value)", [(
+        "      for (int i = 0; i < L; ++i) acc = fmaf(pk[i], wr[32 * i], acc);",
+        "      if (EXP == 32) acc = pk[0] * wr[0];\n      else\n"
+        "      for (int i = 0; i < L; ++i) acc = fmaf(pk[i], wr[32 * i], acc);")]),
 ]
 
 
@@ -133,7 +164,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     import chip_smoke as cs
+    from espresso_tpu_torch.features import fbank_kernels as fk
     from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import decode_kernels as dk
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+    from espresso_tpu_torch.ops import kernel_checks as kc
     from espresso_tpu_torch.ops import cuda_build
     from espresso_tpu_torch.ops import rnnt_kernels as rk
     from espresso_tpu_torch.ops import train_kernel_checks as tc
@@ -151,12 +186,17 @@ def main() -> int:
     a = tc.attention_train_inputs(B, T, seed=T, dev=dev)
     args = (a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"])
     b1 = cs.attn_inputs(256, 156, seed=0, dev=dev) + (8, ak.HEAD_DIM ** -0.5)
+    S = (cs.FLAGSHIP["T_FRAMES"] - 1) * cs.SHIFT + cs.WINDOW
+    w = fc.waveform_inputs(cs.serving_num_samples().tolist(), S, seed=0, dev=dev)
+    mi = kc.merge_inputs(256, 10, seed=10, dev=dev, blank_lp=True)
     calls = {
         "rel_attention.cu": lambda: ak.rel_attention(*b1),
         "rnnt_joint_lp.cu": lambda: rk.rnnt_joint_lp(*ja, 0),
         "rnnt_joint_bwd.cu": lambda: rk.rnnt_joint_bwd(*ja, lse, ob, ol, 0),
         "rel_attention_train.cu": lambda: ak.rel_attention_train_bwd(
             *args, a["seed"], a["g"], 8, ak.HEAD_DIM ** -0.5, 0.1),
+        "aes_merge.cu": lambda: dk.aes_merge(**mi, round_j=1),
+        "fbank.cu": lambda: fk.fbank_fused(w["waveforms"], w["num_samples"]),
     }
     only = set(sys.argv[1:]) or set(calls)
     runs = [(src, 0, "nothing") for src in calls]
@@ -172,10 +212,12 @@ def main() -> int:
         rk._lib.cache_clear()
         ak._lib.cache_clear()
         ak._train_lib.cache_clear()
+        fk._lib.cache_clear()
+        dk._fn.cache_clear()
         split = cs.device_split(calls[src_name])
         kernels = {}
         for name, ms in split.items():
-            m = re.search(r"(rnnt_joint_\w+?_kernel|rel_attention\w*?_kernel)", name)
+            m = re.search(r"(rnnt_joint_\w+?_kernel|rel_attention\w*?_kernel|aes_merge_kernel|fbank_kernel)", name)
             if m:
                 kernels[m.group(1)] = ms
         print(json.dumps({"source": src_name, "variant": exp, "left_out": what, "ms": kernels}),

@@ -15,21 +15,25 @@ eleven Hopper kernels:
    ragged key masks; ``fused_joint_topk`` at V=1024, 5003, 1032 and 67,
    J=128, 512 and 640, n=1 to 32, BK=2550, with eos folding and an LM label
    bias; ``lstm_step_reorder`` at BK=1, 12, 2550 and 2560, H=64 to 1024,
-   L=1 to 3, every row dead or live; ``aes_merge`` with
-   dead slots and duplicate hashes; ``aes_backtrace``; the train kernels
+   L=1 to 3, every row dead or live; ``aes_merge`` at K=1 to 20 with
+   dead slots, duplicate hashes, ties, all-NEG_INF rows and one live
+   column, with the blank add folded in (bit for bit the call on the
+   pre-added scores) and without; ``aes_backtrace``; the train kernels
    ``rel_attention_train_fwd``/``_bwd`` at B=16, T'=256, at B=40 and at
    odd or short shapes (T'=1 included) with ragged key masks, at dropout 0
    and 0.1 with one seed; ``rnnt_joint_lp``/``_bwd`` at B=16, T'=256,
    U1=101, J=512, V=1024 and V=5003 with the blank in a later tile, ragged
    lengths, T'=1 and U=0; ``fbank`` at
    the 256-utterance serving batch as PCM and at edge sample counts (399,
-   400, one window short, one utterance) by the Kaldi goldens' rule;
+   400, one window short, one utterance) by the Kaldi goldens' rule, and
+   timed at the PCM-fed train point too;
    ``int8_matmul`` at the flagship FFN shapes over a serving batch's frames
    and a ragged one, bit for bit), and times kernel and plain version at
    the flagship shape (and, beside B5, B6 and B7, their products alone
    through cuBLAS as a yardstick, beside B3 the backward of
-   ``scaled_dot_product_attention``; for B3 and B5 also every kernel the
-   call runs and the split by kernel);
+   ``scaled_dot_product_attention``, beside B10 cuFFT's ``rfft`` of the
+   valid frames alone; for B3 and B5 also every kernel the call runs and
+   the split by kernel; for B8 the wrapper's host time a call);
 3. builds the flagship model (16 conformer layers, d=512, ffn 2048, 8 heads,
    depthwise kernel 31, relative positions, batch norm; 2x512 LSTM
    prediction net, joint 512, V=1024) from a seeded init in bf16, and
@@ -165,6 +169,13 @@ TRAIN_ZERO_GRAD = re.compile(r"(conv\.convs\.\d+|depthwise_conv|self_attn\.k_pro
 SPECAUGMENT = "{'W': 80, 'F': 27, 'T': 100, 'num_freq_masks': 2, 'num_time_masks': 2, 'p': 1.0}"
 SHIFT, WINDOW = 160, 400
 QUANT_NOISE_P = 0.1
+# B8's (B, K): the flagship, then one column, one beam, 16 beams (32
+# columns, a lane each), 20 beams (40 columns: lanes take two)
+MERGE_SHAPES = [(256, 10), (1, 1), (1, 4), (5, 16), (5, 20)]
+# B10's edge sample counts and lengths (n, S): under one window, exactly
+# one, S not a multiple of the shift, S odd, B = 1, the PCM-fed train point
+FBANK_EDGES = [([399, 400, 16000], 16000), ([250], 250), ([4321], 4321),
+               ([16161, 401, 9999], 16161), ([400], 400), ([164080] * 16, 164080)]
 # B11's shapes: the flagship FFN's two products over a serving batch's
 # encoder frames (256 x 156), and a ragged edge
 INT8_SHAPES = [(39936, 512, 2048), (39936, 2048, 512), (1000, 200, 300)]
@@ -219,15 +230,17 @@ def device_ms(fn, calls: int = 20, kernel: str = "", per_call=None) -> float:
     ``kernel`` (or of every kernel, when it is empty), without the host's
     launch gaps. The tracer can drop kernel records: a trace that holds no
     device time or, with ``per_call`` (the kernels one call launches),
-    fewer launches than that is taken again, up to three times, and then
-    the time comes from CUDA events of back-to-back calls instead (launch
-    gaps included), as the log says."""
+    fewer launches than that is taken again, up to three times; then the
+    time a call comes from the launches the last such trace recorded, if it
+    holds at least half of them, and else from CUDA events of back-to-back
+    calls (launch gaps included), as the log says."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    recorded = None
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -240,6 +253,12 @@ def device_ms(fn, calls: int = 20, kernel: str = "", per_call=None) -> float:
             return total_us / calls / 1e3
         log(f"profiler trace {attempt} of {kernel or fn}: {launched} kernel launches of "
             f"{calls * (per_call or 0)}, {total_us} us")
+        if total_us > 0 and per_call and 2 * launched >= calls * per_call:
+            recorded = total_us / launched * per_call / 1e3
+    if recorded is not None:
+        log(f"{kernel or fn}: the profiler dropped launches three times; the launches it "
+            f"recorded give {recorded} ms a call")
+        return recorded
     ms = median_ms(fn)
     log(f"{kernel or fn}: the profiler missed launches three times; CUDA events give {ms} ms")
     return ms
@@ -329,6 +348,37 @@ def time_pair(name: str, kernel_fn, plain_fn, kernel: str, plain_calls: int = 10
         f"back-to-back calls), plain version {row['plain_ms']} ms device"
     )
     return row
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Median host wall time (us) of one call of ``fn`` over ``calls``
+    calls launched back to back with no synchronisation (after 10 warm-up
+    calls): what the call costs the host, not the device."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def merge_host_us(dk, m) -> dict:
+    """B8's host time a call at the inputs ``m`` (with ``blank_lp``):
+    ``unfused_host_us`` for the blank add and the call on its sum (the beam
+    decoder's call before the add was folded in), ``host_us`` for the call
+    with ``blank_lp``, where the wrapper ``dk.aes_merge`` takes it."""
+    import inspect
+
+    pool, exp, lp = m["pool_scores"], m["blank_scores"], m["blank_lp"]
+    rest = (m["pool_hash"], m["exp_hash"], m["pool_ver"], m["pool_slot"], 1)
+    out = {"unfused_host_us": host_us(lambda: dk.aes_merge(pool, (exp + lp).contiguous(), *rest))}
+    if "blank_lp" in inspect.signature(dk.aes_merge).parameters:
+        out["host_us"] = host_us(lambda: dk.aes_merge(pool, exp, *rest, blank_lp=lp))
+    return out
 
 
 def build_kernels() -> str:
@@ -459,17 +509,23 @@ def check_decode_kernels(dev) -> dict:
     for name in ("fused_joint_topk", "lstm_step_reorder"):
         log(f"{name} flagship: cuBLAS products alone {rows[name]['cublas_products_ms']} ms device")
 
-    # aes_merge
-    errs = [kc.check_merge(kc.merge_inputs(Bx, Kx, seed=Kx, dev=dev)) for Bx, Kx in [(B, K), (1, 1), (1, 4), (5, 20)]]
-    log(f"aes_merge max_abs_err per shape {errs} (integer outputs exact)")
-    m = kc.merge_inputs(B, K, seed=K, dev=dev)
-    # six [B, K] inputs and six outputs of 4 bytes; per column a compare,
+    # aes_merge: without and with the blank add folded in (the beam
+    # decoder's call), at the flagship and at edge shapes
+    errs = [kc.check_merge(kc.merge_inputs(Bx, Kx, seed=Kx, dev=dev, blank_lp=fused))
+            for Bx, Kx in MERGE_SHAPES for fused in (False, True)]
+    log(f"aes_merge max_abs_err per shape {errs} (integer outputs exact; with blank_lp "
+        f"bit for bit the call on the pre-added scores)")
+    m = kc.merge_inputs(B, K, seed=K, dev=dev, blank_lp=True)
+    # seven [B, K] inputs and six outputs of 4 bytes; per column a compare,
     # an exp and an add against each of the 2K columns
-    row = dict(zip(("bound_ms", "bound_by"), bound(12 * B * K * 4, 3 * B * (2 * K) ** 2, PEAK_FP32)))
+    row = dict(zip(("bound_ms", "bound_by"), bound(13 * B * K * 4, 3 * B * (2 * K) ** 2, PEAK_FP32)))
     row.update(time_pair(
         "aes_merge", lambda: dk.aes_merge(**m, round_j=1),
-        lambda: dk.aes_merge_reference(**m, round_j=1), "aes_merge_kernel",
+        lambda: dk.aes_merge_reference(**m, round_j=1), "aes_merge_kernel", per_call=1,
     ))
+    row.update(merge_host_us(dk, m))
+    log(f"aes_merge flagship: wrapper host time {row.get('host_us')} us a call with blank_lp, "
+        f"{row['unfused_host_us']} us for the blank add and the call on its sum")
     rows["aes_merge"] = dict(row, max_abs_err=max(errs))
 
     # aes_backtrace
@@ -611,6 +667,21 @@ def serving_num_samples() -> np.ndarray:
     return np.minimum(samples_for(lengths, seed=1), (T - 1) * SHIFT + WINDOW)
 
 
+def windowed_frames(waveforms: torch.Tensor, num_samples: torch.Tensor) -> torch.Tensor:
+    """The valid frames of a waveform batch as the fbank kernel's FFT takes
+    them: DC removed, pre-emphasised, windowed, zero-padded to 512 ([frames,
+    512] f32)."""
+    from espresso_tpu_torch.features import fbank_kernels as fk
+
+    x = waveforms.unfold(1, WINDOW, SHIFT)  # [B, T, W]
+    lengths = fk.fbank_lengths(num_samples, WINDOW, SHIFT, x.shape[1])
+    x = x[torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]]
+    x = x - x.mean(1, keepdim=True)
+    y = x - fk.PREEMPHASIS * torch.cat([x[:, :1], x[:, :-1]], 1)
+    y = y * torch.from_numpy(fk.povey_window(WINDOW)).to(x.device)
+    return torch.nn.functional.pad(y, (0, fk.FFT_SIZE - WINDOW)).contiguous()
+
+
 def check_front_kernels(dev) -> dict:
     """B10 (fbank) at the serving batch and at edge shapes, by the goldens'
     rule; B11 (int8_matmul) at the flagship FFN shapes and a ragged one, bit
@@ -625,8 +696,10 @@ def check_front_kernels(dev) -> dict:
     ns = serving_num_samples()
     a = fc.waveform_inputs(ns.tolist(), S, seed=0, dev=dev)
     errs = [fc.check_fbank(a)]
-    for nums, S_edge in [([399, 400, 16000], 16000), ([250], 250), ([4321], 4321)]:
+    for nums, S_edge in FBANK_EDGES:
         errs.append(fc.check_fbank(fc.waveform_inputs(nums, S_edge, seed=S_edge, dev=dev)))
+    errs.append(fc.check_fbank(fc.waveform_inputs([16161, 401], 16161, seed=40, dev=dev),
+                               num_mel_bins=40))
     log(f"fbank errors per shape {errs} (bounds: log {fc.FBANK_LOG_TOL} on bins within 70 dB of "
         f"the frame's peak, linear {fc.FBANK_LIN_TOL} of the frame's peak energy)")
     B, T, M = FLAGSHIP["B"], FLAGSHIP["T_FRAMES"], FLAGSHIP["FEAT"]
@@ -643,20 +716,31 @@ def check_front_kernels(dev) -> dict:
                          + 5 * WINDOW + M)
     n_bytes = B * S * 4 + B * 4 + B * T * M * 4 + B * 4
     row = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, fft_flops, PEAK_FP32)))
-    # the floor of this kernel's own design, which multiplies the DFT bases
-    # over the window's 400 rows and 256 bins: PERF.md keeps it beside the
-    # function's bound
-    row["dft_design_bound_ms"] = bound(n_bytes, valid * (4 * WINDOW * 256 + 2 * mel_nnz), PEAK_FP32)[0]
     row.update(time_pair(
         "fbank", lambda: fk.fbank_fused(a["waveforms"], a["num_samples"]),
-        lambda: fk.fbank_plain(a["waveforms"], a["num_samples"]), "fbank_kernel",
+        lambda: fk.fbank_plain(a["waveforms"], a["num_samples"]), "fbank_kernel", per_call=1,
     ))
+    # a yardstick, not a library call for the function: cuFFT's real FFT
+    # (torch.fft.rfft) of the valid frames alone, windowed and zero-padded
+    # to 512 as the kernel's FFT takes them
+    frames = windowed_frames(a["waveforms"], a["num_samples"])
+    row["cufft_ms"] = device_ms(lambda: torch.fft.rfft(frames, dim=1))
+    del frames
+    # the PCM-fed train point: B=16 utterances of S=164,080 samples, every
+    # frame valid
+    St, Bt, Tt = (TRAIN["T_FRAMES"] - 1) * SHIFT + WINDOW, TRAIN["B"], TRAIN["T_FRAMES"]
+    at = fc.waveform_inputs([St] * Bt, St, seed=2, dev=dev)
+    row["train_ms"] = device_ms(lambda: fk.fbank_fused(at["waveforms"], at["num_samples"]),
+                                kernel="fbank_kernel", per_call=1)
+    row["train_bound_ms"] = bound(Bt * St * 4 + Bt * Tt * M * 4 + 8 * Bt,
+                                  fft_flops / valid * Bt * Tt, PEAK_FP32)[0]
     rows["fbank"] = dict(row, max_abs_err=max(e["log"] for e in errs), valid_frames=valid,
                          linear_err=max(e["linear"] for e in errs))
     log(f"fbank serving-batch bound: {row['bound_ms']} ms ({row['bound_by']}, {valid} valid "
         f"frames of {B * T}, {fft_flops / 1e9:.3f} GFLOP at FFT level, {n_bytes / 1e6:.1f} MB, "
-        f"mel table {mel_nnz} non-zeros); the DFT-product design's floor "
-        f"{row['dft_design_bound_ms']} ms")
+        f"mel table {mel_nnz} non-zeros); cuFFT's rfft of the valid frames alone "
+        f"{row['cufft_ms']} ms; at the train point B={Bt} S={St}: {row['train_ms']} ms "
+        f"(bound {row['train_bound_ms']} ms)")
 
     errs = []
     for M_, K_, N_ in INT8_SHAPES:
@@ -805,8 +889,10 @@ def timed_batches(decoder, batch, dev, iters: int = 3):
 
 def profile_batch(decoder, batch) -> dict:
     """One batch under ``torch.profiler``: wall (slowed by the profiler),
-    device busy time (the sum of kernel times), busy share, and the kernels
-    that took the most device time."""
+    device busy time (the sum of kernel times), busy share, the number of
+    device kernels the batch ran (copies and fills not counted), and the
+    kernels that took the most device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -816,21 +902,25 @@ def profile_batch(decoder, batch) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in avgs) / 1e3
+    n_kernels = sum(e.count for e in avgs if e.device_type == DeviceType.CUDA
+                    and not e.key.startswith(("Memcpy", "Memset")))
     top = [(e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count) for e in avgs[:12]]
-    # the two costliest decode kernels' and B1's device time in the batch
-    # (ms, launches)
+    # the decode kernels' and B1's device time in the batch (ms, launches)
     decode = {
         name: [sum(e.self_device_time_total for e in avgs if name in e.key) / 1e3,
                sum(e.count for e in avgs if name in e.key)]
-        for name in ("fused_joint_topk_kernel", "lstm_layer_kernel", "rel_attention_kernel")
+        for name in ("fused_joint_topk_kernel", "lstm_layer_kernel", "aes_merge_kernel",
+                     "rel_attention_kernel")
     }
     log(
         f"profiled batch: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms:.1%}); B6, B7 and B1 (ms, launches): {decode}; "
+        f"({busy_ms / wall_ms:.1%}), {n_kernels} device kernels; B6, B7, B8 and B1 (ms, "
+        f"launches): {decode}; "
         f"top kernels (name, ms, count): {top}"
     )
     return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_busy_share=busy_ms / wall_ms, decode_kernels=decode)
+                device_busy_share=busy_ms / wall_ms, device_kernels=n_kernels,
+                decode_kernels=decode)
 
 
 def run_greedy(model, batch, dev, enc_ms: float) -> dict:
@@ -1534,10 +1624,12 @@ def main() -> int:
             "library_ms": None,
             # yardsticks, not library calls for the function: B4's, B5's, B6's
             # and B7's products alone through cuBLAS, scaled_dot_product_attention's
-            # forward beside B1 and backward beside B3; and B3's and B5's whole
-            # device time a call
+            # forward beside B1 and backward beside B3, cuFFT's rfft beside B10;
+            # B3's and B5's whole device time a call, B10 at the train point,
+            # B8's wrapper host time a call
             **{k: r[k] for k in ("cublas_products_ms", "sdpa_fwd_ms", "sdpa_bwd_ms",
-                                 "ms_all_kernels") if k in r},
+                                 "ms_all_kernels", "cufft_ms", "train_ms", "train_bound_ms",
+                                 "host_us", "unfused_host_us") if k in r},
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

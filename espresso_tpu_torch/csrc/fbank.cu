@@ -1,43 +1,61 @@
-// Fused Kaldi log-mel fbank, fp32, sm_90a.
+// Fused Kaldi log-mel fbank, f32 in and out, sm_90a.
 //
 // Replaces the TPU kernel espresso_tpu/features/pallas_fbank.py::fbank_pallas
 // (Pallas; its production twin there is the XLA composition fbank_fused).
-// Per frame t of utterance b (window W = 400 samples, shift 160):
+// Per frame t of utterance b (window W samples, shift, a 512-point DFT):
 //
-//   x      = wave[b, t*shift : t*shift + W] (zero past S)
+//   x      = wave[b, t*shift : t*shift + W]
 //   y      = x - mean(x)                          DC removal
 //   y[j]  -= 0.97 * y[j-1], y[-1] := y[0]          pre-emphasis
-//   y     *= povey window
-//   re[k]  = sum_j y[j] cos(2 pi j k / 512), im[k] = -sum_j y[j] sin(...)
-//   out[m] = log(max(sum_k (re^2 + im^2)[k] mel[k, m], 1.19e-7))
+//   y     *= povey window, zero-padded to 512
+//   X[k]   = sum_j y[j] exp(-2 pi i j k / 512),   k < 256
+//   out[m] = log(max(sum_k |X[k]|^2 mel[k, m], 1.19e-7))
 //
 // zero for frames at or past the utterance's length, which is
-// min(1 + (n - W) / shift, T) for n >= W samples, else 0.
+// min(1 + (n - W) / shift, T) for n >= W samples, else 0. The Nyquist bin is
+// not formed: the mel banks' Nyquist row is zero.
 //
-// What bounds the function on an H100: its bytes. An FFT needs ~15 kFLOP
-// a frame (a 512-point real FFT, |X|^2, the mel table's 501 non-zeros),
-// ~1.9 GFLOP at the serving batch (159,744 frames, ~3/4 of them within
-// their utterance's length), 0.028 ms at the 67 TFLOP/s fp32 rate, under
-// the 0.046 ms its 154 MB take. This design multiplies the DFT bases
-// instead, 2 * 2 * W * 256 fp32 operations a frame, ~410 kFLOP: its own
-// floor is ~0.75 ms there, compute-bound. The products stay in fp32 FMA:
-// the waveform is int16-scale, the powers reach ~1e14, and the 10-bit
-// mantissa of TF32 tensor-core products would lose the spectrum (the
-// reason for Precision.HIGHEST in the TPU kernel).
+// What bounds the function on an H100: its bytes. A real FFT needs ~15
+// kFLOP a frame (with |X|^2 and the mel table's non-zeros): ~1.9 GFLOP at
+// the serving batch (121,554 valid frames), 0.028 ms at the 67 TFLOP/s f32
+// rate, under the 0.046 ms that its 154 MB take. What this kernel pays on
+// top is shared-memory traffic (a frame's values cross lanes in two
+// transposes and the mel sums, each frame reads its samples, window and
+// twiddles) and the f64 work below.
 //
-// What the design does about it: one block per (utterance, 64 frames). The
-// waveform span is staged in shared memory (one padding word every 32, so
-// that frame-strided reads hit 32 banks), the frames are DC-removed,
-// pre-emphasised and windowed into a transposed [W][64] buffer, and each
-// thread keeps a 16-frame x 4-bin register tile of re and im (128
-// accumulators): per window sample it reads 4 cos and 4 sin values as two
-// 16-byte loads (L1/L2: the 0.8 MB bases do not fit a block's shared
-// memory) and 16 frame values as four broadcast 16-byte shared loads, for
-// 128 FMAs. Only the W rows of the 512-point DFT that are not zero padding
-// are multiplied, and only the 256 bins below Nyquist (the mel banks' Nyquist
-// row is zero), and a tile of frames wholly past its utterance's length only
-// writes zeros. The mel product runs over each mel bin's non-zero DFT bins
-// (a zero term adds exactly 0 to a float sum).
+// What the design does about it: one block per (utterance, 32 frames),
+// eight warps, three blocks an SM (80 registers), a warp per frame. The
+// waveform span of the 32 frames (they overlap 2.5x) is copied into shared
+// memory once by cp.async, zero past S. Each lane holds 8 of the frame's
+// 256 complex points z[n] = y[2n] + i y[2n+1] (n = lane + 32 j), formed in
+// registers; the 256-point complex FFT is 8 x 8 x 4: an 8-point DFT over j
+// in registers, the twiddles w256^(lane k1) (kept in the lane's registers
+// across its frames), a transpose through shared
+// memory (rows of 36 points, no bank conflicts), an 8-point DFT over l2
+// (l = l1 + 4 l2) and the twiddles w32^(l1 k2a), a second transpose (an XOR
+// swizzle, no conflicts), and 4-point DFTs over l1, which leave
+// Z[lane + 32 i] on each lane. The real spectrum comes from Z[k] and
+// Z[256 - k] (held by lane 32 - lane: four shuffles): E = (Z[k] +
+// Z*[256-k]) / 2, O = -i (Z[k] - Z*[256-k]) / 2, X[k] = E + w512^k O and
+// |X[256-k]| = |E - w512^k O|.
+//
+// Precision: the waveform is int16-scale and the powers reach ~1e14, so
+// TF32 or bf16 would lose the spectrum. An FFT in f32 throughout keeps the
+// loud bins but not the quiet ones: its rounding leaves an error floor that
+// is a share of the frame's peak in every bin, and the split pairs bin k
+// with bin 256 - k, where pre-emphasis makes the low bins the quietest and
+// their mirrors the loudest; mel bins 60-70 dB down then lose about half of
+// the 5e-4 log bound (tests/test_torch_kernel_layouts.py models it). So
+// stage 1 runs in f32 (f32 twiddles), and stages 2 and 3, the split and
+// |X|^2 in f64 (f64 twiddles), then the power is rounded to f32. The
+// twiddles are float64 values from the host (fbank_kernels.fft_twiddles),
+// kept in shared memory beside the window and the mel banks as a schedule
+// (fbank_kernels.mel_schedule); the kernel reads no DFT basis. The mel
+// product runs in rounds of 32 mel bins, a lane each, the bins longest
+// range first, so that a round's lanes take about as many steps (at M =
+// 80: 16, 6 and 2 steps instead of the 4, 10 and 16 of bins in order); the
+// frame's M outputs are written together. A tile wholly past its
+// utterance's length only writes zeros.
 //
 // C entry: fbank_f32(...) returns the CUDA error of the launch; it launches
 // on the given stream and does not synchronise.
@@ -48,31 +66,115 @@
 
 namespace {
 
-constexpr int TILE_T = 64;    // frames per block
-constexpr int NTHREADS = 256;
-constexpr int FR = 16;        // frames per thread: 4 frame groups of 16
+constexpr int TILE_T = 32;  // frames per block
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int NFFT = 512;       // real points: the window zero-padded
+constexpr int NZ = NFFT / 2;    // complex points z[n] = y[2n] + i y[2n+1]
+constexpr int ROW = 36;         // first transpose: 8 rows of 32 points, padded
+// per warp, one buffer of NZ double2 in turn: the first transpose (8 rows
+// of ROW float2), the second (NZ double2), the power spectrum (NZ f32)
+constexpr int BUF = NZ;
+// the twiddles: w256^(l k1) at [k1][l] (f32, stage 1); w32^(l1 k2a) at
+// [k2a][l1], then w512^k for k = 0..128 (f64)
+constexpr int NTW1 = 256, TW3 = 32, NTW23 = 161;
 constexpr float kEps = 1.1920928955078125e-07f;
 constexpr float kPreemph = 0.97f;
 
-// one padding word every 32 samples
-__host__ __device__ __forceinline__ int widx(int i) { return i + (i >> 5); }
-
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// complex arithmetic on float2 (stage 1) and double2 (the rest)
+template <class C>
+__device__ __forceinline__ C cx(decltype(C::x) x, decltype(C::x) y) {
+  C c;
+  c.x = x;
+  c.y = y;
+  return c;
+}
+template <class C>
+__device__ __forceinline__ C cadd(C a, C b) { return cx<C>(a.x + b.x, a.y + b.y); }
+template <class C>
+__device__ __forceinline__ C csub(C a, C b) { return cx<C>(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float fmad(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fmad(double a, double b, double c) { return fma(a, b, c); }
+template <class C>
+__device__ __forceinline__ C cmul(C a, C w) {
+  return cx<C>(fmad(a.x, w.x, -a.y * w.y), fmad(a.x, w.y, a.y * w.x));
+}
+template <class C>
+__device__ __forceinline__ C mul_mi(C a) { return cx<C>(a.y, -a.x); }  // * -i
+
+// 4-point DFT, natural order in and out
+template <class C>
+__device__ __forceinline__ void dft4(C& u0, C& u1, C& u2, C& u3) {
+  const C p0 = cadd(u0, u2), p1 = csub(u0, u2);
+  const C q0 = cadd(u1, u3), q1 = mul_mi(csub(u1, u3));
+  u0 = cadd(p0, q0);
+  u2 = csub(p0, q0);
+  u1 = cadd(p1, q1);
+  u3 = csub(p1, q1);
+}
+
+// 8-point DFT, natural order in and out: a radix-2 step (sums and
+// differences times w8^j), then 4-point DFTs of each half
+template <class C>
+__device__ __forceinline__ void dft8(C (&a)[8]) {
+  using R = decltype(C::x);
+  const R h = static_cast<R>(0.70710678118654752440);
+  C s[4], d[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s[j] = cadd(a[j], a[j + 4]);
+    d[j] = csub(a[j], a[j + 4]);
+  }
+  d[1] = cx<C>(h * (d[1].x + d[1].y), h * (d[1].y - d[1].x));
+  d[2] = mul_mi(d[2]);
+  d[3] = cx<C>(h * (d[3].y - d[3].x), -h * (d[3].x + d[3].y));
+  dft4(s[0], s[1], s[2], s[3]);
+  dft4(d[0], d[1], d[2], d[3]);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    a[2 * m] = s[m];
+    a[2 * m + 1] = d[m];
+  }
+}
+
+// second transpose: U(k1, l1, k2a) at 32 k2a + 4 k1 + (l1 ^ (k1 / 2 % 4)),
+// so that the writes (fixed k2a) and the reads (fixed l1) each hit 8
+// distinct 16-byte slots a quarter-warp
+__device__ __forceinline__ int swz(int k1, int l1, int k2a) {
+  return 32 * k2a + 4 * k1 + (l1 ^ ((k1 >> 1) & 3));
+}
+
+__global__ void __launch_bounds__(NTHREADS, 3)
 fbank_kernel(const float* __restrict__ wave, const int* __restrict__ num_samples,
-             const float* __restrict__ cos_k, const float* __restrict__ sin_k,
-             const float* __restrict__ win, const float* __restrict__ mel_t,
-             const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
-             float* __restrict__ out, int* __restrict__ lengths, int S, int T, int W, int shift,
-             int NB, int M) {
+             const float* __restrict__ win, const float* __restrict__ tw1_g,
+             const double* __restrict__ tw23_g,
+             const float* __restrict__ mel_w, const int* __restrict__ mel_meta,
+             const int* __restrict__ mel_len, float* __restrict__ out, int* __restrict__ lengths,
+             int S, int T, int W, int shift, int M, int mel_steps) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y, t0 = blockIdx.x * TILE_T, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int span = (TILE_T - 1) * shift + W;
-  float* ws = smem;                                // the waveform span, padded
-  float* mean = ws + round4(widx(span - 1) + 1);   // [TILE_T]
-  float* fT = mean + TILE_T;                       // [W][TILE_T], then P [TILE_T][NB]
+  const int span = (TILE_T - 1) * shift + NFFT;  // what the last frame's lanes read
+  float* ws = smem;                                    // the waveform span, zero past S
+  float* ww = ws + round4(span);                       // the window, zero past W [NFFT]
+  double2* tw23 = reinterpret_cast<double2*>(ww + NFFT);        // [NTW23]
+  float2* tw1 = reinterpret_cast<float2*>(tw23 + NTW23 + 1);      // [NTW1]
+  const int rounds = (M + 31) / 32;
+  float* mw = reinterpret_cast<float*>(tw1 + NTW1);      // mel weights [mel_steps][32]
+  int* mm = reinterpret_cast<int*>(mw + 32 * mel_steps);   // m << 16 | k0 [rounds][32]
+  int* ml = mm + 32 * rounds;                              // steps a round [rounds]
+  double2* buf = reinterpret_cast<double2*>(ml + round4(rounds)) + warp * BUF;
+  float2* rows = reinterpret_cast<float2*>(buf);
+  float* P = reinterpret_cast<float*>(buf);
 
   const int n = num_samples[b];
   const int len = n >= W ? min(1 + (n - W) / shift, T) : 0;
@@ -87,90 +189,139 @@ fbank_kernel(const float* __restrict__ wave, const int* __restrict__ num_samples
   const float* xb = wave + (size_t)b * S;
   const int base = t0 * shift;
   for (int i = tid; i < span; i += NTHREADS) {
-    const int g = base + i;
-    ws[widx(i)] = g < S ? xb[g] : 0.f;
+    const bool valid = base + i < S;
+    cp_async4(ws + i, valid ? xb + base + i : xb, valid);
   }
+  for (int i = tid; i < NFFT; i += NTHREADS) cp_async4(ww + i, win + i, true);
+  for (int i = tid; i < 4 * NTW23; i += NTHREADS)
+    cp_async4(reinterpret_cast<float*>(tw23) + i, reinterpret_cast<const float*>(tw23_g) + i, true);
+  for (int i = tid; i < 2 * NTW1; i += NTHREADS)
+    cp_async4(reinterpret_cast<float*>(tw1) + i, tw1_g + i, true);
+  for (int i = tid; i < 32 * mel_steps; i += NTHREADS) cp_async4(mw + i, mel_w + i, true);
+  for (int i = tid; i < 33 * rounds; i += NTHREADS)  // mel_meta, then mel_len
+    cp_async4(reinterpret_cast<float*>(mm) + i,
+              reinterpret_cast<const float*>(i < 32 * rounds ? mel_meta + i : mel_len + i - 32 * rounds),
+              true);
+  asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
 
-  for (int t = warp; t < TILE_T; t += NTHREADS / 32) {
-    float s = 0.f;
-    for (int j = lane; j < W; j += 32) s += ws[widx(t * shift + j)];
+  const int k1s = lane >> 2, l1s = lane & 3;  // the second stage's (k1, l1)
+  float2 tw1r[8];  // this lane's stage-1 twiddles, the same for every frame
 #pragma unroll
-    for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) mean[t] = s / (float)W;
-  }
-  __syncthreads();
-
-  // consecutive threads take consecutive frames of one sample j
-  for (int idx = tid; idx < W * TILE_T; idx += NTHREADS) {
-    const int j = idx / TILE_T, t = idx % TILE_T;
-    const float m = mean[t];
-    const float x = __fsub_rn(ws[widx(t * shift + j)], m);
-    const float xp = __fsub_rn(ws[widx(t * shift + (j > 0 ? j - 1 : 0))], m);
-    fT[idx] = __fmul_rn(__fsub_rn(x, __fmul_rn(kPreemph, xp)), win[j]);
-  }
-  __syncthreads();
-
-  const int tx = tid & 63, ty = tid >> 6;  // bins 4tx..4tx+3, frames FR*ty..
-  const bool active = 4 * tx < NB;
-  float re[FR][4], im[FR][4];
-#pragma unroll
-  for (int i = 0; i < FR; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) re[i][q] = im[i][q] = 0.f;
-  if (active) {
-    const float4* cp = reinterpret_cast<const float4*>(cos_k) + tx;
-    const float4* sp = reinterpret_cast<const float4*>(sin_k) + tx;
-    const int row4 = NB / 4;
-#pragma unroll 2
-    for (int j = 0; j < W; ++j) {
-      const float4 c = __ldg(cp + (size_t)j * row4);
-      const float4 s = __ldg(sp + (size_t)j * row4);
-      const float4* fr = reinterpret_cast<const float4*>(fT + j * TILE_T + FR * ty);
-#pragma unroll
-      for (int q = 0; q < FR / 4; ++q) {
-        const float4 f = fr[q];
-        const float fv[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = 4 * q + r;
-          re[i][0] = fmaf(fv[r], c.x, re[i][0]);
-          re[i][1] = fmaf(fv[r], c.y, re[i][1]);
-          re[i][2] = fmaf(fv[r], c.z, re[i][2]);
-          re[i][3] = fmaf(fv[r], c.w, re[i][3]);
-          im[i][0] = fmaf(fv[r], s.x, im[i][0]);
-          im[i][1] = fmaf(fv[r], s.y, im[i][1]);
-          im[i][2] = fmaf(fv[r], s.z, im[i][2]);
-          im[i][3] = fmaf(fv[r], s.w, im[i][3]);
-        }
-      }
+  for (int k1 = 1; k1 < 8; ++k1) tw1r[k1] = tw1[k1 * 32 + lane];
+  for (int tt = warp; tt < TILE_T; tt += NWARPS) {
+    const int t = t0 + tt;
+    if (t >= T) break;
+    float* orow = out + ((size_t)b * T + t) * M;
+    if (t >= len) {
+      for (int m = lane; m < M; m += 32) orow[m] = 0.f;
+      continue;
     }
-  }
-  __syncthreads();  // every thread is done with fT
+    const float* x = ws + tt * shift;  // shift is even: x[2n] is 8-byte aligned
 
-  float* P = fT;  // power spectrum [TILE_T][NB]
-  if (active) {
+    // the frame's samples 2n, 2n+1 for n = lane + 32 j, zero past W; the
+    // mean over W
+    float2 a[8];
+    float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < FR; ++i) {
-      float4 p;
-      p.x = __fadd_rn(__fmul_rn(re[i][0], re[i][0]), __fmul_rn(im[i][0], im[i][0]));
-      p.y = __fadd_rn(__fmul_rn(re[i][1], re[i][1]), __fmul_rn(im[i][1], im[i][1]));
-      p.z = __fadd_rn(__fmul_rn(re[i][2], re[i][2]), __fmul_rn(im[i][2], im[i][2]));
-      p.w = __fadd_rn(__fmul_rn(re[i][3], re[i][3]), __fmul_rn(im[i][3], im[i][3]));
-      *reinterpret_cast<float4*>(P + (FR * ty + i) * NB + 4 * tx) = p;
+    for (int j = 0; j < 8; ++j) {
+      const int i0 = 2 * (lane + 32 * j);
+      const float2 v = *reinterpret_cast<const float2*>(x + i0);
+      a[j] = make_float2(i0 < W ? v.x : 0.f, i0 + 1 < W ? v.y : 0.f);
+      sum += a[j].x + a[j].y;
     }
-  }
-  __syncthreads();
+#pragma unroll
+    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mean = sum / (float)W;
 
-  for (int idx = tid; idx < TILE_T * M; idx += NTHREADS) {
-    const int t = idx / M, m = idx % M;
-    const int tg = t0 + t;
-    if (tg >= T) break;
-    const float* p = P + t * NB;
-    float acc = 0.f;
-    const int hi = mel_hi[m];
-    for (int k = mel_lo[m]; k < hi; ++k) acc = fmaf(p[k], mel_t[k * M + m], acc);
-    out[((size_t)b * T + tg) * M + m] = tg < len ? logf(fmaxf(acc, kEps)) : 0.f;
+    // DC removal, pre-emphasis (y[-1] := y[0]) and the window, rounded as
+    // the plain version rounds; z[n] = y[2n] + i y[2n+1]
+    float2 z[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i0 = 2 * (lane + 32 * j);
+      const float2 w = *reinterpret_cast<const float2*>(ww + i0);
+      const float y0 = __fsub_rn(a[j].x, mean), y1 = __fsub_rn(a[j].y, mean);
+      const float yp = i0 > 0 ? __fsub_rn(x[i0 - 1], mean) : y0;
+      z[j] = make_float2(__fmul_rn(__fsub_rn(y0, __fmul_rn(kPreemph, yp)), w.x),
+                         __fmul_rn(__fsub_rn(y1, __fmul_rn(kPreemph, y0)), w.y));
+    }
+
+    double2 u[8];
+    // stage 1 (f32): 8-point DFT over j, twiddles w256^(lane k1); Y(l, k1)
+    // to row k1
+    dft8(z);
+#pragma unroll
+    for (int k1 = 0; k1 < 8; ++k1)
+      rows[k1 * ROW + lane] = k1 == 0 ? z[0] : cmul(z[k1], tw1r[k1]);
+    __syncwarp();
+    // stage 2 (f64): lane (k1, l1) takes Y(l1 + 4 l2, k1), an 8-point DFT
+    // over l2, twiddles w32^(l1 k2a)
+#pragma unroll
+    for (int l2 = 0; l2 < 8; ++l2) {
+      const float2 y = rows[k1s * ROW + l1s + 4 * l2];
+      u[l2] = make_double2(y.x, y.y);
+    }
+    __syncwarp();
+    dft8(u);
+#pragma unroll
+    for (int k2a = 0; k2a < 8; ++k2a)
+      buf[swz(k1s, l1s, k2a)] = k2a == 0 ? u[0] : cmul(u[k2a], tw23[k2a * 4 + l1s]);
+    __syncwarp();
+    // stage 3: lane takes (k1, k2a) = (lane % 8, lane / 8 + 4 r), r = 0, 1:
+    // 4-point DFTs over l1 give Z[k1 + 8 k2a + 64 k2b] = Z[lane + 32 i],
+    // i = r + 2 k2b, in u[4 r + k2b]
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int l1 = 0; l1 < 4; ++l1) u[4 * r + l1] = buf[swz(lane & 7, l1, (lane >> 3) + 4 * r)];
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) dft4(u[4 * r], u[4 * r + 1], u[4 * r + 2], u[4 * r + 3]);
+
+    // the real spectrum from Z[k] and Z[256 - k], k = lane + 32 i (i < 4),
+    // as 2E = Z[k] + Z*[256-k], 2O and 2X = 2E + w512^k 2O: |X|^2 = |2X|^2
+    // / 4, rounded to f32 (the / 4 is exact); X[128] = Z*[128]. Z[256 - k]
+    // = Z[(32 - lane) + 32 (7 - i)] comes from lane 32 - lane by shuffles
+    // (lane 0 holds its own mirrors, Z[32 (8 - i)])
+#define ZI(i) u[4 * ((i) & 1) + ((i) >> 1)]
+    double2 zm[4];
+    const int partner = (32 - lane) & 31;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      zm[i].x = __shfl_sync(0xffffffffu, ZI(7 - i).x, partner);
+      zm[i].y = __shfl_sync(0xffffffffu, ZI(7 - i).y, partner);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = lane + 32 * i;
+      const double2 za = ZI(i);
+      const double2 zb = lane != 0 ? zm[i] : i == 0 ? ZI(0) : zm[i - 1];
+      const double2 e = make_double2(za.x + zb.x, za.y - zb.y);
+      const double2 od = make_double2(za.y + zb.y, zb.x - za.x);
+      const double2 t2 = cmul(od, tw23[TW3 + k]);
+      const double2 xp = cadd(e, t2), xm = csub(e, t2);
+      P[k] = 0.25f * (float)fma(xp.x, xp.x, xp.y * xp.y);
+      if (k != 0) P[NZ - k] = 0.25f * (float)fma(xm.x, xm.x, xm.y * xm.y);
+    }
+    if (lane == 0) P[NZ / 2] = (float)fma(ZI(4).x, ZI(4).x, ZI(4).y * ZI(4).y);
+#undef ZI
+    __syncwarp();
+
+    // the mel product: round r gives each lane a mel bin and L_r steps
+    // over the DFT bins from its k0 (zero weights outside the bin's
+    // range), then the log
+    const float* wr = mw + lane;
+    for (int r = 0; r < rounds; ++r) {
+      const int L = ml[r], meta = mm[32 * r + lane];
+      const float* pk = P + (meta & 0xffff);
+      float acc = 0.f;
+#pragma unroll 4
+      for (int i = 0; i < L; ++i) acc = fmaf(pk[i], wr[32 * i], acc);
+      if (meta >= 0) orow[meta >> 16] = logf(fmaxf(acc, kEps));
+      wr += 32 * L;
+    }
+    __syncwarp();  // the next frame's rows overwrite P
   }
 }
 
@@ -178,33 +329,37 @@ fbank_kernel(const float* __restrict__ wave, const int* __restrict__ num_samples
 
 extern "C" {
 
-// wave [B, S] f32, num_samples [B] int32, cos_k / sin_k [W, NB] f32 (the
-// DFT bases' bins below Nyquist), win [W] f32, mel_t [>= NB, M] f32,
-// mel_lo / mel_hi [M] int32 (each mel bin's non-zero DFT bins), out
-// [B, T, M] f32, lengths [B] int32; all contiguous. NB is a multiple of 4,
-// at most 256. Launches on `stream` of card `device`; returns the CUDA
-// error code (0 on success).
-int fbank_f32(const void* wave, const void* num_samples, const void* cos_k, const void* sin_k,
-              const void* win, const void* mel_t, const void* mel_lo, const void* mel_hi,
-              void* out, void* lengths, int B, int S, int T, int W, int shift, int NB, int M,
+// wave [B, S] f32, num_samples [B] int32, win [512] f32 (the window, zero
+// past W), the twiddles of fbank_kernels.fft_twiddles: tw1 [256, 2] f32,
+// tw23 [161, 2] f64; the mel
+// schedule of fbank_kernels.mel_schedule: mel_w [mel_steps, 32] f32,
+// mel_meta [ceil(M / 32), 32] int32, mel_len [ceil(M / 32)] int32; out
+// [B, T, M] f32, lengths [B] int32; all contiguous. W at most 512, shift
+// even. Launches on `stream` of card `device`; returns the CUDA error code
+// (0 on success).
+int fbank_f32(const void* wave, const void* num_samples, const void* win, const void* tw1,
+              const void* tw23, const void* mel_w, const void* mel_meta, const void* mel_len, void* out,
+              void* lengths, int B, int S, int T, int W, int shift, int M, int mel_steps,
               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || T == 0) return 0;
-  if (NB % 4 != 0 || NB > 4 * 64) return (int)cudaErrorInvalidValue;
-  const int span = (TILE_T - 1) * shift + W;
-  const int rows = W > NB ? W : NB;
-  const size_t smem = ((size_t)round4(widx(span - 1) + 1) + TILE_T + (size_t)rows * TILE_T) * 4;
+  if (W > NFFT || W < 1 || shift % 2 != 0 || shift < 1) return (int)cudaErrorInvalidValue;
+  const int span = (TILE_T - 1) * shift + NFFT;
+  const int rounds = (M + 31) / 32;
+  const size_t smem = ((size_t)round4(span) + NFFT + 4 * (NTW23 + 1) + 2 * NTW1 + 32 * mel_steps +
+                       32 * rounds + round4(rounds) + (size_t)NWARPS * 4 * BUF) * 4;
   err = cudaFuncSetAttribute(fbank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + TILE_T - 1) / TILE_T, B);
   fbank_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(wave), static_cast<const int*>(num_samples),
-      static_cast<const float*>(cos_k), static_cast<const float*>(sin_k),
-      static_cast<const float*>(win), static_cast<const float*>(mel_t),
-      static_cast<const int*>(mel_lo), static_cast<const int*>(mel_hi),
-      static_cast<float*>(out), static_cast<int*>(lengths), S, T, W, shift, NB, M);
+      static_cast<const float*>(win), static_cast<const float*>(tw1),
+      static_cast<const double*>(tw23),
+      static_cast<const float*>(mel_w), static_cast<const int*>(mel_meta),
+      static_cast<const int*>(mel_len), static_cast<float*>(out), static_cast<int*>(lengths), S,
+      T, W, shift, M, mel_steps);
   return (int)cudaGetLastError();
 }
 

@@ -217,8 +217,8 @@ class TransducerBeamSearchDecoder:
                     row_vals = row_vals + delta[..., None]
                     exp_scores = merged
                 pool_scores, pool_hash, pool_ver, pool_slot, fp_i, src_slot = aes_merge(
-                    pool_scores, (exp_scores + blank_lp).contiguous(), pool_hash, exp_hash,
-                    pool_ver, pool_slot, j,
+                    pool_scores, exp_scores.contiguous(), pool_hash, exp_hash,
+                    pool_ver, pool_slot, j, blank_lp=blank_lp,
                 )
                 fp_l.append(fp_i)
                 msrc_l.append(src_slot)

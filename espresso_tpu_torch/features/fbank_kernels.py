@@ -12,15 +12,21 @@ with T = max(1 + (S - window) // shift, 1) from the static S, so the front
 makes no host sync. The recipe's 25 ms window and 10 ms shift are fixed
 (400 and 160 samples at 16 kHz). Per frame: DC removal,
 pre-emphasis 0.97 (x[0] paired with itself), the povey window, the power
-spectrum by cos/sin DFT products over the 512-point DFT's bins in full fp32,
-the Kaldi mel product and ``log(max(mel, _EPS))``. Lengths are
-``1 + (n - window) // shift`` (0 under one window), clipped to T; frames
-past a length are zero.
+spectrum of the 512-point DFT (no TF32 or bf16 anywhere), the Kaldi mel
+product and ``log(max(mel, _EPS))``. Lengths are ``1 + (n - window) //
+shift`` (0 under one window), clipped to T; frames past a length are zero.
+
+The kernel computes the power spectrum by a real FFT: the frame packed as
+256 complex points, a 256-point FFT in three stages (8 x 8 x 4, the
+twiddles of :func:`fft_twiddles`; the first stage in f32, the rest in
+f64), and the split into the 256 bins below Nyquist. Its host tables: the
+window zero-padded to 512, the twiddles, and the mel banks as a schedule
+of rounds of 32 lanes (:func:`mel_schedule`).
 
 ``fbank_plain`` is the torch composition of JAX ``fbank_fused``
-(chunk-concat framing, fp32 matmuls). On a CPU tensor ``fbank_fused`` runs
-it; on a CUDA tensor it launches the kernel or raises, and counts its
-launches (``fbank_fused.launches``).
+(chunk-concat framing, fp32 matmuls with the cos/sin DFT bases). On a CPU
+tensor ``fbank_fused`` runs it; on a CUDA tensor it launches the kernel or
+raises, and counts its launches (``fbank_fused.launches``).
 """
 
 from __future__ import annotations
@@ -76,22 +82,95 @@ def _geometry(S: int, sample_rate: float):
 def _tables(
     device: torch.device, window: int, padded: int, M: int, sample_rate: float
 ) -> Dict[str, torch.Tensor]:
-    """The tables on ``device``, copied there once per device and geometry.
-    The bases keep the padded//2 bins below Nyquist (the mel banks' Nyquist
-    row is zero, so that bin adds exactly 0), and each mel bin gets the
-    range of DFT bins where its weights are not zero (for the kernel)."""
+    """The plain version's tables on ``device``, copied there once per
+    device and geometry. The bases keep the padded//2 bins below Nyquist
+    (the mel banks' Nyquist row is zero, so that bin adds exactly 0)."""
     cos, sin, mel_t = _dft_mel_matrices(window, padded, M, float(sample_rate))
     nb = padded // 2
     assert not mel_t[nb].any(), "the mel banks' Nyquist row must be zero"
-    nz = mel_t[:nb] != 0  # [nb, M]
-    lo = np.where(nz.any(0), nz.argmax(0), 0).astype(np.int32)
-    hi = np.where(nz.any(0), nb - nz[::-1].argmax(0), 0).astype(np.int32)
     host = dict(
         cos=np.ascontiguousarray(cos[:, :nb]), sin=np.ascontiguousarray(sin[:, :nb]),
         mel_t=np.ascontiguousarray(mel_t[:nb]), window=povey_window(window),
-        mel_lo=lo, mel_hi=hi,
     )
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+# the kernel's FFT: 512 real points as FFT_POINTS complex ones, 8 x 8 x 4
+FFT_SIZE = 512
+FFT_POINTS = FFT_SIZE // 2
+TW3 = 32  # where the split's twiddles start in fft_twiddles()[1]
+
+
+@functools.lru_cache(maxsize=None)
+def fft_twiddles() -> Tuple[np.ndarray, np.ndarray]:
+    """The kernel's twiddles as (real, imaginary) pairs of float64 values,
+    w_N = exp(-2 pi i / N):
+
+    * tw1 [256, 2] rounded to f32: w256^(l k1) at 32 k1 + l (k1 < 8, l <
+      32), after the first 8-point DFT (over j of n = l + 32 j), which
+      runs in f32;
+    * tw23 [161, 2] f64: w32^(l1 k2a) at 4 k2a + l1 (k2a < 8, l1 < 4),
+      after the second (over l2 of l = l1 + 4 l2), then w512^k for k =
+      0..128 from TW3 on, for the split of the packed transform Z into
+      the real one X.
+    """
+    k1, lane = np.arange(8)[:, None], np.arange(32)[None, :]
+    k2a, l1 = np.arange(8)[:, None], np.arange(4)[None, :]
+    w1 = np.exp(-2j * np.pi * k1 * lane / 256).reshape(-1)
+    w23 = np.concatenate([
+        np.exp(-2j * np.pi * k2a * l1 / 32).reshape(-1),
+        np.exp(-2j * np.pi * np.arange(FFT_POINTS // 2 + 1) / FFT_SIZE),
+    ])
+    pair = lambda w: np.stack([w.real, w.imag], 1)
+    return pair(w1).astype(np.float32), pair(w23)
+
+
+def mel_schedule(mel_t: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's mel product for the banks ``mel_t`` [nb, M] (DFT bins
+    below Nyquist by mel bins). The bins go longest non-zero DFT range
+    first, 32 to a round, a lane each; all lanes of round r take L_r steps,
+    its longest range: the lane of bin m sums P[k0 + i] * w[i] for i < L_r,
+    k0 = min(lo_m, nb - L_r), with w the bin's weights over those bins.
+    Outside the bin's range w is zero, and a zero term adds exactly 0, so
+    the sum is the range's sum in DFT-bin order. Returns the weights
+    [sum L_r, 32] f32 (round r's step i at row sum_{r' < r} L_r' + i),
+    meta [R, 32] int32 (m << 16 | k0; -1 << 16 for a lane without a bin)
+    and the steps L [R] int32."""
+    nb, M = mel_t.shape
+    nz = mel_t != 0
+    lo = np.where(nz.any(0), nz.argmax(0), 0)
+    hi = np.where(nz.any(0), nb - nz[::-1].argmax(0), 0)
+    order = np.argsort(-(hi - lo), kind="stable")
+    R = -(-M // 32)
+    lens = np.array([(hi - lo)[order[32 * r : 32 * r + 32]].max() for r in range(R)], np.int32)
+    weights = np.zeros((int(lens.sum()), 32), np.float32)
+    meta = np.full((R, 32), -1 << 16, np.int32)
+    row = 0
+    for r in range(R):
+        for lane, m in enumerate(order[32 * r : 32 * r + 32]):
+            k0 = min(int(lo[m]), nb - int(lens[r]))
+            weights[row : row + lens[r], lane] = mel_t[k0 : k0 + lens[r], m]
+            meta[r, lane] = (int(m) << 16) | k0
+        row += int(lens[r])
+    return weights, meta, lens
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_tables(
+    device: torch.device, window: int, M: int, sample_rate: float
+) -> Dict[str, torch.Tensor]:
+    """The kernel's tables on ``device``, once per device and geometry: the
+    window zero-padded to FFT_SIZE, the twiddles, the mel schedule."""
+    _, _, mel_t = _dft_mel_matrices(window, FFT_SIZE, M, float(sample_rate))
+    assert not mel_t[FFT_POINTS].any(), "the mel banks' Nyquist row must be zero"
+    mel_w, mel_meta, mel_len = mel_schedule(mel_t[:FFT_POINTS])
+    win = np.zeros(FFT_SIZE, np.float32)
+    win[:window] = povey_window(window)
+    tw1, tw23 = fft_twiddles()
+    host = dict(window=win, tw1=tw1, tw23=tw23, mel_w=mel_w, mel_meta=mel_meta, mel_len=mel_len)
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()}
+    out["mel_steps"] = int(mel_len.sum())
+    return out
 
 
 def fbank_lengths(num_samples: torch.Tensor, window: int, shift: int, T: int) -> torch.Tensor:
@@ -142,8 +221,8 @@ def _lib() -> ctypes.CDLL:
     from espresso_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load("fbank", LIBRARIES["fbank"])
-    # wave, num_samples, cos, sin, window, mel_t, mel_lo, mel_hi, out, lengths;
-    # B, S, T, window, shift, n_bins, M, device; stream
+    # wave, num_samples, window, tw1, tw23, mel_w, mel_meta, mel_len, out,
+    # lengths; B, S, T, window, shift, M, mel_steps, device; stream
     lib.fbank_f32.argtypes = [_P] * 10 + [_I] * 8 + [_P]
     lib.fbank_f32.restype = _I
     return lib
@@ -156,7 +235,9 @@ def fbank_fused(
     num_mel_bins: int = 80,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, S] waveforms and [B] sample counts -> ([B, T, M] f32 log-mel
-    frames, [B] int32 lengths)."""
+    frames, [B] int32 lengths). On the card the geometry must be the
+    512-point one (a window of 257 to 512 samples, 16 kHz among the rates
+    that give it) with an even shift."""
     if waveforms.device.type == "cpu":
         return fbank_plain(waveforms, num_samples, sample_rate, num_mel_bins)
     if waveforms.device.type != "cuda":
@@ -170,21 +251,20 @@ def fbank_fused(
         raise ValueError(f"fbank_fused: num_samples must be on {waveforms.device}")
     B, S = waveforms.shape
     window, shift, padded, T = _geometry(S, sample_rate)
-    n_bins = padded // 2
-    if n_bins % 4 or n_bins > 256 or window > 512:
-        raise ValueError(f"fbank_fused: the kernel takes up to 256 bins and a 512-sample "
-                         f"window, not {n_bins} bins and {window}")
-    tab = _tables(waveforms.device, window, padded, num_mel_bins, float(sample_rate))
+    if padded != FFT_SIZE or shift % 2:
+        raise ValueError(f"fbank_fused: the kernel takes a {FFT_SIZE}-point DFT and an even "
+                         f"shift, not {padded} points (window {window}) and shift {shift}")
+    tab = _kernel_tables(waveforms.device, window, num_mel_bins, float(sample_rate))
     x = waveforms.float().contiguous()
     ns = num_samples.to(torch.int32).contiguous()
     out = torch.empty(B, T, num_mel_bins, dtype=torch.float32, device=x.device)
     lengths = torch.empty(B, dtype=torch.int32, device=x.device)
     device = x.device.index
     rc = _lib().fbank_f32(
-        x.data_ptr(), ns.data_ptr(), tab["cos"].data_ptr(), tab["sin"].data_ptr(),
-        tab["window"].data_ptr(), tab["mel_t"].data_ptr(), tab["mel_lo"].data_ptr(),
-        tab["mel_hi"].data_ptr(), out.data_ptr(), lengths.data_ptr(),
-        B, S, T, window, shift, n_bins, num_mel_bins, device,
+        x.data_ptr(), ns.data_ptr(), tab["window"].data_ptr(), tab["tw1"].data_ptr(),
+        tab["tw23"].data_ptr(), tab["mel_w"].data_ptr(), tab["mel_meta"].data_ptr(), tab["mel_len"].data_ptr(),
+        out.data_ptr(), lengths.data_ptr(), B, S, T, window, shift, num_mel_bins,
+        tab["mel_steps"], device,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:

@@ -58,7 +58,7 @@ _SIGNATURES = {
     "fused_joint_topk_tmaps": ("fused_joint_topk", [_P, _P, _I, _I, _I, _P]),
     "lstm_step_reorder_bf16": ("lstm_step_reorder", [_P] * 8 + [_I] * 4 + [_P]),
     "lstm_step_reorder_tmap": ("lstm_step_reorder", [_P, _I, _I, _P]),
-    "aes_merge_f32": ("aes_merge", [_P] * 6 + [_I] * 3 + [_P] * 6 + [_I, _P]),
+    "aes_merge_f32": ("aes_merge", [_P] * 7 + [_I] * 3 + [_P] * 2 + [_I, _P]),
     "aes_backtrace_i32": ("aes_backtrace", [_P] * 8 + [_I] * 5 + [_P]),
 }
 TMAP_BYTES = 128  # a CUtensorMap
@@ -247,15 +247,20 @@ def aes_merge_reference(
     pool_ver: torch.Tensor,  # [B, K] i32
     pool_slot: torch.Tensor,  # [B, K] i32
     round_j: int,
+    blank_lp: Optional[torch.Tensor] = None,  # [B, K] f32
 ):
     """Plain version of :func:`aes_merge` (decode_kernels.py:770-830): the
     [B, 2K] pool of (pool, expansion) columns, an exact logaddexp of equal
     hashes kept at the first occurrence (summed in column order, as the
-    kernel sums), a stable top-K, and the bookkeeping gathers. Returns
-    (top [B, K] f32, hash, version, slot, from_pool, src_slot [B, K] i32)."""
+    kernel sums), a stable top-K, and the bookkeeping gathers. With
+    ``blank_lp`` the expansion scores are ``blank_scores + blank_lp``.
+    Returns (top [B, K] f32, hash, version, slot, from_pool, src_slot [B, K]
+    i32)."""
     B, K = pool_scores.shape
     dev = pool_scores.device
     i32 = torch.int32
+    if blank_lp is not None:
+        blank_scores = blank_scores.float() + blank_lp.float()
     merged = torch.cat([pool_scores.float(), blank_scores.float()], 1)
     hashes = torch.cat([pool_hash, exp_hash], 1).to(i32)
     kcols = torch.arange(K, device=dev, dtype=i32).expand(B, K)
@@ -356,7 +361,8 @@ def _launch(symbol: str, device: torch.device, *args) -> None:
     """Call the C entry ``symbol`` on ``device``'s current stream; raise on
     a CUDA error of the launch."""
     index = device.index  # a CUDA tensor's device always has its index
-    stream = torch.cuda.current_stream(index).cuda_stream
+    # the current stream's handle, without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(index)
     rc = _fn(symbol)(*args, index, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {rc}")
@@ -605,34 +611,41 @@ def aes_merge(
     pool_ver: torch.Tensor,
     pool_slot: torch.Tensor,
     round_j: int,
+    blank_lp: Optional[torch.Tensor] = None,
 ):
-    """One AES blank-merge round (see the plain version). On the card the
-    scores are fp32 and the rest int32, all [B, K] and contiguous; any K.
+    """One AES blank-merge round (see the plain version). With ``blank_lp``
+    the kernel adds it to ``blank_scores`` (then the expansions' scores
+    before the blank) as it loads them. On the card the scores and
+    ``blank_lp`` are fp32 and the rest int32, all [B, K] and contiguous; any
+    K. The six outputs are views of one [6, B, K] allocation.
     ``aes_merge.launches`` counts kernel launches."""
     name = "aes_merge"
     if not _route(name, pool_scores):
         return aes_merge_reference(
-            pool_scores, blank_scores, pool_hash, exp_hash, pool_ver, pool_slot, round_j
+            pool_scores, blank_scores, pool_hash, exp_hash, pool_ver, pool_slot, round_j, blank_lp
         )
     dev = pool_scores.device
     B, K = pool_scores.shape
-    _on(name, dev, torch.float32, pool_scores=pool_scores, blank_scores=blank_scores)
-    _on(name, dev, torch.int32, pool_hash=pool_hash, exp_hash=exp_hash, pool_ver=pool_ver, pool_slot=pool_slot)
-    ins = dict(
-        pool_scores=pool_scores, blank_scores=blank_scores, pool_hash=pool_hash,
-        exp_hash=exp_hash, pool_ver=pool_ver, pool_slot=pool_slot,
-    )
-    for key, x in ins.items():
-        _need(name, x.shape == (B, K), f"{key} {tuple(x.shape)} != {(B, K)}")
-    _contig(name, **ins)
-    top = torch.empty((B, K), dtype=torch.float32, device=dev)
-    ints = [torch.empty((B, K), dtype=torch.int32, device=dev) for _ in range(5)]
+    f32, i32 = torch.float32, torch.int32
+    ins = [("pool_scores", pool_scores, f32), ("blank_scores", blank_scores, f32),
+           ("pool_hash", pool_hash, i32), ("exp_hash", exp_hash, i32),
+           ("pool_ver", pool_ver, i32), ("pool_slot", pool_slot, i32)]
+    if blank_lp is not None:
+        ins.append(("blank_lp", blank_lp, f32))
+    for key, x, dtype in ins:
+        if x.device != dev or x.dtype != dtype or x.shape != (B, K) or not x.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous {dtype} [{B}, {K}] on {dev}, "
+                             f"not {x.dtype} {tuple(x.shape)} on {x.device}")
+    out = torch.empty((6, B, K), dtype=i32, device=dev)
     _launch(
-        "aes_merge_f32", dev, *(x.data_ptr() for x in ins.values()), round_j, B, K,
-        top.data_ptr(), *(x.data_ptr() for x in ints),
+        "aes_merge_f32", dev, pool_scores.data_ptr(), blank_scores.data_ptr(),
+        None if blank_lp is None else blank_lp.data_ptr(), pool_hash.data_ptr(),
+        exp_hash.data_ptr(), pool_ver.data_ptr(), pool_slot.data_ptr(), round_j, B, K,
+        out.data_ptr(), out.data_ptr() + B * K * 4,
     )
     aes_merge.launches += 1
-    return (top, *ints)
+    top, *ints = out.unbind(0)
+    return (top.view(f32), *ints)
 
 
 def aes_backtrace(

@@ -150,10 +150,15 @@ def check_lstm(a: Tensors, B, K, tol=LSTM_TOL) -> float:
     return err
 
 
-def merge_inputs(B, K, seed, dev, n_hash=None) -> Tensors:
+def merge_inputs(B, K, seed, dev, n_hash=None, blank_lp=False) -> Tensors:
     """Pool and expansion columns with dead slots (NEG_INF) and duplicate
     hashes (``n_hash`` values around 0, so that some equal a dead column's
-    stand-in -(c+1)) within and across the halves."""
+    stand-in -(c+1)) within and across the halves. Rows that stress the
+    stable order, where B allows: row 2 ties (every score equal, the
+    expansions' hashes half equal to the pool's), row 3 all NEG_INF, row 4
+    one live column. The expansion scores are ``blank_scores`` plus a blank
+    log-prob (multiples of 1/8, so that row 2's sums tie exactly); with
+    ``blank_lp`` they come apart, as ``blank_scores`` and ``blank_lp``."""
     g = _gen(seed)
     n_hash = n_hash or max(2, K // 2)
     pool = -20 * torch.rand(B, K, generator=g)
@@ -161,16 +166,31 @@ def merge_inputs(B, K, seed, dev, n_hash=None) -> Tensors:
     pool[0] = NEG
     blank = -20 * torch.rand(B, K, generator=g)
     blank[1::3, : max(1, K // 4)] = NEG
-    ints = lambda hi: torch.randint(0, hi, (B, K), generator=g, dtype=torch.int32).to(dev)
-    return dict(
-        pool_scores=pool.to(dev), blank_scores=blank.to(dev),
-        pool_hash=ints(n_hash) - n_hash // 2, exp_hash=ints(n_hash) - n_hash // 2,
-        pool_ver=ints(3), pool_slot=ints(K),
+    ints = lambda hi: torch.randint(0, hi, (B, K), generator=g, dtype=torch.int32)
+    pool_hash, exp_hash = ints(n_hash) - n_hash // 2, ints(n_hash) - n_hash // 2
+    lp = -torch.randint(0, 40, (B, K), generator=g).float() / 8
+    if B > 2:
+        pool[2], blank[2], lp[2] = -3.0, -2.0, -1.0
+        pool_hash[2], exp_hash[2] = torch.arange(K), torch.arange(K) + K // 2
+    if B > 3:
+        pool[3], blank[3] = NEG, NEG
+    if B > 4:
+        pool[4], blank[4] = NEG, NEG
+        blank[4, K // 2] = -1.5
+    out = dict(
+        pool_scores=pool.to(dev), blank_scores=(blank if blank_lp else blank + lp).to(dev),
+        pool_hash=pool_hash.to(dev), exp_hash=exp_hash.to(dev),
+        pool_ver=ints(3).to(dev), pool_slot=ints(K).to(dev),
     )
+    if blank_lp:
+        out["blank_lp"] = lp.to(dev)
+    return out
 
 
 def check_merge(a: Tensors, round_j=2) -> float:
-    """Exact integer outputs; scores within MERGE_RTOL of max(1, |score|)."""
+    """Exact integer outputs; scores within MERGE_RTOL of max(1, |score|).
+    With ``blank_lp`` in ``a`` the fused call must also equal, bit for bit,
+    the call on the pre-added scores (a second launch)."""
     before = dk.aes_merge.launches
     got = dk.aes_merge(**a, round_j=round_j)
     torch.cuda.synchronize()
@@ -180,6 +200,15 @@ def check_merge(a: Tensors, round_j=2) -> float:
         assert g.dtype == torch.int32 and torch.equal(g, w), "aes_merge: integer outputs differ"
     err = ((got[0] - want[0]).abs() / want[0].abs().clamp(min=1)).max().item()
     assert err <= MERGE_RTOL, f"aes_merge score error {err} > {MERGE_RTOL}"
+    if "blank_lp" in a:
+        pre = {k: v for k, v in a.items() if k != "blank_lp"}
+        pre["blank_scores"] = a["blank_scores"] + a["blank_lp"]
+        unfused = dk.aes_merge(**pre, round_j=round_j)
+        torch.cuda.synchronize()
+        assert dk.aes_merge.launches == before + 2
+        for g, u in zip(got, unfused):
+            assert torch.equal(g.view(torch.int32), u.view(torch.int32)), (
+                "aes_merge: the fused blank add differs from the pre-added call")
     return (got[0] - want[0]).abs().max().item()
 
 

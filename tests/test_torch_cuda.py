@@ -162,9 +162,17 @@ def test_lstm_step_reorder_kernel_at_tiling_edges(dev, B, K, H_, L, live):
     kc.check_lstm(a, B, K)
 
 
-@pytest.mark.parametrize("B,K", [(256, 10), (1, 1), (1, 4), (5, 20), (3, 40)])
+@pytest.mark.parametrize("B,K", [(256, 10), (1, 1), (1, 4), (5, 16), (5, 20), (3, 40)])
 def test_aes_merge_kernel_matches_plain_version(dev, B, K):
     kc.check_merge(kc.merge_inputs(B, K, seed=K, dev=dev))
+
+
+@pytest.mark.parametrize("B,K", [(256, 10), (1, 1), (1, 4), (5, 16), (5, 20)])
+def test_aes_merge_kernel_folds_the_blank_add(dev, B, K):
+    """With blank_lp: against the plain version, and bit for bit the call on
+    the pre-added scores (check_merge); ties, all-NEG_INF rows and a single
+    live column among the rows."""
+    kc.check_merge(kc.merge_inputs(B, K, seed=K + 1, dev=dev, blank_lp=True))
 
 
 @pytest.mark.parametrize(
@@ -194,6 +202,8 @@ def test_decode_kernels_reject_what_they_do_not_take(dev):
         dk.aes_merge(**dict(m, pool_scores=m["pool_scores"].double()), round_j=0)
     with pytest.raises(ValueError, match="pool_slot"):
         dk.aes_merge(**dict(m, pool_slot=m["pool_slot"][:, :3].contiguous()), round_j=0)
+    with pytest.raises(ValueError, match="blank_lp"):
+        dk.aes_merge(**m, round_j=0, blank_lp=m["pool_scores"].t())
     b = kc.backtrace_inputs(5, 2, 4, 2, V=16, seed=0, dev=dev)
     with pytest.raises(ValueError, match="n_exp"):
         dk.aes_backtrace(**b, n_exp=1)
@@ -345,6 +355,9 @@ def test_train_kernels_reject_what_they_do_not_take(dev):
         ([4321], 4321),  # B = 1, S not a multiple of the shift
         ([250], 250),  # S under one window: T = 1, no valid frame
         ([100080, 70000] * 3, 100080),  # serving length, several frame tiles
+        ([16161, 401, 9999], 16161),  # S odd, not a multiple of the shift
+        ([400], 400),  # n = W = S: one frame
+        ([164080] * 16, 164080),  # the PCM-fed train point
     ],
 )
 def test_fbank_kernel_matches_plain_version(dev, num_samples, S):
@@ -358,6 +371,15 @@ def test_fbank_kernel_at_40_bins(dev):
     from espresso_tpu_torch.ops import front_kernel_checks as fc
 
     fc.check_fbank(fc.waveform_inputs([16000, 8000], 16000, seed=1, dev=dev), num_mel_bins=40)
+
+
+@pytest.mark.parametrize(
+    "num_samples,S", [([100080, 399, 400, 51234], 100080), ([16161, 401], 16161)]
+)
+def test_fbank_kernel_at_40_bins_at_edge_shapes(dev, num_samples, S):
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+
+    fc.check_fbank(fc.waveform_inputs(num_samples, S, seed=S + 40, dev=dev), num_mel_bins=40)
 
 
 @pytest.mark.parametrize(
@@ -383,6 +405,8 @@ def test_front_kernels_reject_what_they_do_not_take(dev):
     wav = torch.zeros(2, 1000, device=dev)
     with pytest.raises(ValueError, match="num_samples"):
         fbank_fused(wav, torch.zeros(3, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="512-point"):
+        fbank_fused(wav, torch.zeros(2, dtype=torch.int32, device=dev), sample_rate=8000.0)
     x = torch.zeros(4, 32, device=dev)
     w = torch.zeros(8, 32, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="transposed"):

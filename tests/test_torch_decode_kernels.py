@@ -190,6 +190,40 @@ def test_aes_merge_matches_jax(K):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("K", [4, 20])
+def test_aes_merge_with_blank_lp_matches_the_pre_added_call_and_jax(K):
+    """``blank_lp=x`` adds x to the expansions' scores: bit for bit the call
+    on ``exp + x`` (one fp32 add, rounded once either way), and JAX's merge
+    given ``exp + x``. Equal scores and hashes shared within and across the
+    halves stress the stable order."""
+    B = 5
+    rng = np.random.default_rng(K + 100)
+    pool = rng.integers(-6, 0, (B, K)).astype(np.float32)
+    pool[:, K - 1] = NEG
+    pool[0] = NEG
+    exp = rng.integers(-6, 0, (B, K)).astype(np.float32) * np.float32(0.5)
+    blank = -rng.random((B, K)).astype(np.float32)
+    blank[1] = np.float32(-0.5)  # equal sums within the row
+    exp[2] = NEG  # only the pool survives
+    ints = dict(
+        pool_hash=rng.integers(-2, 3, (B, K)), exp_hash=rng.integers(-2, 3, (B, K)),
+        pool_ver=rng.integers(0, 3, (B, K)), pool_slot=rng.integers(0, K, (B, K)),
+    )
+    t = {k: torch.from_numpy(v.astype(np.int32)) for k, v in ints.items()}
+    j = {k: jnp.asarray(v, jnp.int32) for k, v in ints.items()}
+    fused = dk.aes_merge(torch.from_numpy(pool), torch.from_numpy(exp), round_j=2,
+                         blank_lp=torch.from_numpy(blank), **t)
+    added = torch.from_numpy(exp) + torch.from_numpy(blank)
+    plain = dk.aes_merge(torch.from_numpy(pool), added, round_j=2, **t)
+    for f, p in zip(fused, plain):
+        assert f.dtype == p.dtype and torch.equal(f, p)
+    want = jdk.aes_merge(jnp.asarray(pool), jnp.asarray(added.numpy()), round_j=2,
+                         interpret=True, **j)
+    np.testing.assert_allclose(fused[0].numpy(), np.asarray(want[0]), rtol=TOL, atol=TOL)
+    for g, w in zip(fused[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 @pytest.mark.parametrize("n_exp", [1, 2])
 def test_aes_backtrace_matches_jax(n_exp):
     T, B, K, V = 9, 3, 4, 50
