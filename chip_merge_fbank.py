@@ -1,5 +1,6 @@
-"""Time B8 (``aes_merge``) and B10 (``fbank``) on one NVIDIA H100, and count
-the device kernels of a profiled beam batch, in any checkout of the port.
+"""Time B8 (``aes_merge``), B9 (``aes_backtrace``) and B10 (``fbank``) on one
+NVIDIA H100, and count the device kernels of a profiled beam batch, in any
+checkout of the port.
 
     cd <checkout> && python3 <this repo>/chip_merge_fbank.py
 
@@ -13,6 +14,8 @@ timing helpers from the ``chip_smoke.py`` beside it. Prints one JSON line:
   the blank add and the call on its sum (``merge_unfused_host_us``, the
   beam decoder's call before the add was folded in) and, where the wrapper
   takes ``blank_lp``, for the call with it (``merge_host_us``);
+- B9's device ms a call (profiler, ``aes_backtrace_kernel``) at the
+  flagship beam batch's backtrace (T'=156, B=256, K=10, n_exp=2);
 - B10's device ms at the serving batch (B=256, S=100,080) and at the
   PCM-fed train point (B=16, S=164,080);
 - one flagship beam batch (B=256, T=624, beam 10) under the profiler after
@@ -65,6 +68,7 @@ def main() -> int:
     from espresso_tpu_torch.features import fbank_kernels as fk
     from espresso_tpu_torch.ops import decode_kernels as dk
     from espresso_tpu_torch.ops import front_kernel_checks as fc
+    from espresso_tpu_torch.ops import kernel_checks as kc
     from espresso_tpu_torch.ops.backend import require_cuda
 
     dev = require_cuda()
@@ -80,6 +84,11 @@ def main() -> int:
     hosts = cs.merge_host_us(dk, m)
     out["merge_unfused_host_us"] = hosts["unfused_host_us"]
     out["merge_host_us"] = hosts.get("host_us")
+
+    b = kc.backtrace_inputs(156, 256, 10, 2, V=cs.FLAGSHIP["VOCAB"], seed=156, dev=dev)
+    out["backtrace_ms"] = cs.device_ms(lambda: dk.aes_backtrace(**b, n_exp=2),
+                                       kernel="aes_backtrace_kernel", per_call=1)
+    del b
 
     S = (cs.FLAGSHIP["T_FRAMES"] - 1) * cs.SHIFT + cs.WINDOW
     a = fc.waveform_inputs(cs.serving_num_samples().tolist(), S, seed=0, dev=dev)

@@ -18,10 +18,13 @@ eleven Hopper kernels:
    L=1 to 3, every row dead or live; ``aes_merge`` at K=1 to 20 with
    dead slots, duplicate hashes, ties, all-NEG_INF rows and one live
    column, with the blank add folded in (bit for bit the call on the
-   pre-added scores) and without; ``aes_backtrace``; the train kernels
+   pre-added scores) and without; ``aes_backtrace`` bit for bit, at T'=1
+   to 1024 and K=1 to 33 with indices outside [0, K), inactive frames and
+   slots from-pool through every merge round; the train kernels
    ``rel_attention_train_fwd``/``_bwd`` at B=16, T'=256, at B=40 and at
    odd or short shapes (T'=1 included) with ragged key masks, at dropout 0
-   and 0.1 with one seed; ``rnnt_joint_lp``/``_bwd`` at B=16, T'=256,
+   and 0.1 with one seed, and the forward alone at its tiling edges up to
+   T'=1408; ``rnnt_joint_lp``/``_bwd`` at B=16, T'=256,
    U1=101, J=512, V=1024 and V=5003 with the blank in a later tile, ragged
    lengths, T'=1 and U=0; ``fbank`` at
    the 256-utterance serving batch as PCM and at edge sample counts (399,
@@ -30,8 +33,9 @@ eleven Hopper kernels:
    ``int8_matmul`` at the flagship FFN shapes over a serving batch's frames
    and a ragged one, bit for bit), and times kernel and plain version at
    the flagship shape (and, beside B5, B6 and B7, their products alone
-   through cuBLAS as a yardstick, beside B3 the backward of
-   ``scaled_dot_product_attention``, beside B10 cuFFT's ``rfft`` of the
+   through cuBLAS as a yardstick, beside B1 the forward of
+   ``scaled_dot_product_attention``, beside B2 its forward with dropout,
+   beside B3 its backward, beside B10 cuFFT's ``rfft`` of the
    valid frames alone; for B3 and B5 also every kernel the call runs and
    the split by kernel; for B8 the wrapper's host time a call);
 3. builds the flagship model (16 conformer layers, d=512, ffn 2048, 8 heads,
@@ -135,6 +139,11 @@ TRAIN = dict(B=16, T_FRAMES=1024, U=100, STEPS=10, DROPOUT=0.1)
 # ds exactly 0), and B=40 (dp summed over more utterances than at the
 # flagship)
 ATTN_TRAIN_SHAPES = [(16, 256), (3, 1), (3, 2), (3, 37), (40, 64)]
+# the train forward's tiling edges beside them (64-row query and key tiles,
+# scores and e in registers for three key tiles, shared score rows
+# past them, up to the longest T' it takes), the last utterance with one
+# valid key: the forward alone, at dropout 0 and 0.1
+ATTN_TRAIN_FWD_EDGES = [(3, 63), (3, 64), (3, 65), (3, 129), (3, 192), (3, 193), (2, 1408)]
 # (B, T', U, V, blank): the flagship, V=5003 with the blank in the third
 # 64-column tile, a small ragged edge, T'=1, and U=0 (U1=1); then V=67 and
 # V=5003 with the blank in the last column, an odd number of 64-row tiles
@@ -172,6 +181,11 @@ QUANT_NOISE_P = 0.1
 # B8's (B, K): the flagship, then one column, one beam, 16 beams (32
 # columns, a lane each), 20 beams (40 columns: lanes take two)
 MERGE_SHAPES = [(256, 10), (1, 1), (1, 4), (5, 16), (5, 20)]
+# B9's edges beside the flagship: (T', K) from one frame to more than one
+# chunk of staged frames and from one beam to past a warp of walkers, each
+# at B=5 with order/msrc/esrc entries outside [0, K), inactive frames inside
+# a length and slots from-pool through every merge round
+BACKTRACE_EDGES = [(T, K) for T in (1, 37, 156, 1024) for K in (1, 4, 10, 20, 33)]
 # B10's edge sample counts and lengths (n, S): under one window, exactly
 # one, S not a multiple of the shift, S odd, B = 1, the PCM-fed train point
 FBANK_EDGES = [([399, 400, 16000], 16000), ([250], 250), ([4321], 4321),
@@ -264,9 +278,11 @@ def device_ms(fn, calls: int = 20, kernel: str = "", per_call=None) -> float:
     return ms
 
 
-def device_split(fn, calls: int = 10) -> dict:
+def device_split(fn, calls: int = 10, per_launch: bool = False) -> dict:
     """Device ms per call of ``fn`` by CUDA kernel name (every kernel the
-    call runs, its launches included), from one ``torch.profiler`` trace."""
+    call runs, its launches included), from one ``torch.profiler`` trace;
+    with ``per_launch``, the mean ms of one launch of each kernel instead,
+    which a trace that dropped some launches' records does not bias."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -277,7 +293,8 @@ def device_split(fn, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
+    return {e.key: e.self_device_time_total / (e.count if per_launch else calls) / 1e3
+            for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
@@ -307,16 +324,16 @@ def rnnt_lp_cublas_ms(B: int, T: int, U1: int, J: int, V: int, dev) -> float:
     return ms
 
 
-def sdpa_fwd_ms(B: int, T: int, heads: int, d: int, dev) -> float:
-    """A yardstick for B1, not the same function (no relative positions):
-    the device time of ``scaled_dot_product_attention``'s forward at B1's
-    shape."""
+def sdpa_fwd_ms(B: int, T: int, heads: int, d: int, dev, rate: float = 0.0) -> float:
+    """A yardstick for B1 (and, with dropout ``rate``, for B2), not the same
+    function (no relative positions): the device time of
+    ``scaled_dot_product_attention``'s forward at the kernel's shape."""
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn(B, heads, T, d, generator=g, device=dev, dtype=torch.bfloat16)
                for _ in range(3))
-    return device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    return device_ms(lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate))
 
 
 def sdpa_bwd_ms(B: int, T: int, heads: int, d: int, rate: float, dev) -> float:
@@ -438,7 +455,7 @@ def check_attention(dev) -> dict:
             row["bound_ms"], row["bound_by"] = bound(n_bytes, 6 * B * T * T * D, PEAK_BF16)
             row.update(time_pair(
                 "rel_attention", lambda: rel_attention(*args),
-                lambda: rel_attention_reference(*args), "rel_attention_kernel",
+                lambda: rel_attention_reference(*args), "rel_attention_kernel", per_call=1,
             ))
             # a yardstick of the order of size, not the same function:
             # scaled_dot_product_attention's forward, which has no relative
@@ -531,17 +548,23 @@ def check_decode_kernels(dev) -> dict:
     # aes_backtrace
     for Tx, Bx, Kx, nx in [(T, B, K, n_exp), (1, 1, 1, 1), (37, 3, 4, 1)]:
         kc.check_backtrace(kc.backtrace_inputs(Tx, Bx, Kx, nx, V=V, seed=Tx, dev=dev), nx)
-    log("aes_backtrace: outputs exact at every shape")
+    for Tx, Kx in BACKTRACE_EDGES:
+        kc.check_backtrace(
+            kc.backtrace_inputs(Tx, 5, Kx, n_exp, V=V, seed=Tx + Kx, dev=dev, edges=True), n_exp)
+    log(f"aes_backtrace: outputs exact at every shape ({3 + len(BACKTRACE_EDGES)})")
     b = kc.backtrace_inputs(T, B, K, n_exp, V=V, seed=T, dev=dev)
     R, E = n_exp + 1, n_exp
-    # every input read once, both outputs written once, 4 bytes each; the
-    # walk does no arithmetic beyond integer compares
-    n_bytes = (T * B + 2 * T * R * B * K + 2 * T * E * B * K + B * K + 2 * T * E * B * K) * 4
+    # what these inputs need moved, 4 bytes an int: active and order read
+    # once, the backpointers of the active frames only (an inactive frame
+    # passes every slot through whatever they hold), both outputs written
+    # once; the walk does no arithmetic beyond integer compares
+    n_active = int(b["active"].sum())
+    n_bytes = (T * B + B * K + n_active * (2 * R + 2 * E) * K + 2 * T * E * B * K) * 4
     row = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, 0.0, PEAK_FP32)))
     row.update(time_pair(
         "aes_backtrace", lambda: dk.aes_backtrace(**b, n_exp=n_exp),
         lambda: dk.aes_backtrace_reference(**b, n_exp=n_exp), "aes_backtrace_kernel",
-        plain_calls=2,
+        plain_calls=2, per_call=1,
     ))
     rows["aes_backtrace"] = dict(row, max_abs_err=0.0)
     for name, r in rows.items():
@@ -568,6 +591,13 @@ def check_train_kernels(dev) -> dict:
             log(f"rel_attention_train B={B} T'={T} rate {rate}: max_abs_err {errs}")
             fwd_err = max(fwd_err, errs["out"])
             bwd_err = max(bwd_err, *(v for k, v in errs.items() if k != "out"))
+    for B, T in ATTN_TRAIN_FWD_EDGES:
+        a = tc.attention_train_inputs(B, T, seed=T + 2 * B, dev=dev)
+        a["key_valid"][-1] = torch.arange(T, device=dev) < 1
+        for rate in (0.0, 0.1):
+            err = tc.check_attention_train_fwd(a, H, rate)
+            log(f"rel_attention_train_fwd B={B} T'={T} rate {rate}: max_abs_err {err}")
+            fwd_err = max(fwd_err, err)
     B, T = ATTN_TRAIN_SHAPES[0]
     a = tc.attention_train_inputs(B, T, seed=T, dev=dev)
     args = (a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"])
@@ -580,8 +610,14 @@ def check_train_kernels(dev) -> dict:
         "rel_attention_train_fwd",
         lambda: ak.rel_attention_train_fwd(*args, a["seed"], H, scale, rate),
         lambda: ak.rel_attention_train_reference(*args, H, scale, rate, a["seed"]),
-        "rel_attention_train_fwd_kernel",
+        "rel_attention_train_fwd_kernel", per_call=1,
     ))
+    # a yardstick of the order of size, not the same function:
+    # scaled_dot_product_attention's forward with the same dropout rate,
+    # which has no relative positions
+    row["sdpa_fwd_dropout_ms"] = sdpa_fwd_ms(B, T, H, D // H, dev, rate)
+    log(f"rel_attention_train_fwd flagship: sdpa forward with dropout {rate} "
+        f"{row['sdpa_fwd_dropout_ms']} ms device")
     rows["rel_attention_train_fwd"] = dict(row, max_abs_err=fwd_err)
     # backward: the five inputs and g read, dq_u, dq_v, dk, dv written (bf16),
     # dp (f32); recomputed ac and bd, then dv, dw, dq_u, dk, dq_v and dp
@@ -1624,10 +1660,11 @@ def main() -> int:
             "library_ms": None,
             # yardsticks, not library calls for the function: B4's, B5's, B6's
             # and B7's products alone through cuBLAS, scaled_dot_product_attention's
-            # forward beside B1 and backward beside B3, cuFFT's rfft beside B10;
-            # B3's and B5's whole device time a call, B10 at the train point,
-            # B8's wrapper host time a call
-            **{k: r[k] for k in ("cublas_products_ms", "sdpa_fwd_ms", "sdpa_bwd_ms",
+            # forward beside B1, with dropout beside B2 and backward beside B3,
+            # cuFFT's rfft beside B10; B3's and B5's whole device time a call,
+            # B10 at the train point, B8's wrapper host time a call
+            **{k: r[k] for k in ("cublas_products_ms", "sdpa_fwd_ms", "sdpa_fwd_dropout_ms",
+                                 "sdpa_bwd_ms",
                                  "ms_all_kernels", "cufft_ms", "train_ms", "train_bound_ms",
                                  "host_us", "unfused_host_us") if k in r},
             **extra,

@@ -1,23 +1,25 @@
-"""Time the two train-step kernels B5 (``rnnt_joint_bwd``) and B3 (the
-``rel_attention_train`` backward) on one NVIDIA H100, kernel by kernel.
+"""Time the train-step kernels B5 (``rnnt_joint_bwd``), B3 (the
+``rel_attention_train`` backward) and B2 (its forward) on one NVIDIA H100,
+kernel by kernel.
 
     cd <checkout> && python3 <this repo>/chip_train_kernels.py [--yardsticks]
 
 Imports ``espresso_tpu_torch`` from the current directory, so the same script
 times any checkout of the port (a parent unpacked by ``git archive`` beside
 the change), and the timing helpers from the ``chip_smoke.py`` beside it. At
-the flagship train shapes (B5: B=16, T'=256, U1=101, J=512, V=1024; B3:
-B=16, T'=256, H=8, d=64, dropout 0.1) it prints, per kernel, one JSON line:
+the flagship train shapes (B5: B=16, T'=256, U1=101, J=512, V=1024; B3 and
+B2: B=16, T'=256, H=8, d=64, dropout 0.1) it prints, per kernel, one JSON
+line:
 the device ms per call of the kernels whose names carry the wrapper's name
 (``ms``, the filter ``chip_smoke.py`` uses), of every kernel the call runs
 (``ms_all``, the wrapper's own ``torch`` allocations and fills included),
 CUDA-event ms of back-to-back calls (``ms_events``), and the split by
 kernel name; with ``--yardsticks`` also cuBLAS's time for B5's three
 products alone and ``scaled_dot_product_attention``'s backward at B3's
-shape. With ``--train-step`` it times the flagship train step instead
-(``chip_smoke.run_train``: 10 steps after a warm-up, host clock, then a
-profiled step), so that repeated runs of two checkouts in turns resolve
-the step's spread. Then the card's name and power limit. Exits nonzero
+shape and its forward with the same dropout at B2's. With ``--train-step``
+it times the flagship train step instead (``chip_smoke.run_train``: 10
+steps after a warm-up, host clock, then a profiled step), so that repeated
+runs of two checkouts in turns resolve the step's spread. Then the card's name and power limit. Exits nonzero
 without a card.
 """
 
@@ -90,6 +92,11 @@ def main() -> int:
     report("rel_attention_train_bwd",
            lambda: ak.rel_attention_train_bwd(*args, a["seed"], a["g"], H, ak.HEAD_DIM ** -0.5, rate),
            "rel_attention_train_bwd", **extra)
+    extra = ({"sdpa_fwd_dropout_ms": cs.sdpa_fwd_ms(B, T, H, ak.HEAD_DIM, dev, rate)}
+             if yardsticks else {})
+    report("rel_attention_train_fwd",
+           lambda: ak.rel_attention_train_fwd(*args, a["seed"], H, ak.HEAD_DIM ** -0.5, rate),
+           "rel_attention_train_fwd", **extra)
     print(cs.card_line())
     return 0
 

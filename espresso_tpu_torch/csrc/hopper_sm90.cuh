@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
-// (lstm_step_reorder.cu, fused_joint_topk.cu, rnnt_joint_bwd.cu and the
-// backward of rel_attention_train.cu): shared-memory addresses, mbarriers
+// (lstm_step_reorder.cu, fused_joint_topk.cu, rnnt_joint_lp.cu,
+// rnnt_joint_bwd.cu, aes_backtrace.cu, rel_attention.cu and
+// rel_attention_train.cu, the last two through rel_attention_fwd.cuh):
+// shared-memory addresses, mbarriers
 // (local and across a thread-block cluster), TMA tile loads (2-D and 3-D)
 // and their tensor maps, cp.async with zero fill, wgmma descriptors for
 // K-major and MN-major tiles in the 128-byte swizzle and the bf16 m64nNk16

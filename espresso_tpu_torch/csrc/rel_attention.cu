@@ -25,42 +25,16 @@
 // is a chain of dependent steps, so latency and the SM's issue slots come
 // first in practice.
 //
-// Design: a block is one warpgroup and owns 64 query rows of one (b, h)
-// (grid: query tiles x H x B, the query tiles of a head side by side so
-// that its K, V and p rows come from L2 after the first); three blocks share
-// an SM (168 registers, ~75 KB of shared memory at T' = 156). Its thread 0
-// brings every operand tile by TMA: q+u and q+v once, then per key tile K
-// and the 128-row p window into a ring of two stages guarded by mbarriers,
-// then the V tiles, three to a stage, so that the next tile's loads run
-// under this tile's work and the V tiles arrive during the softmax. The
-// maps (built by the C entry) are 3-D over [D, T, B] for q+u, q+v, k and v,
-// so that a 64-row box of one head never reaches into the next utterance
-// and reads zeros past T, and 2-D over [D, 2T-1] for p, zeros outside the
-// table (as the training backward's, ops/attention_kernels.py::
-// train_bwd_tmap_specs). Per key tile:
-//   - ac = (q+u) K^T on wgmma m64n64k16, rounded to bf16 pairs, then the
-//     window BD = (q+v) p_win^T [64 q][128 j'] on wgmma m64n128k16 (one after
-//     the other: at most 64 accumulator registers in flight);
-//   - BD is written bf16 over the stage's K and p window, rows 136 wide and
-//     not swizzled, so that every skewed read bd[q, k] = BD[q, k - q + 63]
-//     is one load at a constant offset from the lane's row; a row of BD is
-//     written and read by the one warp that owns that query row;
-//   - s by packed bf16x2 arithmetic (an f32 sum or product of two bf16
-//     values rounds to bf16 as the bf16x2 instruction does), x = s + mask in
-//     f32 (-inf past T) and the row maximum, from registers;
-//   - the first two key tiles keep x in registers; later tiles store s in
-//     shared memory (bf16, 64 rows), and the third is read back once the
-//     scores are done.
-// Then e = exp(x - max) once for the first three key tiles (kept in
-// registers) with z, and w = bf16(e * (1/z)) formed directly as the A
-// fragments of the PV product (wgmma m64n64k16, A from registers, V read
-// MN-major from the ring), a stage's products in one commit group. A tile
-// past the third computes its exp twice (for z and for w). e * (1/z) is
-// within an f32 ulp of e / z before the bf16 rounding. A warp whose 16 rows
-// all lie past T, and the upper 32 keys of a tile when they lie past T,
-// skip their scalar work and exps; 16 keys past T skip their PV step. No
-// epilogue reads wgmma's registers in a divergent branch (ptxas would
-// serialise every wgmma): the output is stored through a predicate.
+// Design (the block body lives in rel_attention_fwd.cuh, shared with the
+// training forward, which adds its dropout where w is formed): a block is
+// one warpgroup and owns 64 query rows of one (b, h) (grid: query tiles x H
+// x B, the query tiles of a head side by side so that its K, V and p rows
+// come from L2 after the first); three blocks share an SM (168 registers,
+// ~75 KB of shared memory at T' = 156). A two-stage TMA ring brings {K, p
+// window} per key tile, then the V tiles three to a stage; ac, the bd window
+// and PV run on wgmma; the bd window is read skewed from shared memory; the
+// first two key tiles keep their scores in registers and the first three
+// their e (NR = 2, NE = 3).
 //
 // What holds it back (chip_kernel_ablation.py on an H100 at the flagship,
 // ~0.18 ms in all): the scores' scalar work (~0.08 ms), the bd window's
@@ -72,364 +46,19 @@
 // C entry: rel_attention_bf16(...) returns the CUDA error of the launch; it
 // launches on the given stream and does not synchronise.
 
-#include "hopper_sm90.cuh"
-#include <math.h>
+#include "rel_attention_fwd.cuh"
 
 namespace {
 
-using namespace sm90;
+using namespace relattn;
 
-constexpr int TILE = 64;            // query rows a block, keys a tile, the head width
-constexpr int BOX = TILE * 128;     // a [64 x 64] bf16 tile, 128-byte swizzled (8 KB)
-constexpr int THREADS = 128;        // one warpgroup
-constexpr int S = 2;                // ring stages: {K, p window} of a key tile, or VG V tiles
-constexpr int NR = 2;               // key tiles whose scores stay in registers
-constexpr int VG = 3;               // V tiles a ring stage; also the key tiles whose e
-                                    // stays in registers once the scores are done
-static_assert(NR <= VG, "e of the first VG key tiles in registers");
-constexpr int WLD = 2 * TILE + 8;   // bf16 row stride of the [64 q][128 j'] bd window
-constexpr float kMaskFill = -1.0e8f;
-
-__host__ __device__ inline int padded_len(int T) { return (T + TILE - 1) / TILE * TILE; }
-
-// bf16 row stride of the shared score rows of the key tiles past NR (0: none)
-__host__ __device__ inline int tail_ld(int T) {
-  const int n = padded_len(T) - NR * TILE;
-  return n > 0 ? n + 8 : 0;
-}
-
-// the operands: q+u, q+v, k, v as [D, T, B] (box 64 x 64 x 1) and p as
-// [D, 2T-1] (box 64 x 64)
-struct Maps {
-  CUtensorMap qu, qv, k, v, p;
-};
-
-struct Layout {
-  static constexpr uint32_t qu = 0, qv = BOX;
-  static constexpr uint32_t ring = 2 * BOX;       // S x {K or V, p window (2 boxes)}
-  static constexpr uint32_t stage = 3 * BOX;
-  static constexpr uint32_t bars = ring + S * stage;  // q, full[S]
-  static constexpr uint32_t mask = bars + 64;         // [Tp] f32, then the tail scores
-};
-
-__host__ inline size_t smem_bytes(int T) {
-  return 1024 + Layout::mask + sizeof(float) * padded_len(T) +
-         sizeof(bf16) * (size_t)TILE * tail_ld(T);
-}
-
-static_assert(TILE * WLD * 2 <= 3 * BOX, "the bd window fits in a stage");
-
-// the softmax's e of a score x + mask under the row maximum m
-__device__ inline float e_of(float x, float m) { return expf(x - m); }
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+constexpr int NR = 2;  // key tiles whose scores stay in registers
+constexpr int NE = 3;  // key tiles whose e stays in registers once the scores are done
 
 __global__ void __launch_bounds__(THREADS, 3)
 rel_attention_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ key_valid,
                      bf16* __restrict__ out, int T, int H, float scale_f) {
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  uint8_t* smem = smem_raw + (base - raw);
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + Layout::bars);
-  uint64_t* full = qbar + 1;
-  float* mask = reinterpret_cast<float*>(smem + Layout::mask);
-  const int Tp = padded_len(T), nk = Tp / TILE, D = H * TILE, LDT = tail_ld(T);
-  bf16* tail = reinterpret_cast<bf16*>(mask + Tp);  // [64][LDT]: s of key tiles NR..
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int t = threadIdx.x;
-
-  // load `it` of the ring: {K, p window} of key tile it, then the V tiles,
-  // VG a stage (V tile kt in box kt % VG of load nk + kt / VG)
-  const int nit = nk + (nk + VG - 1) / VG;
-  auto refill = [&](int it) {
-    if (it >= nit) return;
-    const int slot = it % S;
-    const uint32_t st = base + Layout::ring + slot * Layout::stage;
-    if (it < nk) {
-      const int k0 = it * TILE;
-      // window row j' <-> relative position T - 1 + k0 - q0 - 63 + j'
-      const int j0 = T - 1 + k0 - q0 - (TILE - 1);
-      mbar_arrive_expect_tx(&full[slot], 3 * BOX);
-      tma_load_3d(st, &maps.k, &full[slot], h * TILE, k0, b);
-      tma_load_2d(st + BOX, &maps.p, &full[slot], h * TILE, j0);
-      tma_load_2d(st + 2 * BOX, &maps.p, &full[slot], h * TILE, j0 + TILE);
-    } else {
-      const int kt0 = VG * (it - nk), n = nk - kt0 < VG ? nk - kt0 : VG;
-      mbar_arrive_expect_tx(&full[slot], n * BOX);
-      for (int i = 0; i < n; ++i)
-        tma_load_3d(st + i * BOX, &maps.v, &full[slot], h * TILE, (kt0 + i) * TILE, b);
-    }
-  };
-  if (t == 0) {
-    mbar_init(qbar, 1);
-    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
-    fence_barrier_init();
-    mbar_arrive_expect_tx(qbar, 2 * BOX);
-    tma_load_3d(base + Layout::qu, &maps.qu, qbar, h * TILE, q0, b);
-    tma_load_3d(base + Layout::qv, &maps.qv, qbar, h * TILE, q0, b);
-    for (int it = 0; it < S; ++it) refill(it);
-  }
-  // additive key mask; -inf past T, so that padded keys add nothing
-  for (int k = t; k < Tp; k += THREADS)
-    mask[k] = k < T ? (key_valid[(size_t)b * T + k] ? 0.f : kMaskFill) : -INFINITY;
-  __syncthreads();
-
-  // the lane's accumulator rows qr[hh] = 16 warp + g + 8 hh, columns 8 j + 2 q
-  const int warp = t / 32, g = (t % 32) / 4, q = t % 4;
-  const int qr[2] = {16 * warp + g, 16 * warp + g + 8};
-  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale_f);
-  float mx[2] = {-INFINITY, -INFINITY};
-  mbar_wait(qbar, 0);
-
-  // a warp whose 16 query rows all lie past T skips its scalar work (it
-  // still takes part in the products and barriers)
-  const bool live = q0 + 16 * warp < T;
-
-  // key tile kt: x[4 j + 2 hh + e] = s + mask of row qr[hh], key 64 kt + 8 j +
-  // 2 q + e, and the row maxima; with `to_tail`, s also goes to the shared
-  // score rows. The products run one after the other, ac rounded to bf16
-  // pairs before bd's starts, so that at most 64 accumulator registers are
-  // in flight. The stage of tile kt - 1 goes back to TMA once every warp is
-  // past this tile's products.
-  auto score_tile = [&](int kt, float (&x)[32], bool to_tail) {
-    const int slot = kt % S;
-    const uint32_t st = base + Layout::ring + slot * Layout::stage;
-    mbar_wait(&full[slot], (kt / S) & 1);
-    __nv_bfloat162 acp[16];  // bf16(ac) of rows qr[hh], columns 8 j + 2 q (+1): [2 j + hh]
-    {
-      float ac[32];
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        wgmma_ss_n64<0, 0>(ac, wgmma_desc(base + Layout::qu + 32 * k), wgmma_desc(st + 32 * k),
-                           k > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int i = 0; i < 16; ++i) acp[i] = __floats2bfloat162_rn(ac[2 * i], ac[2 * i + 1]);
-    }
-    float bd[64];
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      wgmma_ss_n128<0, 0>(bd, wgmma_desc(base + Layout::qv + 32 * k),
-                          wgmma_desc(st + BOX + 32 * k), k > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    named_sync(1, THREADS);  // K and the p window are read; so is tile kt - 1's bd window
-    if (t == 0 && kt > 0) refill(kt - 1 + S);
-    // BD (bf16, rows WLD apart, not swizzled: every access below is one
-    // load or store at a constant offset from the lane's row) over the
-    // stage's K and p window: rows qr, columns 8 j + 2 q (+1)
-    bf16* win = reinterpret_cast<bf16*>(smem + (st - base));
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<uint32_t*>(win + qr[hh] * WLD + 8 * j + 2 * q) =
-            pack_bf16(bd[4 * j + 2 * hh], bd[4 * j + 2 * hh + 1]);
-    __syncwarp();  // a row of the window is written and read by one warp
-    // the upper 32 keys of a tile that lie past T: x = -inf without the work
-    const bool upper = kt * TILE + TILE / 2 < T;
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * q;
-        if (j >= 4 && !upper) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) x[4 * j + e] = -INFINITY;
-          continue;
-        }
-        const float2 mk = *reinterpret_cast<const float2*>(mask + kt * TILE + c);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          // bd[q, k] = BD[q, k - q + 63]
-          const bf16* bdr = win + qr[hh] * WLD + c - qr[hh] + TILE - 1;
-          __nv_bfloat162 bdp;
-          bdp.x = bdr[0];
-          bdp.y = bdr[1];
-          const __nv_bfloat162 sp = __hmul2(__hadd2(acp[2 * j + hh], bdp), scale2);
-          if (to_tail)
-            *reinterpret_cast<__nv_bfloat162*>(tail + qr[hh] * LDT + (kt - NR) * TILE + c) = sp;
-          const float x0 = __low2float(sp) + mk.x, x1 = __high2float(sp) + mk.y;
-          x[4 * j + 2 * hh] = x0;
-          x[4 * j + 2 * hh + 1] = x1;
-          mx[hh] = fmaxf(mx[hh], fmaxf(x0, x1));
-        }
-      }
-    }
-    // the window's generic writes, before TMA overwrites the stage
-    fence_proxy_async();
-  };
-
-  // ---- scores
-  float xr[VG][32];  // x, then e: tiles 0 .. NR - 1 from the scores, NR .. VG - 1 read back
-#pragma unroll
-  for (int kt = 0; kt < NR; ++kt)
-    if (kt < nk) score_tile(kt, xr[kt], false);
-  for (int kt = NR; kt < nk; ++kt) {
-    float x[32];
-    score_tile(kt, x, true);
-  }
-  named_sync(1, THREADS);  // every warp is done with the last key tile's stage
-  if (t == 0) refill(nk - 1 + S);
-
-  // ---- softmax over the full row: max and sum over the 4 lanes of a row.
-  // e is formed once and kept in registers for the first VG key tiles (tile
-  // NR's s is read back from the shared rows, the lane's own elements);
-  // tiles past them form it again for w. A key past T has x = -inf, so e =
-  // 0; a warp whose rows all lie past T skips the exps.
-  float zinv[2];
-  {
-    float z[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-    }
-#pragma unroll
-    for (int kt = NR; kt < VG; ++kt)
-      if (kt < nk && live) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = 8 * j + 2 * q;
-          const float2 mk = *reinterpret_cast<const float2*>(mask + kt * TILE + c);
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const __nv_bfloat162 sp = *reinterpret_cast<const __nv_bfloat162*>(
-                tail + qr[hh] * LDT + (kt - NR) * TILE + c);
-            xr[kt][4 * j + 2 * hh] = __low2float(sp) + mk.x;
-            xr[kt][4 * j + 2 * hh + 1] = __high2float(sp) + mk.y;
-          }
-        }
-      }
-    if (live) {
-#pragma unroll
-      for (int kt = 0; kt < VG; ++kt)
-        if (kt < nk) {
-          // the upper 32 keys of the tile, when they lie past T, hold e = 0
-          const bool upper = kt * TILE + TILE / 2 < T;
-#pragma unroll
-          for (int i = 0; i < 16; ++i) {
-            const int hh = (i >> 1) & 1;
-            xr[kt][i] = e_of(xr[kt][i], mx[hh]);
-            z[hh] += xr[kt][i];
-          }
-          if (upper) {
-#pragma unroll
-            for (int i = 16; i < 32; ++i) {
-              const int hh = (i >> 1) & 1;
-              xr[kt][i] = e_of(xr[kt][i], mx[hh]);
-              z[hh] += xr[kt][i];
-            }
-          } else {
-#pragma unroll
-            for (int i = 16; i < 32; ++i) xr[kt][i] = 0.f;
-          }
-        }
-    } else {
-#pragma unroll
-      for (int kt = 0; kt < VG; ++kt)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) xr[kt][i] = 0.f;
-    }
-    for (int kt = VG; kt < nk; ++kt)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * q;
-        if (!live || kt * TILE + 8 * j >= T) continue;
-        const float2 mk = *reinterpret_cast<const float2*>(mask + kt * TILE + c);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const __nv_bfloat162 sp = *reinterpret_cast<const __nv_bfloat162*>(
-              tail + qr[hh] * LDT + (kt - NR) * TILE + c);
-          z[hh] += e_of(__low2float(sp) + mk.x, mx[hh]) + e_of(__high2float(sp) + mk.y, mx[hh]);
-        }
-      }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      z[hh] += __shfl_xor_sync(0xffffffffu, z[hh], 1);
-      z[hh] += __shfl_xor_sync(0xffffffffu, z[hh], 2);
-      zinv[hh] = 1.f / z[hh];
-    }
-  }
-
-  // ---- out = w v, w = bf16(e / z) as wgmma's A fragments (the k16 step kk
-  // of a tile is its n8 blocks 2 kk and 2 kk + 1: rows g, g + 8 x columns
-  // 2 q, 2 q + 1 and 2 q + 8, 2 q + 9). Each ring stage holds VG V tiles:
-  // their products go out tile by tile, as each tile's fragments are formed,
-  // in one commit group (B = V tile kt [64 keys][64], MN-major; 16 keys
-  // past T are not run).
-  float o[32];
-  auto pv_issue = [&](uint32_t vtile, int kt, const uint32_t (&a)[4][4]) {
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      if (kt * TILE + 16 * kk < T)
-        wgmma_rs_n64<1>(o, a[kk], wgmma_desc_mn(vtile + 2048 * kk, BOX), kt > 0 || kk > 0);
-  };
-  auto pv_done = [&](int it) {
-    wgmma_commit();
-    wgmma_wait<0>();
-    named_sync(1, THREADS);  // every warp's products are done with the stage
-    if (t == 0) refill(it + S);
-  };
-  for (int it = nk; it < nit; ++it) {
-    const int slot = it % S;
-    const uint32_t st = base + Layout::ring + slot * Layout::stage;
-    mbar_wait(&full[slot], (it / S) & 1);
-    uint32_t a[VG][4][4];
-    if (it == nk) {  // the first VG key tiles: e in registers
-#pragma unroll
-      for (int kt = 0; kt < VG; ++kt) {
-        if (kt >= nk) break;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int i = 8 * kk + 2 * r;
-            a[kt][kk][r] = pack_bf16(xr[kt][i] * zinv[r & 1], xr[kt][i + 1] * zinv[r & 1]);
-          }
-        pv_issue(st + kt * BOX, kt, a[kt]);
-      }
-    } else {  // later key tiles: e again from the shared scores
-#pragma unroll
-      for (int i = 0; i < VG; ++i) {
-        const int kt = VG * (it - nk) + i;
-        if (kt >= nk) break;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          if (kt * TILE + 16 * kk >= T) continue;  // not run
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int hh = r & 1, c = 16 * kk + 2 * q + 8 * (r >> 1);
-            const float2 mk = *reinterpret_cast<const float2*>(mask + kt * TILE + c);
-            const __nv_bfloat162 sp = *reinterpret_cast<const __nv_bfloat162*>(
-                tail + qr[hh] * LDT + (kt - NR) * TILE + c);
-            a[i][kk][r] = pack_bf16(e_of(__low2float(sp) + mk.x, mx[hh]) * zinv[hh],
-                                    e_of(__high2float(sp) + mk.y, mx[hh]) * zinv[hh]);
-          }
-        }
-        pv_issue(st + i * BOX, kt, a[i]);
-      }
-    }
-    pv_done(it);
-  }
-
-  // rows past T are not stored (a predicate, not a branch over o)
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int qq = q0 + qr[hh];
-    const bool ok = qq < T;
-    bf16* orow = out + ((size_t)b * T + (ok ? qq : 0)) * D + h * TILE + 2 * q;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      st_global_if(orow + 8 * j, pack_bf16(o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]), ok);
-  }
+  attention_block<NR, NE>(maps, key_valid, out, T, H, scale_f, KeepAll{});
 }
 
 }  // namespace
@@ -450,22 +79,10 @@ int rel_attention_bf16(const void* q_u, const void* q_v, const void* k, const vo
   // PyTorch's: select the tensors' card explicitly
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int D = H * TILE;
   Maps maps;
-  {
-    const uint64_t dims[3] = {(uint64_t)D, (uint64_t)T, (uint64_t)B};
-    const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)T * D * 2};
-    const uint32_t box[3] = {64, TILE, 1};
-    CUtensorMap* dst[4] = {&maps.qu, &maps.qv, &maps.k, &maps.v};
-    const void* src[4] = {q_u, q_v, k, v};
-    for (int i = 0; i < 4; ++i) {
-      const int rc = encode_tmap_bf16_nd(dst[i], src[i], 3, dims, strides, box);
-      if (rc != 0) return rc;
-    }
-    const int rc = encode_tmap_bf16(&maps.p, p, (uint64_t)(2 * T - 1), (uint64_t)D, TILE);
-    if (rc != 0) return rc;
-  }
-  const size_t smem = smem_bytes(T);
+  const int rc = encode_maps(&maps, q_u, q_v, k, v, p, B, T, H);
+  if (rc != 0) return rc;
+  const size_t smem = smem_bytes<NR>(T);
   err = cudaFuncSetAttribute(rel_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;

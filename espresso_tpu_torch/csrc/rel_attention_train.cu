@@ -26,11 +26,30 @@
 // p) and does ~3.2 GFLOP, the backward ~39 MB and ~8.6 GFLOP: both below
 // the card's bf16 ridge, so memory traffic bounds them (~6.4 and ~11.7 us).
 //
-// Forward: the inference kernel (rel_attention.cu) with the hash applied
-// where w is formed: a block owns 64 query rows of one (b, h) (4 warps of
-// 16), keeps their bf16 score rows in shared memory, and runs ac, the [16,
-// 80] window product of the relative shift, and PV on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate).
+// Forward: the inference kernel's block (rel_attention_fwd.cuh, shared with
+// rel_attention.cu) with the dropout applied once per element where w is
+// formed, as the A fragments of the PV product: w_used = bf16(e * (1/z) *
+// keep/(1-rate)), the keep draw imix(row ^ k kKeyMul) of the row's hash
+// state (formed once per row) and the key. A block is one warpgroup over 64
+// query rows of one (b, h); its thread 0 feeds a two-stage TMA ring of {K,
+// 128-row p window} per key tile, then the V tiles three to a stage (the
+// tensor maps of the inference kernel: 3-D over [D, T, B], 2-D over
+// [D, 2T-1]); ac on wgmma m64n64k16, the bd window on m64n128k16, read
+// skewed from shared memory (bd[q, k] = BD[q, k - q + 63]); s by bf16x2
+// arithmetic; the whole-row f32 softmax; PV on m64n64k16 with A from
+// registers. Sized for the train shape (B=16, T'=256, H=8: 512 blocks of 4
+// key tiles): two blocks share an SM (at most 255 registers a thread), so
+// the first three key tiles keep their scores and their e in registers
+// (FWD_NR = FWD_NE = 3; only the fourth tile's scores pass through shared
+// memory, and its exp is formed twice). Keeping the fourth tile's e too
+// (FWD_NE = 4) took 255 registers with spills and was 1-3 us slower at the
+// train shape, and two tiles' scores (FWD_NR = 2, B1's) no faster
+// (chip_kernel_ablation.py; PERF.md). Past T' = 192 the shared memory grows
+// by 64 bf16 scores a key (~75 KB a block at T' = 256); the kernel takes
+// T' <= 1408 (the wrapper raises above it). What holds it back
+// (chip_kernel_ablation.py, H100, the train shape, ~0.031 ms): the softmax's
+// exps (~4 us) and the dropout hash (~3.4 us) beside the scores' scalar
+// work; the PV products are hidden.
 //
 // Backward: two kernels on wgmma, each a block of one warpgroup whose
 // thread 0 brings every operand tile by TMA (3-D tensor maps over [D, T, B]
@@ -69,11 +88,14 @@
 // C entries: rel_attention_train_{fwd,bwd}_bf16(...) return the CUDA error
 // of the launches; they launch on the given stream and do not synchronise.
 
-#include "rel_attention_common.cuh"
-#include "hopper_sm90.cuh"
+#include "rel_attention_fwd.cuh"
 #include <math.h>
 
 namespace {
+
+constexpr float kMaskFill = relattn::kMaskFill;
+
+__device__ inline float round_bf16(float x) { return __bfloat162float(__float2bfloat16(x)); }
 
 constexpr uint32_t kGold = 0x9E3779B1u, kHeadMul = 0x27D4EB2Fu, kKeyMul = 0x165667B1u;
 
@@ -104,219 +126,54 @@ __device__ inline void row_hashes(uint32_t (&hr)[2], uint32_t seed, int b, int h
   hr[1] = imix(base + (uint32_t)(qrow + 8) * kGold);
 }
 
-// Shared memory of the score pass: mask, one K/V tile, the p window, the
-// warps' bd windows and the score rows.
-struct ScoreSmem {
-  float* mask;  // [Tp]
-  bf16* kv;     // [KT][LDH]
-  bf16* p;      // [PW][LDH]
-  bf16* bd;     // [NWARPS][16][LDB]
-  bf16* s;      // [QT][Tp + 8]
+// ---------------------------------------------------------------------------
+// forward (wgmma, TMA ring; the block of rel_attention_fwd.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_NR = 3;  // key tiles whose scores stay in registers
+constexpr int FWD_NE = 3;  // key tiles whose e stays in registers once the scores are done
+
+// the forward's weight hook: e * (1/z) of the lane's row qr[hh] and key k
+// times the keep factor, Dropout::factor with the dropout on in fewer
+// integer operations: imix's first step x ^ (x >> 16) of x = row ^ k kKeyMul
+// splits into the row's part, formed once per row, and the key's, which the
+// lane's two rows share; and a 31-bit draw below thresh is a 32-bit one
+// below 2 thresh
+struct KeepHook {
+  uint32_t hs[2];    // the lane's rows' hash states h, as h ^ (h >> 16)
+  uint32_t thresh2;  // 2 thresh
+  float inv_keep;    // 1 / (1 - rate)
+  __device__ inline float operator()(float w, int hh, int k) const {
+    const uint32_t km = (uint32_t)k * kKeyMul;
+    uint32_t x = hs[hh] ^ km ^ (km >> 16);
+    x *= 0x85EBCA6Bu;
+    x ^= x >> 13;
+    x *= 0xC2B2AE35u;
+    x ^= x >> 16;
+    return w * (x < thresh2 ? inv_keep : 0.f);
+  }
 };
 
-__host__ __device__ inline size_t score_smem_bytes(int T) {
-  const int Tp = padded_len(T);
-  return sizeof(float) * Tp +
-         sizeof(bf16) * (KT * LDH + PW * LDH + NWARPS * 16 * LDB + QT * (Tp + 8));
-}
-
-__device__ inline ScoreSmem carve(float* smem, int T) {
-  const int Tp = padded_len(T);
-  ScoreSmem s;
-  s.mask = smem;
-  s.kv = reinterpret_cast<bf16*>(s.mask + Tp);
-  s.p = s.kv + KT * LDH;
-  s.bd = s.p + PW * LDH;
-  s.s = s.bd + NWARPS * 16 * LDB;
-  return s;
-}
-
-// The forward's score pass: s = bf16(bf16(
-// bf16(ac) + bf16(bd)) * bf16(scale)) into the score rows, and the row maxima
-// of s + mask of the lane's rows g and g + 8 (combined over the 4 lanes of
-// a row). au / av: the warp's q+u / q+v rows as A fragments.
-__device__ inline void score_pass(const ScoreSmem& sm, const uint32_t (&au)[4][4],
-                                  const uint32_t (&av)[4][4], const bf16* kmat,
-                                  const bf16* p, size_t row0, int q0, int T, int D,
-                                  int col0, float scale, float (&mrow)[2]) {
-  const int Tp = padded_len(T), LDS = Tp + 8;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  bf16* bdw = sm.bd + warp * 16 * LDB;
-  bf16* srows = sm.s + warp * 16 * LDS;
-  // block row r = 16 warp + rl and key k0 + c need p-window row
-  // c - r + QT - 1 = wb + (c - rl + 15), with the warp's window base wb
-  const int wb = QT - 16 - 16 * warp;
-  mrow[0] = mrow[1] = -__int_as_float(0x7f800000);
-  for (int k0 = 0; k0 < Tp; k0 += KT) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows(sm.kv, kmat, row0, k0, KT, T, D, col0);
-    // p-window row j <-> table row k0 - q0 - (QT - 1) + (T - 1) + j
-    stage_rows(sm.p, p, 0, k0 - q0 - (QT - 1) + (T - 1), PW, 2 * T - 1, D, col0);
-    __syncthreads();
-    {  // window[rl, j] = (q+v)[rl] . p_window[wb + j], rounded to bf16
-      float acc[BDW / 8][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int nt = 0; nt < BDW / 8; ++nt) {
-          const bf16* pb = sm.p + (wb + nt * 8 + g) * LDH + kk * 16 + 2 * t;
-          mma_bf16(acc[nt], av[kk], ld32(pb), ld32(pb + 8));
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < BDW / 8; ++nt) {
-        *reinterpret_cast<uint32_t*>(bdw + g * LDB + nt * 8 + 2 * t) =
-            pack2f(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<uint32_t*>(bdw + (g + 8) * LDB + nt * 8 + 2 * t) =
-            pack2f(acc[nt][2], acc[nt][3]);
-      }
-    }
-    float ac[KT / 8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < KT / 8; ++nt) {
-        const bf16* kb = sm.kv + (nt * 8 + g) * LDH + kk * 16 + 2 * t;
-        mma_bf16(ac[nt], au[kk], ld32(kb), ld32(kb + 8));
-      }
-    }
-    __syncwarp();  // the window is written by the whole warp
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rl = g + 8 * half, c = nt * 8 + 2 * t;
-        float s[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float bd = __bfloat162float(bdw[rl * LDB + c + e - rl + 15]);
-          s[e] = round_bf16(round_bf16(round_bf16(ac[nt][2 * half + e]) + bd) * scale);
-          if (k0 + c + e < T) mrow[half] = fmaxf(mrow[half], s[e] + sm.mask[k0 + c + e]);
-        }
-        *reinterpret_cast<uint32_t*>(srows + rl * LDS + k0 + c) = pack2f(s[0], s[1]);
-      }
-    }
-    __syncwarp();  // the window is read before the next tile rewrites it
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    mrow[half] = fmaxf(mrow[half], __shfl_xor_sync(0xffffffffu, mrow[half], 1));
-    mrow[half] = fmaxf(mrow[half], __shfl_xor_sync(0xffffffffu, mrow[half], 2));
-  }
-}
-
-// 1 / sum_k exp(s + mask - m) of the lane's rows, from the score rows.
-__device__ inline void softmax_sums(const ScoreSmem& sm, int T, const float (&mrow)[2],
-                                    float (&zinv)[2]) {
-  const int LDS = padded_len(T) + 8;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const bf16* srow = sm.s + (warp * 16 + g + 8 * half) * LDS;
-    float z = 0.f;
-    for (int c0 = 0; c0 < T; c0 += 16) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = c0 + 2 * t + (j & 1) + 8 * (j >> 1);
-        if (k < T) z += expf(__bfloat162float(srow[k]) + sm.mask[k] - mrow[half]);
-      }
-    }
-    z += __shfl_xor_sync(0xffffffffu, z, 1);
-    z += __shfl_xor_sync(0xffffffffu, z, 2);
-    zinv[half] = 1.f / z;
-  }
-}
-
-// the softmax weight of key k in the lane's row `half`
-__device__ inline float weight(const ScoreSmem& sm, int LDS, int rowl, int k, int T,
-                               float m, float zinv) {
-  if (k >= T) return 0.f;
-  return expf(__bfloat162float(sm.s[rowl * LDS + k]) + sm.mask[k] - m) * zinv;
-}
-
-__device__ inline void stage_mask(float* mask, const uint8_t* key_valid, size_t row0,
-                                  int T) {
-  for (int k = threadIdx.x; k < padded_len(T); k += NTHREADS)
-    mask[k] = (k < T && key_valid[row0 + k]) ? 0.f : kMaskFill;
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NTHREADS)
-rel_attention_train_fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
-                               const bf16* __restrict__ kmat, const bf16* __restrict__ vmat,
-                               const bf16* __restrict__ p, const uint8_t* __restrict__ key_valid,
+// kDrop: rate > 0 (else w is used as it is)
+template <bool kDrop>
+__global__ void __launch_bounds__(relattn::THREADS, 2)
+rel_attention_train_fwd_kernel(const __grid_constant__ relattn::Maps maps,
+                               const uint8_t* __restrict__ key_valid,
                                const int* __restrict__ seed, bf16* __restrict__ out, int T,
                                int H, float scale_f, Dropout drop) {
-  extern __shared__ float smem[];
-  const ScoreSmem sm = carve(smem, T);
-  const int LDS = padded_len(T) + 8;
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * HD, col0 = h * HD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t row0 = (size_t)b * T;
-  const float scale = round_bf16(scale_f);
-
-  // q+u and q+v are read once into registers, staged in the p window's space
-  stage_rows(sm.p, qu, row0, q0, QT, T, D, col0);
-  stage_rows(sm.p + QT * LDH, qv, row0, q0, QT, T, D, col0);
-  stage_mask(sm.mask, key_valid, row0, T);
-  __syncthreads();
-  uint32_t au[4][4], av[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    load_a(au[kk], sm.p + warp * 16 * LDH + kk * 16, LDH, g, t);
-    load_a(av[kk], sm.p + QT * LDH + warp * 16 * LDH + kk * 16, LDH, g, t);
-  }
-  float mrow[2], zinv[2];
-  score_pass(sm, au, av, kmat, p, row0, q0, T, D, col0, scale, mrow);
-  softmax_sums(sm, T, mrow, zinv);
-  uint32_t hr[2];
-  row_hashes(hr, (uint32_t)seed[0], b, h, q0 + warp * 16 + g);
-
-  // out = bf16(w_used) @ v; w_used formed in the A fragments from s
-  float o[HD / 8][4] = {};
-  for (int k0 = 0; k0 < T; k0 += KT) {
-    __syncthreads();  // the previous V tile is consumed
-    stage_rows(sm.kv, vmat, row0, k0, KT, T, D, col0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      uint32_t a[4];  // rows g, g+8 (r & 1) by columns 2t, 2t+1 (+8 for r >= 2)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int half = r & 1, k = k0 + kk * 16 + 2 * t + 8 * (r >> 1);
-        const int rowl = warp * 16 + g + 8 * half;
-        float w[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          w[e] = weight(sm, LDS, rowl, k + e, T, mrow[half], zinv[half]) *
-                 drop.factor(hr[half], k + e);
-        a[r] = pack2f(w[0], w[1]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        uint32_t b0, b1;
-        load_b_rows(b0, b1, sm.kv + (kk * 16) * LDH + nt * 8, LDH, g, t);
-        mma_bf16(o[nt], a, b0, b1);
-      }
-    }
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int q = q0 + warp * 16 + g + 8 * half;
-    if (q < T) {
-      bf16* orow = out + (row0 + q) * D + col0;
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt)
-        *reinterpret_cast<uint32_t*>(orow + nt * 8 + 2 * t) =
-            pack2f(o[nt][2 * half], o[nt][2 * half + 1]);
-    }
+  if constexpr (kDrop) {
+    const int t = threadIdx.x;
+    KeepHook hook;
+    uint32_t hr[2];
+    row_hashes(hr, (uint32_t)seed[0], blockIdx.z, blockIdx.y,
+               blockIdx.x * relattn::TILE + 16 * (t / 32) + (t % 32) / 4);
+    for (int hh = 0; hh < 2; ++hh) hook.hs[hh] = hr[hh] ^ (hr[hh] >> 16);
+    hook.thresh2 = 2u * drop.thresh;
+    hook.inv_keep = drop.inv_keep;
+    relattn::attention_block<FWD_NR, FWD_NE>(maps, key_valid, out, T, H, scale_f, hook);
+  } else {
+    relattn::attention_block<FWD_NR, FWD_NE>(maps, key_valid, out, T, H, scale_f,
+                                             relattn::KeepAll{});
   }
 }
 
@@ -892,8 +749,9 @@ extern "C" {
 
 // q_u, q_v, k, v, out: [B, T, H*64] bf16, contiguous, 16-byte aligned;
 // p: [2T-1, H*64] bf16; key_valid: [B, T] bytes; seed: one int32; all on card
-// `device`. The shared memory grows with T (64 x T bf16 score rows): T = 1024
-// takes ~172 KB of the 227 KB a block may have.
+// `device`. The shared memory grows with T past 192 (64 x T bf16 score
+// rows): above T = 1408 it exceeds the 227 KB a block may have and the
+// launch is refused (the wrapper raises first).
 int rel_attention_train_fwd_bf16(const void* q_u, const void* q_v, const void* k,
                                  const void* v, const void* p, const void* key_valid,
                                  const void* seed, void* out, int B, int T, int H,
@@ -903,15 +761,17 @@ int rel_attention_train_fwd_bf16(const void* q_u, const void* q_v, const void* k
   // PyTorch's: select the tensors' card explicitly
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = score_smem_bytes(T);
-  err = cudaFuncSetAttribute(rel_attention_train_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  relattn::Maps maps;
+  const int rc = relattn::encode_maps(&maps, q_u, q_v, k, v, p, B, T, H);
+  if (rc != 0) return rc;
+  const auto kernel =
+      use_dropout ? rel_attention_train_fwd_kernel<true> : rel_attention_train_fwd_kernel<false>;
+  const size_t smem = relattn::smem_bytes<FWD_NR>(T);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + QT - 1) / QT, H, B);
-  rel_attention_train_fwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q_u), static_cast<const bf16*>(q_v),
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(p),
-      static_cast<const uint8_t*>(key_valid), static_cast<const int*>(seed),
+  const dim3 grid((T + relattn::TILE - 1) / relattn::TILE, H, B);
+  kernel<<<grid, relattn::THREADS, smem, (cudaStream_t)stream>>>(
+      maps, static_cast<const uint8_t*>(key_valid), static_cast<const int*>(seed),
       static_cast<bf16*>(out), T, H, scale, make_dropout(use_dropout, thresh, inv_keep));
   return (int)cudaGetLastError();
 }

@@ -13,10 +13,13 @@ the flattened-heads layout of the JAX call site: ``q_u, q_v, k, v``
   ``rel_attention_train_fwd`` and ``rel_attention_train_bwd``, which wrap the
   two halves of ``csrc/rel_attention_train.cu`` (the Pallas
   ``rel_attention_train`` forward and backward, attention_kernels.py
-  :444-678). The forward drops softmax weights with an in-kernel counter
-  hash of (seed, batch item, head, query, key), replayed bit for bit by
-  ``dropout_keep_mask`` (attention_kernels.py:312-368); the backward
-  recomputes scores, softmax and mask and returns all five input gradients.
+  :444-678). The forward is the inference kernel's block
+  (``csrc/rel_attention_fwd.cuh``) with its scores in registers for three
+  key tiles, so it takes T up to ``REL_ATTENTION_TRAIN_MAX_T``; it drops
+  softmax weights with an in-kernel counter hash of (seed, batch item,
+  head, query, key), replayed bit for bit by ``dropout_keep_mask``
+  (attention_kernels.py:312-368); the backward recomputes scores, softmax
+  and mask and returns all five input gradients.
   ``rel_attention_train_reference`` and
   ``rel_attention_train_backward_reference`` are the plain versions. The
   seed is an int32 tensor on the inputs' device (the TPU kernel reads it
@@ -37,30 +40,47 @@ import torch
 from espresso_tpu_torch.ops.masking import NEG_INF
 
 HEAD_DIM = 64  # the kernels' only head width (the flagship's d = 512 / 8)
-_SOURCES = ("rel_attention.cu", "hopper_sm90.cuh")
-_TRAIN_SOURCES = (
-    "rel_attention_train.cu", "rel_attention_common.cuh", "bf16_mma.cuh", "hopper_sm90.cuh",
-)
+_SOURCES = ("rel_attention.cu", "rel_attention_fwd.cuh", "hopper_sm90.cuh")
+_TRAIN_SOURCES = ("rel_attention_train.cu", "rel_attention_fwd.cuh", "hopper_sm90.cuh")
 # library name -> its CUDA sources (with the headers they include)
 LIBRARIES = {"rel_attention": _SOURCES, "rel_attention_train": _TRAIN_SOURCES}
 # the dynamic shared memory a block may have on an H100
 SMEM_LIMIT = 232448
 
 
-def rel_attention_smem_bytes(T: int) -> int:
-    """The dynamic shared memory of ``csrc/rel_attention.cu`` at length T
-    (its ``smem_bytes``): 1024 bytes of alignment slack; q+u, q+v and a ring
-    of two stages of three 8 KB tiles; 64 bytes of barriers; the f32 key
-    mask of the padded length; and, past the two key tiles whose scores
-    stay in registers, 64 bf16 score rows of the rest (plus 8 columns)."""
+def _fwd_smem_bytes(T: int, nr: int) -> int:
+    """The dynamic shared memory of a block of ``csrc/rel_attention_fwd.cuh``
+    at length T whose first ``nr`` key tiles keep their scores in registers
+    (its ``smem_bytes<NR>``): 1024 bytes of alignment slack; q+u, q+v and a
+    ring of two stages of three 8 KB tiles; 64 bytes of barriers; the f32
+    key mask of the padded length; and, past those ``nr`` key tiles, 64 bf16
+    score rows of the rest (plus 8 columns)."""
     tile, box = 64, 8192
     Tp = -(-T // tile) * tile
-    rest = Tp - 2 * tile
+    rest = Tp - nr * tile
     return 1024 + (2 + 3 * 2) * box + 64 + 4 * Tp + (2 * tile * (rest + 8) if rest > 0 else 0)
 
 
-# the longest T the inference kernel takes (1344)
-REL_ATTENTION_MAX_T = max(T for T in range(64, 4097, 64) if rel_attention_smem_bytes(T) <= SMEM_LIMIT)
+def rel_attention_smem_bytes(T: int) -> int:
+    """The dynamic shared memory of ``csrc/rel_attention.cu`` at length T
+    (scores in registers for two key tiles)."""
+    return _fwd_smem_bytes(T, 2)
+
+
+def rel_attention_train_smem_bytes(T: int) -> int:
+    """The dynamic shared memory of the train forward of
+    ``csrc/rel_attention_train.cu`` at length T (scores in registers for
+    three key tiles, ``FWD_NR``)."""
+    return _fwd_smem_bytes(T, 3)
+
+
+def _max_len(smem_bytes) -> int:
+    return max(T for T in range(64, 4097, 64) if smem_bytes(T) <= SMEM_LIMIT)
+
+
+# the longest T the inference kernel takes (1344) and the train forward (1408)
+REL_ATTENTION_MAX_T = _max_len(rel_attention_smem_bytes)
+REL_ATTENTION_TRAIN_MAX_T = _max_len(rel_attention_train_smem_bytes)
 
 
 def rel_attention_reference(
@@ -355,6 +375,12 @@ def rel_attention_train_fwd(q_u, q_v, k, v, p, key_valid, seed, H, scale, rate):
     if q_u.device.type != "cuda":
         raise ValueError(f"rel_attention_train_fwd: unsupported device {q_u.device}")
     _check(q_u, q_v, k, v, p, key_valid, H, "rel_attention_train_fwd")
+    T = q_u.shape[1]
+    if T > REL_ATTENTION_TRAIN_MAX_T:
+        raise ValueError(
+            f"rel_attention_train_fwd: T={T} needs {rel_attention_train_smem_bytes(T)} bytes of "
+            f"shared memory (the kernel takes T <= {REL_ATTENTION_TRAIN_MAX_T})"
+        )
     tail = _train_launch_args(q_u, seed, H, scale, rate)
     out = torch.empty_like(q_u)
     rc = _train_lib().rel_attention_train_fwd_bf16(

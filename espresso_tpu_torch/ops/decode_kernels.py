@@ -49,7 +49,7 @@ LIBRARIES = {
     "fused_joint_topk": ("fused_joint_topk.cu", "hopper_sm90.cuh"),
     "lstm_step_reorder": ("lstm_step_reorder.cu", "hopper_sm90.cuh"),
     "aes_merge": ("aes_merge.cu",),
-    "aes_backtrace": ("aes_backtrace.cu",),
+    "aes_backtrace": ("aes_backtrace.cu", "hopper_sm90.cuh"),
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> (library, argument types); a launching entry ends in (device, stream)

@@ -212,18 +212,41 @@ def check_merge(a: Tensors, round_j=2) -> float:
     return (got[0] - want[0]).abs().max().item()
 
 
-def backtrace_inputs(T, B, K, n_exp, V, seed, dev) -> Tensors:
+def backtrace_inputs(T, B, K, n_exp, V, seed, dev, edges: bool = False) -> Tensors:
+    """Seeded backpointers of T frames: the first utterance active in every
+    frame, the others up to a random length. With ``edges``, also the cases
+    the kernel's tables must reproduce: ``order``, ``msrc`` and ``esrc``
+    entries outside [0, K) (which read 0 in every gather), inactive frames
+    inside an utterance's length, and slots that stay from-pool through
+    every merge round (they keep their own slot and emit nothing), and from
+    B = 3 on an utterance with no active frame."""
     g = _gen(seed)
     R, E = n_exp + 1, n_exp
     lengths = torch.randint(1, T + 1, (B,), generator=g)
     lengths[0] = T
-    ri = lambda hi, *s: torch.randint(0, hi, s, generator=g, dtype=torch.int32).to(dev)
-    return dict(
-        active=(torch.arange(T)[:, None] < lengths[None, :]).to(dev, torch.int32),
-        fp=ri(2, T, R, B, K), msrc=ri(K, T, R, B, K),
-        esrc=ri(K, T, E, B, K), etok=ri(V, T, E, B, K),
-        order=torch.stack([torch.randperm(K, generator=g) for _ in range(B)]).to(dev, torch.int32),
+    ri = lambda lo, hi, *s: torch.randint(lo, hi, s, generator=g, dtype=torch.int32)
+    active = (torch.arange(T)[:, None] < lengths[None, :]).to(torch.int32)
+    a = dict(
+        fp=ri(0, 2, T, R, B, K), msrc=ri(0, K, T, R, B, K),
+        esrc=ri(0, K, T, E, B, K), etok=ri(0, V, T, E, B, K),
+        order=torch.stack([torch.randperm(K, generator=g) for _ in range(B)]).to(torch.int32),
     )
+    if edges:
+        some = lambda *s, p: torch.rand(*s, generator=g) < p
+        outside = lambda *s: torch.where(some(*s, p=0.5), ri(-3, 0, *s), ri(K, K + 3, *s))
+        for name in ("order", "msrc", "esrc"):
+            x = a[name]
+            a[name] = torch.where(some(*x.shape, p=0.1), outside(*x.shape), x)
+        active = torch.where(some(T, B, p=0.1), 0, active)
+        a["fp"] = torch.where(some(T, 1, B, K, p=0.15), 1, a["fp"])  # every round j
+        # and at least one of each, whatever the draws
+        a["order"][-1, 0], a["msrc"][-1, 0, 0, 0], a["esrc"][-1, 0, 0, 0] = -1, K, -2
+        active[T // 2, 0] = 0
+        if B >= 3:
+            active[:, 1] = 0  # an utterance with no active frame
+        a["fp"][-1, :, -1, 0] = 1
+    a["active"] = active
+    return {k: v.contiguous().to(dev) for k, v in a.items()}
 
 
 def check_backtrace(a: Tensors, n_exp) -> float:

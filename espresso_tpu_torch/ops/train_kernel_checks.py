@@ -79,6 +79,32 @@ def _attn_args(a: Tensors):
     return a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"]
 
 
+def check_attention_train_fwd(a: Tensors, H: int, rate: float) -> float:
+    """The forward kernel alone (one launch) against the plain version;
+    returns the max abs error of the output."""
+    scale = ak.HEAD_DIM ** -0.5
+    before = ak.rel_attention_train_fwd.launches
+    out = ak.rel_attention_train_fwd(*_attn_args(a), a["seed"], H, scale, rate)
+    torch.cuda.synchronize()
+    assert ak.rel_attention_train_fwd.launches == before + 1
+    ref = ak.rel_attention_train_reference(*_attn_args(a), H, scale, rate, a["seed"])
+    return _held("out", out, ref, ATTN_OUT_ULPS, rate, a)
+
+
+def _held(name, x, r, ulps, rate, a) -> float:
+    x, r = x.float(), r.float()
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"rel_attention_train {name}: not finite")
+    err = (x - r).abs().max().item()
+    bound = ulps * bf16_ulp(r.abs().max().item())
+    if err > bound:
+        raise AssertionError(
+            f"rel_attention_train {name} at rate {rate}, shape {tuple(a['q_u'].shape)}: "
+            f"max error {err} > {bound}"
+        )
+    return err
+
+
 def check_attention_train(a: Tensors, H: int, rate: float) -> Dict[str, float]:
     """Forward and backward kernels against the plain versions; returns the
     max abs error of the output and of each gradient."""
@@ -90,23 +116,13 @@ def check_attention_train(a: Tensors, H: int, rate: float) -> Dict[str, float]:
     ref_grads = ak.rel_attention_train_backward_reference(
         *_attn_args(a), a["g"], H, scale, rate, a["seed"]
     )
-    errs = {}
-    for name, x, r, ulps in [("out", out, ref, ATTN_OUT_ULPS)] + [
-        (n, x, r, ATTN_GRAD_ULPS)
-        for n, x, r in zip(("dq_u", "dq_v", "dk", "dv", "dp"), grads, ref_grads)
-    ]:
-        x, r = x.float(), r.float()
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"rel_attention_train {name}: not finite")
-        err = (x - r).abs().max().item()
-        bound = ulps * bf16_ulp(r.abs().max().item())
-        if err > bound:
-            raise AssertionError(
-                f"rel_attention_train {name} at rate {rate}, shape {tuple(a['q_u'].shape)}: "
-                f"max error {err} > {bound}"
-            )
-        errs[name] = err
-    return errs
+    return {
+        name: _held(name, x, r, ulps, rate, a)
+        for name, x, r, ulps in [("out", out, ref, ATTN_OUT_ULPS)] + [
+            (n, x, r, ATTN_GRAD_ULPS)
+            for n, x, r in zip(("dq_u", "dq_v", "dk", "dv", "dp"), grads, ref_grads)
+        ]
+    }
 
 
 # ---------------------------------------------------------------------------

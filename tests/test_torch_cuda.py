@@ -182,6 +182,17 @@ def test_aes_backtrace_kernel_matches_plain_version(dev, T, B, K, n_exp):
     kc.check_backtrace(kc.backtrace_inputs(T, B, K, n_exp, V=1024, seed=T, dev=dev), n_exp)
 
 
+# the tabulated B9's edges: K from one beam to past a warp of walkers,
+# T' from one frame to more than one chunk of staged frames, with the
+# cases its tables must reproduce (order, msrc and esrc entries outside
+# [0, K), inactive frames inside a length, slots from-pool through every
+# merge round), bit for bit
+@pytest.mark.parametrize("K", [1, 4, 10, 20, 33])
+@pytest.mark.parametrize("T", [1, 37, 156, 1024])
+def test_aes_backtrace_kernel_at_edges(dev, T, K):
+    kc.check_backtrace(kc.backtrace_inputs(T, 5, K, 2, V=1024, seed=T + K, dev=dev, edges=True), 2)
+
+
 def test_decode_kernels_reject_what_they_do_not_take(dev):
     a = kc.joint_inputs(2, 4, 128, 64, 64, seed=0, dev=dev)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -307,6 +318,37 @@ def test_rel_attention_train_bwd_kernel_at_tiling_edges(dev, B, T, rate):
     from espresso_tpu_torch.ops import train_kernel_checks as tc
 
     tc.check_attention_train(tc.attention_train_inputs(B, T, seed=T + B, dev=dev), H, rate)
+
+
+# the redesigned B2's edges (64-row query and key tiles, the [128 j'] skew
+# window, TMA boxes that stop at T, scores in registers for three key tiles
+# and e for three, shared score rows past them, up to the longest T' it
+# takes), each with ragged key masks, the last utterance with one valid
+# key, and B = 40; at rates 0 and 0.1, at today's bound (2 bf16 ulps of
+# the output's largest magnitude)
+@pytest.mark.parametrize(
+    "B,T", [(3, 1), (3, 63), (3, 64), (3, 65), (3, 129), (3, 192), (3, 193), (3, 256), (2, 1408),
+            (40, 64)],
+)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rel_attention_train_fwd_kernel_at_tiling_edges(dev, B, T, rate):
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    a = tc.attention_train_inputs(B, T, seed=T + 2 * B, dev=dev)
+    a["key_valid"][-1] = torch.arange(T, device=dev) < 1
+    tc.check_attention_train_fwd(a, H, rate)
+
+
+def test_rel_attention_train_fwd_rejects_a_length_past_its_shared_memory(dev):
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    a = tc.attention_train_inputs(1, ak.REL_ATTENTION_TRAIN_MAX_T + 1, seed=0, dev=dev)
+    args = (a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"], a["seed"], H, 0.125, 0.1)
+    before = ak.rel_attention_train_fwd.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ak.rel_attention_train_fwd(*args)
+    assert ak.rel_attention_train_fwd.launches == before
 
 
 # an utterance whose keys are all masked past a short length (2 of 200),

@@ -248,6 +248,74 @@ def test_aes_backtrace_matches_jax(n_exp):
     assert got[1].sum() > 0
 
 
+def _tabulated_backtrace(active, fp, msrc, esrc, etok, order, n_exp):
+    """A model of csrc/aes_backtrace.cu: each frame's step as a table over
+    the K + 1 incoming columns (column K: any slot outside [0, K), whose
+    gathers read 0) of the outgoing column, the exit level and the emitted
+    tokens, built with no reference to any other frame; then the walk
+    composes the tables frame by frame, one lookup a frame, from each
+    utterance's last active frame down (past it nothing is emitted)."""
+    T, R, B, K = fp.shape
+    col = lambda s: torch.where((s >= 0) & (s < K), s, K).long()
+    pad = lambda x: torch.cat([x, torch.zeros_like(x[:, :1])], 1)  # column K reads 0
+    gather = lambda x, s: pad(x).gather(1, col(s))
+    nxt = torch.empty((T, B, K + 1), dtype=torch.long)
+    lvl = torch.empty((T, B, K + 1), dtype=torch.long)
+    tok = torch.empty((T, n_exp, B, K + 1), dtype=torch.int32)
+    s = torch.arange(K + 1).expand(B, K + 1)  # the incoming columns (K: outside)
+    for t in range(T):
+        cont = (active[t] > 0)[:, None].expand(B, K + 1)
+        exit_level = torch.full((B, K + 1), -1)
+        exit_slot = cur = s
+        for j in range(n_exp, -1, -1):
+            f = gather(fp[t, j], cur) > 0
+            src = gather(msrc[t, j], cur)
+            exit_level = torch.where(cont & ~f, j, exit_level)
+            exit_slot = torch.where(cont & ~f, src, exit_slot)
+            cur = torch.where(cont & f, src, cur)
+            cont = cont & f
+        s2 = exit_slot
+        for r in range(n_exp, 0, -1):
+            m = exit_level >= r
+            tok[t, n_exp - r] = torch.where(m, gather(etok[t, r - 1], s2), 0)
+            s2 = torch.where(m, gather(esrc[t, r - 1], s2), s2)
+        nxt[t], lvl[t] = col(s2), exit_level
+    toks = torch.empty((T, n_exp, B, K), dtype=torch.int32)
+    valid = torch.empty_like(toks)
+    t_used = torch.where((active > 0).any(0), (active > 0).int().cumsum(0).argmax(0) + 1, 0)
+    w = col(order)  # each walker's column
+    for t in range(T - 1, -1, -1):
+        used = (t < t_used)[:, None]  # [B, 1]: at or before the last active frame
+        toks[t] = torch.where(used, tok[t].gather(2, w[None].expand(n_exp, B, K)), 0)
+        rounds = torch.arange(n_exp, 0, -1)[:, None, None]
+        valid[t] = (used & (lvl[t].gather(1, w)[None] >= rounds)).to(torch.int32)
+        w = torch.where(used, nxt[t].gather(1, w), w)
+    return toks, valid
+
+
+@pytest.mark.parametrize("T,B,K,n_exp", [(7, 3, 4, 2), (5, 2, 1, 1), (6, 3, 5, 3)])
+def test_aes_backtrace_tables_composed_frame_by_frame_match_jax(T, B, K, n_exp):
+    """The kernel's tabulated walk gives the JAX kernel's outputs on inputs
+    with out-of-range order/msrc/esrc entries, inactive frames and slots
+    that stay from-pool through every merge round."""
+    from espresso_tpu_torch.ops import kernel_checks as kc
+
+    a = kc.backtrace_inputs(T, B, K, n_exp, V=50, seed=T + K, dev="cpu", edges=True)
+    outside = lambda x: ((x < 0) | (x >= K)).any().item()
+    assert outside(a["order"]) and outside(a["msrc"]) and outside(a["esrc"])
+    assert (a["active"] == 0).any() and (a["fp"] == 1).all(1).any()
+    assert (a["active"][-1] == 0).any()  # an utterance whose last frames are inactive
+    j = {k: jnp.asarray(v.numpy()) for k, v in a.items() if k != "active"}
+    want = jdk.aes_backtrace(jnp.asarray(a["active"].numpy())[:, :, None], n_exp=n_exp,
+                             interpret=True, **j)
+    got = _tabulated_backtrace(**a, n_exp=n_exp)
+    plain = dk.aes_backtrace(**a, n_exp=n_exp)
+    for g, p, w in zip(got, plain, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(p.numpy(), np.asarray(w))
+    assert got[1].sum() > 0
+
+
 def test_wrappers_route_cpu_tensors_to_plain_versions():
     """On the CPU the wrappers run the plain versions and launch nothing."""
     before = [f.launches for f in dk.KERNELS]

@@ -243,6 +243,121 @@ def test_joint_lp_units_cover_every_lattice_row_and_column_once(B, T, U1, V, n_s
 
 
 # ---------------------------------------------------------------------------
+# the rel_attention_train forward (B2): the block of rel_attention_fwd.cuh
+# with the scores and the e of three key tiles in registers, its
+# dropout applied where the A fragments of the PV product are formed, and
+# its shared memory
+# ---------------------------------------------------------------------------
+
+FWD_NR, FWD_NE, FWD_VG = 3, 3, 3  # rel_attention_train.cu's FWD_NR, FWD_NE; the header's VG
+
+
+def _pv_fragments():
+    """Every element of the PV product's A fragments in a block, as
+    (warp, g, q, kk, r, e) with its row 16 warp + g + 8 (r & 1) and column
+    16 kk + 8 (r >> 1) + 2 q + e in the [64 q][64 k] tile, and the index
+    8 kk + 2 r + e of the lane's accumulator element it is formed from."""
+    grid = torch.meshgrid(*(torch.arange(n) for n in (4, 8, 4, 4, 4, 2)), indexing="ij")
+    w, g, q, kk, r, e = (x.reshape(-1) for x in grid)
+    return dict(w=w, g=g, q=q, row=16 * w + g + 8 * (r & 1), col=16 * kk + 8 * (r >> 1) + 2 * q + e,
+                kk=kk, hh=r & 1, acc=8 * kk + 2 * r + e)
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 192, 193, 256, ak.REL_ATTENTION_TRAIN_MAX_T])
+def test_rel_attention_train_fwd_tiles_cover_every_score_and_weight_once(T):
+    """Scores: query tile q0 = 64 qt, key tile k0 = 64 kt, the bd of (q0 + r,
+    k0 + c) from window row c - r + 63 of p rows j0 = T - 1 + k0 - q0 - 63;
+    tiles kt < FWD_NR keep s in registers, later ones in shared columns
+    64 (kt - FWD_NR) + c of rows 64 wide past FWD_NR tiles (stride LDT).
+    Weights: V tile kt in box kt % 3 of ring load nk + kt // 3; the A
+    fragment element of (row, column) is formed from the lane's accumulator
+    element of that same (row, column) (x[4 j + 2 hh + e]: row 16 warp + g +
+    8 hh, column 8 j + 2 q + e), from registers for kt < FWD_NE and from the
+    shared columns past it; the k16 steps past T are not run. Every (query,
+    key) pair is met once in each phase."""
+    nt = -(-T // 64)
+    Tp = 64 * nt
+    LDT = Tp - 64 * FWD_NR + 8 if Tp > 64 * FWD_NR else 0
+    f = _pv_fragments()
+    # the accumulator element acc holds row 16 w + g + 8 hh, column 8 j + 2 q + e
+    j, hh, e = f["acc"] // 4, (f["acc"] // 2) % 2, f["acc"] % 2
+    assert torch.equal(16 * f["w"] + f["g"] + 8 * hh, f["row"])
+    assert torch.equal(8 * j + 2 * f["q"] + e, f["col"])
+    scores = torch.zeros(T, T, dtype=torch.int64)
+    weights = torch.zeros(T, T, dtype=torch.int64)
+    r = torch.arange(64)[:, None]
+    c = torch.arange(64)[None, :]
+    loads = set()
+    for qt in range(nt):
+        for kt in range(nt):
+            q0, k0 = 64 * qt, 64 * kt
+            j0 = T - 1 + k0 - q0 - 63
+            jp = c - r + 63
+            assert int(jp.min()) >= 0 and int(jp.max()) + 1 < 128
+            assert torch.equal(j0 + jp, T - 1 + (k0 + c) - (q0 + r))
+            if kt >= FWD_NR:  # the shared score columns of this tile lie inside the row
+                assert 64 * (kt - FWD_NR) + 64 <= LDT - 8
+            qs, ks = (q0 + r)[:, 0], (k0 + c)[0]
+            scores[qs[qs < T][:, None], ks[ks < T][None, :]] += 1
+            run = k0 + 16 * f["kk"] < T
+            if kt >= FWD_NE:
+                assert kt >= FWD_NR  # formed again from the shared scores
+            loads.add((nt + kt // FWD_VG, kt % FWD_VG))
+            q, k = q0 + f["row"], k0 + f["col"]
+            ok = run & (q < T) & (k < T)
+            weights[q[ok], k[ok]] += 1
+            assert not ((k < T) & ~run).any()  # no key in range is skipped
+    ones = torch.ones(T, T, dtype=torch.int64)
+    assert torch.equal(scores, ones) and torch.equal(weights, ones)
+    n_loads = nt + -(-nt // FWD_VG)
+    assert sorted(loads) == [(it, i) for it in range(nt, n_loads) for i in range(FWD_VG)
+                             if FWD_VG * (it - nt) + i < nt]
+
+
+@pytest.mark.parametrize("T,q0,b,h", [(256, 64, 5, 7), (70, 0, 0, 0), (193, 192, 15, 3)])
+def test_rel_attention_train_fwd_keep_factor_is_the_dropout_mask(T, q0, b, h):
+    """The keep factor each lane forms for its fragment element equals
+    dropout_keep_mask. The kernel's KeepHook: the row hash states h =
+    imix(imix(seed + b GOLD + h HEAD_MUL) + row GOLD) of rows q0 + 16 warp + g
+    and + 8 (row_hashes), formed once as h ^ (h >> 16); for key k, km = k
+    KEY_MUL and x = that ^ km ^ (km >> 16) (imix's first xor-shift of h ^ km,
+    split), then imix's last four steps, kept when x < 2 threshold (the
+    31-bit draw x >> 1 below the threshold)."""
+    seed, rate = 123456789, 0.1
+    f = _pv_fragments()
+    m32 = lambda x: x & 0xFFFFFFFF
+    base = ak._imix(m32(torch.tensor(seed) + ak._mul32(torch.tensor(b), ak._GOLD)
+                        + ak._mul32(torch.tensor(h), ak._HEAD_MUL)))
+    row_state = [ak._imix(m32(base + ak._mul32(q0 + 16 * f["w"] + f["g"] + 8 * hh, ak._GOLD)))
+                 for hh in range(2)]
+    state = torch.where(f["hh"] == 1, row_state[1], row_state[0])
+    hs = state ^ (state >> 16)
+    want = ak.dropout_keep_mask(seed, b, h, T, T, rate)
+    for k0 in range(0, T, 64):
+        k = k0 + f["col"]
+        km = ak._mul32(k, ak._KEY_MUL)
+        x = ak._mul32(hs ^ km ^ (km >> 16), 0x85EBCA6B)
+        x = ak._mul32(x ^ (x >> 13), 0xC2B2AE35)
+        x = x ^ (x >> 16)
+        q = q0 + f["row"]
+        ok = (q < T) & (k < T)
+        assert ok.any()
+        assert torch.equal(x[ok] < 2 * ak.keep_threshold(rate), want[q[ok], k[ok]])
+
+
+def test_rel_attention_train_fwd_shared_memory_limits_its_length():
+    # two blocks an SM at the flagship train length (228 KB, 1 KB of it
+    # reserved a block); one block at the longest T the kernel takes, which
+    # is at least the longest the inference kernel takes
+    assert 2 * (ak.rel_attention_train_smem_bytes(256) + 1024) <= 228 * 1024
+    assert ak.rel_attention_train_smem_bytes(ak.REL_ATTENTION_TRAIN_MAX_T) <= ak.SMEM_LIMIT
+    assert ak.rel_attention_train_smem_bytes(ak.REL_ATTENTION_TRAIN_MAX_T + 1) > ak.SMEM_LIMIT
+    assert ak.REL_ATTENTION_TRAIN_MAX_T == 1408 >= ak.REL_ATTENTION_MAX_T
+    # up to three key tiles the scores stay in registers: no shared score rows
+    assert ak.rel_attention_train_smem_bytes(192) - ak.rel_attention_train_smem_bytes(64) == 4 * 128
+
+
+# ---------------------------------------------------------------------------
 # fbank (B10): the real FFT's schedule (fbank.cu) modelled in numpy from the
 # wrapper's own twiddle table, its shared-memory maps, and the packed mel
 # banks
