@@ -1,7 +1,7 @@
 """Where B1 (``rel_attention``), B4 (``rnnt_joint_lp``), B5
 (``rnnt_joint_bwd``), B3 and B2 (the ``rel_attention_train`` backward and
-forward), B8 (``aes_merge``), B9 (``aes_backtrace``) and B10 (``fbank``)
-spend their time on one NVIDIA H100: each kernel timed with one part of it
+forward), B8 (``aes_merge``), B9 (``aes_backtrace``), B10 (``fbank``) and
+B11 (``int8_matmul``) spend their time on one NVIDIA H100: each kernel timed with one part of it
 left out, or with another setting of one of its constants.
 
     python3 chip_kernel_ablation.py [TARGET ...]
@@ -13,7 +13,9 @@ wrapper build its library from there with ``-DEXP=<n>`` and times it at the
 flagship shapes (B1: B=256, T'=156, H=8, d=64; B4 and B5: B=16, T'=256,
 U1=101, J=512, V=1024; B3 and B2: B=16, T'=256, H=8, d=64, dropout 0.1; B8:
 B=256, K=10 with the blank add; B9: T'=156, B=256, K=10, n_exp=2; B10: the
-serving batch, B=256, S=100,080) by the profiler's device time per kernel.
+serving batch, B=256, S=100,080; B11: 39,936 x 512 . 512 x 2048; B1 also
+in its long-row mode at B=4, T'=1500) by the profiler's device time per
+kernel.
 A variant computes wrong outputs; only its time is read, as the mean device
 time of one launch over a trace of 20 calls. A target is the
 source it times (``rel_attention.cu``; ``rel_attention_train.cu`` for B3)
@@ -185,6 +187,26 @@ VARIANTS = [
         "      for (int i = 0; i < L; ++i) acc = fmaf(pk[i], wr[32 * i], acc);",
         "      if (EXP == 32) acc = pk[0] * wr[0];\n      else\n"
         "      for (int i = 0; i < L; ++i) acc = fmaf(pk[i], wr[32 * i], acc);")]),
+    ("rel_attention.cu", 27, "the long-row mode at T' = 1500: the second pass's PV products", [(
+        FWD, "        wgmma_rs_n64<1>(o, af[kk],",
+        "        if (EXP == 27) o[kk] += __uint_as_float(af[kk][0] ^ af[kk][1] ^ af[kk][2] ^ af[kk][3]);\n"
+        "        else wgmma_rs_n64<1>(o, af[kk],")]),
+    ("rel_attention.cu", 28, "the long-row mode at T' = 1500: the first pass (row statistics from one tile)", [(
+        FWD, "  for (int it = 0; it < nk; ++it) {\n    float x[32];\n    score_tile(it, x);",
+        "  for (int it = 0; it < nk; ++it) {\n    float x[32];\n    score_tile(it, x);\n"
+        "    if (EXP == 28 && it > 0) continue;")]),
+    ("int8_matmul.cu", 81, "the product's TMA stores (the tile still staged)", [(
+        "          tma_store_2d(&tm_out, dst,", "          if (EXP != 81) tma_store_2d(&tm_out, dst,")]),
+    ("int8_matmul.cu", 82, "the products (the epilogue reads unset accumulators)", [(
+        "        wgmma_s8_n256(acc,", "        if (EXP != 82) wgmma_s8_n256(acc,")]),
+    ("int8_matmul.cu", 83, "the epilogue's staging in shared memory", [(
+        "            *reinterpret_cast<float2*>(smem + (dst - base) + box_offset(r, cc)) =",
+        "            if (EXP != 83) *reinterpret_cast<float2*>(smem + (dst - base) + box_offset(r, cc)) =")]),
+    ("int8_matmul.cu", 84, "another setting: a ring of 3 stages", [(
+        "constexpr int STAGES = 4;", "constexpr int STAGES = EXP == 84 ? 3 : 4;")]),
+    ("int8_matmul.cu", 85, "another setting: the row pass one element at a time", [(
+        "    if (x_vec) QROWS(__nv_bfloat16, true);", "    if (x_vec && EXP != 85) QROWS(__nv_bfloat16, true);"),
+        ("    if (x_vec) QROWS(float, true);", "    if (x_vec && EXP != 85) QROWS(float, true);")]),
 ]
 
 
@@ -242,10 +264,14 @@ def main() -> int:
     b1 = cs.attn_inputs(256, 156, seed=0, dev=dev) + (8, ak.HEAD_DIM ** -0.5)
     S = (cs.FLAGSHIP["T_FRAMES"] - 1) * cs.SHIFT + cs.WINDOW
     w = fc.waveform_inputs(cs.serving_num_samples().tolist(), S, seed=0, dev=dev)
+    b1_long = tc.long_attention_inputs(4, 1500, seed=1, dev=dev, H=8)
+    q8 = fc.int8_inputs(*cs.INT8_SHAPES[0], seed=cs.INT8_SHAPES[0][1], dev=dev)
     mi = kc.merge_inputs(256, 10, seed=10, dev=dev, blank_lp=True)
     bt = kc.backtrace_inputs(156, 256, 10, 2, V=cs.FLAGSHIP["VOCAB"], seed=156, dev=dev)
+    from espresso_tpu_torch.ops import quantization as qz
+
     calls = {
-        "rel_attention.cu": lambda: ak.rel_attention(*b1),
+        "rel_attention.cu": lambda: (ak.rel_attention(*b1), ak.rel_attention(*b1_long)),
         "rnnt_joint_lp.cu": lambda: rk.rnnt_joint_lp(*ja, 0),
         "rnnt_joint_bwd.cu": lambda: rk.rnnt_joint_bwd(*ja, lse, ob, ol, 0),
         "rel_attention_train.cu": lambda: ak.rel_attention_train_bwd(
@@ -255,6 +281,7 @@ def main() -> int:
         "aes_merge.cu": lambda: dk.aes_merge(**mi, round_j=1),
         "aes_backtrace.cu": lambda: dk.aes_backtrace(**bt, n_exp=2),
         "fbank.cu": lambda: fk.fbank_fused(w["waveforms"], w["num_samples"]),
+        "int8_matmul.cu": lambda: qz.int8_matmul(q8["x"], q8["w_q"], q8["w_scale"]),
     }
     only = set(sys.argv[1:]) or set(calls)
     runs = [(src, 0, "nothing") for src in calls]
@@ -272,13 +299,15 @@ def main() -> int:
         ak._train_lib.cache_clear()
         fk._lib.cache_clear()
         dk._fn.cache_clear()
+        qz._lib.cache_clear()
         # each kernel's mean time a launch (each launches once a call): a
         # trace that dropped some launches' records reads it as it is
         split = cs.device_split(calls[target], calls=20, per_launch=True)
         kernels = {}
         for name, ms in split.items():
             m = re.search(r"(rnnt_joint_\w+?_kernel|rel_attention\w*?_kernel|aes_merge_kernel|"
-                          r"aes_backtrace_kernel|fbank_kernel)", name)
+                          r"aes_backtrace_kernel|fbank_kernel|quantize_rows_kernel|"
+                          r"int8_gemm_kernel)", name)
             if m:
                 kernels[m.group(1)] = ms
         print(json.dumps({"source": target, "variant": exp, "left_out": what, "ms": kernels}),

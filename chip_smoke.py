@@ -105,6 +105,15 @@ BEAM = dict(
 # memory past them, up to the longest T' it takes)
 ATTN_SHAPES = [(256, 156), (4, 2), (4, 37), (2, 1024), (3, 1), (3, 63), (3, 64), (3, 65),
                (3, 129), (3, 200), (2, 1344)]
+# the long-row mode of B1 (T' past 1344: no score row in shared memory) at
+# two heads (the plain version gathers a [T, T, H, d] position table: 17 GB
+# at T' = 4096 and eight heads), ragged key masks; timed at 4 utterances of
+# T' = 1500 (60 s of audio) and eight heads
+ATTN_LONG_SHAPES = [(3, 1345), (2, 1500), (2, 2048), (1, 4096)]
+ATTN_LONG_TIMED = (4, 1500)
+# a layer past its relative table (encoder_relative_max_size L < T'): the
+# port expands the table and runs the kernels (T', L)
+CLIPPED_LAYER = (300, 64)
 # B6's edge shapes beside the flagship: (B, K, V, J = H, n, fold eos, label bias)
 JOINT_EDGES = [
     (256, 10, 5003, 512, 12, False, False), (4, 4, 5003, 512, 6, True, True),
@@ -113,6 +122,14 @@ JOINT_EDGES = [
     (8, 4, 1032, 128, 32, False, True), (8, 4, 1024, 640, 1, True, False),
     (3, 4, 67, 128, 1, False, True),
 ]
+# B6's wide instance (J or H above 1024): (B, K, V, J, H, n, fold eos, label
+# bias); timed at the flagship's beam batch with J = H = 2048
+JOINT_WIDE = [
+    (256, 10, 1024, 1088, 1088, 12, False, False), (256, 10, 5003, 2048, 2048, 12, False, False),
+    (255, 10, 1024, 2048, 2048, 32, True, True), (8, 4, 5003, 1088, 1088, 12, False, True),
+    (3, 4, 1032, 2048, 512, 1, True, False), (5, 4, 1024, 512, 2048, 16, False, True),
+]
+JOINT_WIDE_TIMED = 2048
 # B7's: (B, K, H, L, share of live rows)
 LSTM_EDGES = [
     (1, 1, 512, 2, 0.8), (3, 4, 512, 3, 0.8), (1, 12, 512, 2, 0.8), (255, 10, 512, 2, 0.8),
@@ -144,6 +161,14 @@ ATTN_TRAIN_SHAPES = [(16, 256), (3, 1), (3, 2), (3, 37), (40, 64)]
 # past them, up to the longest T' it takes), the last utterance with one
 # valid key: the forward alone, at dropout 0 and 0.1
 ATTN_TRAIN_FWD_EDGES = [(3, 63), (3, 64), (3, 65), (3, 129), (3, 192), (3, 193), (2, 1408)]
+# the forward's long-row mode (past T' = 1408) and the backward at the same
+# lengths, rates 0 and 0.1; timed at 2 utterances of T' = 2048
+ATTN_TRAIN_LONG_SHAPES = [(2, 1409), (2, 1500), (1, 2048), (1, 4096)]
+ATTN_TRAIN_LONG_TIMED = (2, 2048)
+# long utterances past the flagship's relative table (1024): the flagship's
+# width at two layers, B=2 utterances of 6000 frames (T' = 1500, 60 s, the
+# data config's max_source_positions), an encoder pass and a train step
+LONG_UTT = dict(B=2, T_FRAMES=6000, LAYERS=2, U=100)
 # (B, T', U, V, blank): the flagship, V=5003 with the blank in the third
 # 64-column tile, a small ragged edge, T'=1, and U=0 (U1=1); then V=67 and
 # V=5003 with the blank in the last column, an odd number of 64-row tiles
@@ -190,6 +215,10 @@ BACKTRACE_EDGES = [(T, K) for T in (1, 37, 156, 1024) for K in (1, 4, 10, 20, 33
 # one, S not a multiple of the shift, S odd, B = 1, the PCM-fed train point
 FBANK_EDGES = [([399, 400, 16000], 16000), ([250], 250), ([4321], 4321),
                ([16161, 401, 9999], 16161), ([400], 400), ([164080] * 16, 164080)]
+# B10 at 8 kHz (window 200, shift 80: a 256-point DFT), and the serving
+# batch's frame counts at 8 kHz
+FBANK_8K = [([8200, 4500, 150], 8200), ([201], 201), ([4321], 4321)]
+SHIFT_8K, WINDOW_8K = 80, 200
 # B11's shapes: the flagship FFN's two products over a serving batch's
 # encoder frames (256 x 156), and a ragged edge
 INT8_SHAPES = [(39936, 512, 2048), (39936, 2048, 512), (1000, 200, 300)]
@@ -462,6 +491,26 @@ def check_attention(dev) -> dict:
             # positions
             row["sdpa_fwd_ms"] = sdpa_fwd_ms(B, T, H, D // H, dev)
             log(f"rel_attention flagship: sdpa forward {row['sdpa_fwd_ms']} ms device")
+    # the long-row mode
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    for B, T in ATTN_LONG_SHAPES:
+        err = tc.check_rel_attention(*tc.long_attention_inputs(B, T, seed=T, dev=dev))
+        log(f"rel_attention long rows B={B} T'={T} H=2: max_abs_err {err} (bound 2 bf16 ulps)")
+        worst = max(worst, err)
+    B, T = ATTN_LONG_TIMED
+    args = tc.long_attention_inputs(B, T, seed=1, dev=dev, H=H)
+    n_bytes = (5 * B * T * D + (2 * T - 1) * D) * 2 + B * T
+    row["long_bound_ms"] = bound(n_bytes, 6 * B * T * T * D, PEAK_BF16)[0]
+    long = time_pair("rel_attention long rows", lambda: rel_attention(*args),
+                     lambda: rel_attention_reference(*args), "rel_attention_long_kernel",
+                     plain_calls=3, per_call=1)
+    row["long_ms"], row["long_plain_ms"] = long["ms"], long["plain_ms"]
+    log(f"rel_attention long rows B={B} T'={T}: bound {row['long_bound_ms']} ms")
+    del args
+    # a layer past its relative table: the expanded table through B1, B2, B3
+    T, L = CLIPPED_LAYER
+    log(f"clipped table layer T'={T} L={L}: {tc.check_clipped_table_layer(dev, T=T, L=L)}")
     row["max_abs_err"] = worst
     return row
 
@@ -499,6 +548,19 @@ def check_decode_kernels(dev) -> dict:
     x1, x2 = a["feat"].contiguous(), a["enc_t"]
     wd, wo = a["w_dec"].contiguous(), a["w_out"].contiguous()
     row["cublas_products_ms"] = device_ms(lambda: (x1 @ wd, x2 @ wo))
+    # the wide instance
+    for Bx, Kx, Vx, Jx, Hx, nx, fold, bias in JOINT_WIDE:
+        a = kc.joint_inputs(Bx, Kx, Vx, Jx, Hx, seed=Vx + Jx + Hx + nx, dev=dev, bias=bias)
+        errs.append(kc.check_joint(a, Kx, nx, blank=0, eos=2, fold=fold))
+    log(f"fused_joint_topk wide instance max_abs_err per shape {errs[-len(JOINT_WIDE):]}")
+    Jw = JOINT_WIDE_TIMED
+    a = kc.joint_inputs(B, K, V, Jw, Jw, seed=1, dev=dev)
+    n_bytes = (2 * BK * Jw + Jw * Jw + Jw * V) * 2 + (BK + 3 * Jw + V) * 4 + BK * 4 + BK * n * 8
+    row["wide_bound_ms"] = bound(n_bytes, 2 * BK * Jw * (Jw + V), PEAK_BF16)[0]
+    wide = time_pair(f"fused_joint_topk J=H={Jw}", lambda: dk.fused_joint_topk(**a, K=K, n_cand=n),
+                     lambda: dk.fused_joint_topk_reference(**a, K=K, n_cand=n), "", per_call=1)
+    row["wide_ms"], row["wide_plain_ms"] = wide["ms"], wide["plain_ms"]
+    log(f"fused_joint_topk J=H={Jw}: bound {row['wide_bound_ms']} ms")
     rows["fused_joint_topk"] = dict(row, max_abs_err=max(errs))
 
     # lstm_step_reorder: the flagship, then BK = 1, 12 and 2550, H = 64 and
@@ -598,10 +660,40 @@ def check_train_kernels(dev) -> dict:
             err = tc.check_attention_train_fwd(a, H, rate)
             log(f"rel_attention_train_fwd B={B} T'={T} rate {rate}: max_abs_err {err}")
             fwd_err = max(fwd_err, err)
+    for B, T in ATTN_TRAIN_LONG_SHAPES:
+        a = tc.attention_train_inputs(B, T, seed=T + B, dev=dev)
+        if B > 1:
+            a["key_valid"][-1] = torch.arange(T, device=dev) < 1
+        for rate in (0.0, 0.1):
+            errs = tc.check_attention_train(a, H, rate)
+            log(f"rel_attention_train long B={B} T'={T} rate {rate}: max_abs_err {errs}")
+            fwd_err = max(fwd_err, errs["out"])
+            bwd_err = max(bwd_err, *(v for k, v in errs.items() if k != "out"))
+    scale, rate = (D // H) ** -0.5, TRAIN["DROPOUT"]
+    # the long lengths timed: the forward's long-row mode and the backward
+    B, T = ATTN_TRAIN_LONG_TIMED
+    a = tc.attention_train_inputs(B, T, seed=3, dev=dev)
+    args = (a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"])
+    long = {
+        "fwd": time_pair(
+            "rel_attention_train_fwd long rows",
+            lambda: ak.rel_attention_train_fwd(*args, a["seed"], H, scale, rate),
+            lambda: ak.rel_attention_train_reference(*args, H, scale, rate, a["seed"]),
+            "rel_attention_train_fwd_long_kernel", plain_calls=3, per_call=1),
+        "bwd": time_pair(
+            "rel_attention_train_bwd long",
+            lambda: ak.rel_attention_train_bwd(*args, a["seed"], a["g"], H, scale, rate),
+            lambda: ak.rel_attention_train_backward_reference(*args, a["g"], H, scale, rate,
+                                                              a["seed"]),
+            "rel_attention_train_bwd", plain_calls=2),
+    }
+    long_bytes = {"fwd": (5 * B * T * D + (2 * T - 1) * D) * 2 + B * T,
+                  "bwd": (9 * B * T * D + (2 * T - 1) * D) * 2 + (2 * T - 1) * D * 4 + B * T}
+    long_flops = {"fwd": 6 * B * T * T * D, "bwd": 16 * B * T * T * D}
+    del a, args
     B, T = ATTN_TRAIN_SHAPES[0]
     a = tc.attention_train_inputs(B, T, seed=T, dev=dev)
     args = (a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"])
-    scale, rate = (D // H) ** -0.5, TRAIN["DROPOUT"]
     # forward: q_u, q_v, k, v and the output [B, T, D] bf16, p, the mask;
     # ac, bd and w @ v at 2 B T^2 D operations each
     n_bytes = (5 * B * T * D + (2 * T - 1) * D) * 2 + B * T
@@ -638,6 +730,12 @@ def check_train_kernels(dev) -> dict:
     log(f"rel_attention_train_bwd flagship: every kernel of the call {row['ms_all_kernels']} ms, "
         f"split {device_split(bwd_fn)}; sdpa backward {row['sdpa_bwd_ms']} ms device")
     rows["rel_attention_train_bwd"] = dict(row, max_abs_err=bwd_err)
+    for part, name in (("fwd", "rel_attention_train_fwd"), ("bwd", "rel_attention_train_bwd")):
+        rows[name].update(
+            long_ms=long[part]["ms"], long_plain_ms=long[part]["plain_ms"],
+            long_bound_ms=bound(long_bytes[part], long_flops[part], PEAK_BF16)[0])
+        log(f"{name} long B={ATTN_TRAIN_LONG_TIMED[0]} T'={ATTN_TRAIN_LONG_TIMED[1]}: "
+            f"bound {rows[name]['long_bound_ms']} ms")
 
     # rnnt_joint_lp and rnnt_joint_bwd
     lp_err = bwd_err = 0.0
@@ -770,6 +868,28 @@ def check_front_kernels(dev) -> dict:
                                 kernel="fbank_kernel", per_call=1)
     row["train_bound_ms"] = bound(Bt * St * 4 + Bt * Tt * M * 4 + 8 * Bt,
                                   fft_flops / valid * Bt * Tt, PEAK_FP32)[0]
+    # 8 kHz: edge counts, then the serving batch's frame counts at 8 kHz
+    # (S = (T - 1) 80 + 200), timed, its bound from the 256-point function
+    for nums, S_edge in FBANK_8K:
+        for bins in (M, 40):
+            errs.append(fc.check_fbank(
+                fc.waveform_inputs(nums, S_edge, seed=S_edge + 8, dev=dev, sample_rate=8000.0),
+                num_mel_bins=bins, sample_rate=8000.0))
+    lengths = flagship_lengths(np.random.default_rng(0))
+    ns8 = ((lengths - 1) * SHIFT_8K + WINDOW_8K).tolist()
+    S8 = (T - 1) * SHIFT_8K + WINDOW_8K
+    a8 = fc.waveform_inputs(ns8, S8, seed=8, dev=dev, sample_rate=8000.0)
+    errs.append(fc.check_fbank(a8, sample_rate=8000.0))
+    log(f"fbank 8 kHz errors per shape {errs[-2 * len(FBANK_8K) - 1:]}")
+    nnz8 = int(np.count_nonzero(fk._dft_mel_matrices(WINDOW_8K, 256, M, 8000.0)[2]))
+    valid8 = int(lengths.sum())
+    flops8 = valid8 * (2.5 * 256 * 8 + 3 * 129 + 2 * nnz8 + 5 * WINDOW_8K + M)
+    row["khz8_bound_ms"] = bound(B * S8 * 4 + B * T * M * 4 + 8 * B, flops8, PEAK_FP32)[0]
+    khz8 = time_pair("fbank 8 kHz", lambda: fk.fbank_fused(a8["waveforms"], a8["num_samples"], 8000.0),
+                     lambda: fk.fbank_plain(a8["waveforms"], a8["num_samples"], 8000.0),
+                     "fbank_kernel", per_call=1)
+    row["khz8_ms"], row["khz8_plain_ms"] = khz8["ms"], khz8["plain_ms"]
+    log(f"fbank 8 kHz serving batch B={B} S={S8}: bound {row['khz8_bound_ms']} ms")
     rows["fbank"] = dict(row, max_abs_err=max(e["log"] for e in errs), valid_frames=valid,
                          linear_err=max(e["linear"] for e in errs))
     log(f"fbank serving-batch bound: {row['bound_ms']} ms ({row['bound_by']}, {valid} valid "
@@ -793,7 +913,23 @@ def check_front_kernels(dev) -> dict:
             f"int8_matmul {M_}x{K_}x{N_}", lambda: qz.int8_matmul(q["x"], q["w_q"], q["w_scale"]),
             lambda: qz.int8_matmul_plain(q["x"], q["w_q"], q["w_scale"]), "", plain_calls=3,
         ))
-        log(f"int8_matmul {M_}x{K_}x{N_} bound: {r['bound_ms']} ms ({r['bound_by']})")
+        # the row pass and the product apart (mean of one launch), and a
+        # yardstick, not the same function (no quantization, no scales): the
+        # int8 product alone through torch._int_mm
+        xq = torch.randint(-127, 128, (M_, K_), dtype=torch.int8, device=dev)
+        split = device_split(lambda: qz.int8_matmul(q["x"], q["w_q"], q["w_scale"]),
+                             per_launch=True)
+        r["row_pass_ms"] = sum(v for k, v in split.items() if "quantize_rows" in k)
+        r["product_ms"] = sum(v for k, v in split.items() if "int8_gemm" in k)
+        try:
+            r["int_mm_ms"] = device_ms(lambda: torch._int_mm(xq, q["w_q"]))
+        except RuntimeError as e:  # the yardstick only: the kernel was held above
+            r["int_mm_ms"] = None
+            log(f"torch._int_mm at {M_}x{K_}x{N_} did not run: {e}")
+        log(f"int8_matmul {M_}x{K_}x{N_} bound: {r['bound_ms']} ms ({r['bound_by']}); row pass "
+            f"{r['row_pass_ms']} ms, product {r['product_ms']} ms a launch; torch._int_mm "
+            f"{r['int_mm_ms']} ms")
+        del xq
         if i == 0:
             rows["int8_matmul"] = dict(r, max_abs_err=max(errs))
         else:
@@ -806,7 +942,7 @@ def check_front_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def flagship_model(dev):
+def flagship_model(dev, layers: int = 16):
     from espresso_tpu_torch.models.speech_transformer import SpeechTransformerConfig
     from espresso_tpu_torch.models.transducer import TransducerConfig, TransducerModel
 
@@ -814,7 +950,7 @@ def flagship_model(dev):
         feat_dim=FLAGSHIP["FEAT"],
         vocab_size=FLAGSHIP["VOCAB"],
         encoder=SpeechTransformerConfig(
-            encoder_embed_dim=512, encoder_ffn_dim=2048, encoder_layers=16,
+            encoder_embed_dim=512, encoder_ffn_dim=2048, encoder_layers=layers,
             encoder_heads=8, depthwise_conv_kernel_size=31,
         ),
         pred_embed_dim=512, pred_hidden_size=512, pred_layers=2, joint_dim=512,
@@ -1023,9 +1159,8 @@ def run_beam(model, batch, dev, enc_ms: float, T_enc: int) -> dict:
     )
 
 
-def compare_encoder(model, batch) -> float:
+def compare_encoder(model, batch, sub=slice(0, 8)) -> float:
     """The encoder output on a sub-batch: kernel vs plain attention."""
-    sub = slice(0, 8)
     frames, lengths = batch["src_frames"][sub], batch["src_lengths"][sub]
     with torch.no_grad():
         out = model.encode(frames, lengths).encoder_out.float()
@@ -1205,7 +1340,7 @@ def train_kernels():
     return {f.__name__: f for f in fns}
 
 
-def train_model(dev, dropout: float):
+def train_model(dev, dropout: float, layers: int = 16):
     """The flagship with fp32 weights from a seeded init; the train state
     makes the bf16 compute copies."""
     from espresso_tpu_torch.models.speech_transformer import SpeechTransformerConfig
@@ -1215,7 +1350,7 @@ def train_model(dev, dropout: float):
         feat_dim=FLAGSHIP["FEAT"],
         vocab_size=FLAGSHIP["VOCAB"],
         encoder=SpeechTransformerConfig(
-            encoder_embed_dim=512, encoder_ffn_dim=2048, encoder_layers=16,
+            encoder_embed_dim=512, encoder_ffn_dim=2048, encoder_layers=layers,
             encoder_heads=8, depthwise_conv_kernel_size=31, dropout=dropout,
         ),
         pred_embed_dim=512, pred_hidden_size=512, pred_layers=2, pred_dropout=dropout,
@@ -1517,6 +1652,64 @@ def run_train_from_pcm(dev, tmpdir: str, frame_ms: float) -> dict:
                                  noised_leaves=len(probe.leaves)))
 
 
+def run_long_utterances(dev) -> dict:
+    """Utterances past the flagship's relative table (encoder_relative_max_size
+    1024): the flagship's width at LONG_UTT's depth, an encoder pass in bf16
+    (the table expanded, B1 once a layer; the output against the plain
+    attention, ENCODER_ATOL) and a train step (B2 and B3 once a layer, the
+    joint kernels once; finite loss and gradient norm)."""
+    B, T, layers, U = LONG_UTT["B"], LONG_UTT["T_FRAMES"], LONG_UTT["LAYERS"], LONG_UTT["U"]
+    V = FLAGSHIP["VOCAB"]
+    rng = np.random.default_rng(5)
+    frames = rng.standard_normal((B, T, FLAGSHIP["FEAT"]), np.float32)
+    lengths = np.array([T, 5 * T // 6], np.int32)[:B]
+    model = flagship_model(dev, layers)
+    table = model.encoder.rel_pos.max_size
+    kernels = {**all_kernels(), **train_kernels()}
+    for f in kernels.values():
+        f.launches = 0
+    batch = {"src_frames": torch.from_numpy(frames).to(dev, torch.bfloat16),
+             "src_lengths": torch.from_numpy(lengths).to(dev)}
+    with torch.no_grad():
+        enc = model.encode(batch["src_frames"], batch["src_lengths"])
+    torch.cuda.synchronize()
+    counts = {name: f.launches for name, f in kernels.items() if f.launches}
+    T_enc = enc.encoder_out.shape[1]
+    if T_enc <= table or counts != {"rel_attention": layers}:
+        raise AssertionError(f"long encoder pass T'={T_enc}: launches {counts}")
+    err = compare_encoder(model, batch, sub=slice(0, B))
+    out = {"T_enc": T_enc, "encoder_launches": counts, "encoder_max_abs_err": err}
+    del model, enc
+    torch.cuda.empty_cache()
+
+    model = train_model(dev, TRAIN["DROPOUT"], layers)
+    state, step = trainer(model)
+    tb = {
+        "src_frames": frames[None], "src_lengths": lengths[None],
+        "prev_output_tokens": rng.integers(4, V, (1, B, U + 1)).astype(np.int32),
+        "target": rng.integers(4, V, (1, B, U)).astype(np.int32),
+        "tgt_lengths": np.full((1, B), U, np.int32), "weight": np.ones((1, B), np.float32),
+    }
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in tb.items()}
+    for f in kernels.values():
+        f.launches = 0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, m = step(state, tb, gen)
+    loss, gnorm = m["loss"].item(), m["gnorm"].item()
+    counts = {name: f.launches for name, f in kernels.items() if f.launches}
+    want = {"rel_attention_train_fwd": layers, "rel_attention_train_bwd": layers,
+            "rnnt_joint_lp": 1, "rnnt_joint_bwd": 1}
+    if counts != want or not (math.isfinite(loss) and math.isfinite(gnorm)) or m["overflow"].item():
+        raise AssertionError(f"long train step: launches {counts} (want {want}), loss {loss}, "
+                             f"gnorm {gnorm}")
+    out.update(train_launches=counts, train_loss=loss, train_gnorm=gnorm)
+    log(f"long utterances B={B} T={T} (T'={T_enc} past the table's {table}), {layers} layers: "
+        f"{out}")
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def compare_train_step(dev) -> dict:
     """One step of a 2-utterance sub-batch at dropout 0 from one init,
     through the kernels and through the plain versions: the loss and the
@@ -1618,7 +1811,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_pcm = run_train_from_pcm(dev, tmp.name, train["ms_per_step"])
     tmp.cleanup()
-    print(json.dumps({"train": train, "train_from_pcm": train_pcm, "card": card}))
+    torch.cuda.empty_cache()
+    long_utt = run_long_utterances(dev)
+    print(json.dumps({"train": train, "train_from_pcm": train_pcm, "long_utterances": long_utt,
+                      "card": card}))
 
     sources = {
         "rel_attention": ("rel_attention.cu", "espresso_tpu/ops/attention_kernels.py:185"),
@@ -1661,12 +1857,17 @@ def main() -> int:
             # yardsticks, not library calls for the function: B4's, B5's, B6's
             # and B7's products alone through cuBLAS, scaled_dot_product_attention's
             # forward beside B1, with dropout beside B2 and backward beside B3,
-            # cuFFT's rfft beside B10; B3's and B5's whole device time a call,
-            # B10 at the train point, B8's wrapper host time a call
+            # cuFFT's rfft beside B10, torch._int_mm beside B11; B3's and B5's
+            # whole device time a call, B10 at the train point, B8's wrapper
+            # host time a call, B11's row pass and product apart
             **{k: r[k] for k in ("cublas_products_ms", "sdpa_fwd_ms", "sdpa_fwd_dropout_ms",
                                  "sdpa_bwd_ms",
                                  "ms_all_kernels", "cufft_ms", "train_ms", "train_bound_ms",
-                                 "host_us", "unfused_host_us") if k in r},
+                                 "host_us", "unfused_host_us", "int_mm_ms", "row_pass_ms",
+                                 "product_ms", "second_shape") if k in r},
+            # the shapes this slice added: the long-row mode (B1, B2; B3 at
+            # the same lengths), the wide joint (B6), 8 kHz (B10)
+            **{k: r[k] for k in r if k.split("_")[0] in ("long", "wide", "khz8")},
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

@@ -57,6 +57,14 @@
 // frame's M outputs are written together. A tile wholly past its
 // utterance's length only writes zeros.
 //
+// 8 kHz (a 200-sample window, shift 80: a 256-point DFT) runs the same
+// kernel: the frame is zero past its window, so the 256-point bins are the
+// 512-point even bins (X512[2 k] = X256[k] exactly), and the host's mel
+// schedule (fbank_kernels.kernel_mel_banks) reads those. The FFT then does
+// twice the work the 256-point transform needs; the precision plan, the
+// lanes and the tables' layout are those of 16 kHz. The 1024- and
+// 2048-point geometries (22.05 to 48 kHz) are not taken.
+//
 // C entry: fbank_f32(...) returns the CUDA error of the launch; it launches
 // on the given stream and does not synchronise.
 

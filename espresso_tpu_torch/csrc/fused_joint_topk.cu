@@ -75,6 +75,20 @@
 // per weight set (fused_joint_topk_tmaps) and the shared-memory limit and
 // the occupancy counts are asked once per kernel instance, not per call.
 //
+// Joints wider than 1024 (J or H up to 2048; the wide instance): the x
+// region (64 x max(H, J) bf16, 256 KB at 2048) and a CTA's share of d in
+// registers (2 tiles a warpgroup, C <= 4: J <= 1024) no longer fit. The
+// wide instance keeps 4 d tiles a warpgroup in registers (C = J / 512 at
+// J = 2048, still at most 4, so the final merge's lane-per-list layout
+// stands) and holds neither feat nor h in shared memory: each ring stage
+// brings, beside its weight tile, the operand block of the same k (feat by
+// a tensor map encoded per call; h from a global [BK, J] scratch that each
+// CTA writes for its own d columns and every CTA reads back by TMA once the
+// cluster's exchange point says all are written). h makes one round trip
+// through L2 (64 J bf16 a row tile, 256 KB at J = 2048) instead of the
+// distributed shared memory pull: every operand stays on one TMA path, and
+// no staging ring or larger (non-portable) cluster is needed.
+//
 // What holds it back now: the products are a small part of the time; the
 // per-row top-n work (a lane's sorting networks a tile, the final merge's n
 // dependent rounds a row) and the cluster's exchanges are most of it, and
@@ -98,7 +112,7 @@ constexpr int TN = 64;                  // columns per tile, d and logits
 constexpr int STAGES = 4;                // ring stages per consumer warpgroup
 constexpr int STAGE_BYTES = TN * 64 * 2;  // [64 x 64] bf16 weight tile
 constexpr int BLOCK_BYTES = RT * 128;     // a 64-column block of feat or h rows
-constexpr int MAXT = 2;                 // d tiles per consumer warpgroup
+constexpr int MAXT = 2;                 // d tiles per consumer warpgroup (the wide instance: 4)
 constexpr int LISTS = NCW * 4;          // per-row lists per CTA: (warpgroup, lane q)
 constexpr int NSTAT = 6;                // (m, s) for all, masked, biased
 constexpr int MAXC = 4;                 // cluster size: 8 C lists fill a warp
@@ -204,18 +218,27 @@ __device__ inline void merge_top(uint64_t (&lk)[N], float (&lv)[N], const uint64
     }
 }
 
+// the d tiles a consumer warpgroup keeps in registers, and the bytes of a
+// ring stage: a weight tile, and in the wide instance the operand block
+// (feat or h) that goes with it
+__host__ __device__ constexpr int max_tiles(bool wide) { return wide ? 2 * MAXT : MAXT; }
+__host__ __device__ constexpr int stage_bytes(bool wide) {
+  return wide ? STAGE_BYTES + BLOCK_BYTES : STAGE_BYTES;
+}
+
 struct Layout {  // dynamic shared memory, in bytes from the 1024-aligned base
   uint32_t x, ring, lists, stat, part, cta, blank, eos, bar, total;
 };
 
-// x: feat, then h, in 64-column swizzled blocks; ring: the weight stages;
-// lists alias both once they are dead (every CTA has pulled its h)
-__host__ __device__ inline Layout layout(int H, int J, int nmax) {
+// x: feat, then h, in 64-column swizzled blocks (none in the wide
+// instance); ring: the weight stages; lists alias both once they are dead
+// (every CTA has pulled its h)
+__host__ __device__ inline Layout layout(int H, int J, int nmax, bool wide) {
   Layout l;
   const int kh = (H + 63) / 64, kj = J / 64;
   l.x = 0;
-  l.ring = (uint32_t)(kh > kj ? kh : kj) * BLOCK_BYTES;
-  const uint32_t front = l.ring + NCW * STAGES * STAGE_BYTES;
+  l.ring = wide ? 0u : (uint32_t)(kh > kj ? kh : kj) * BLOCK_BYTES;
+  const uint32_t front = l.ring + NCW * STAGES * stage_bytes(wide);
   const uint32_t lists = (uint32_t)RT * LISTS * nmax * 8;
   l.lists = 0;
   l.stat = front > lists ? front : lists;
@@ -232,10 +255,19 @@ __device__ inline float2 bf2_to_f2(__nv_bfloat162 v) {
   return make_float2(__bfloat162float(v.x), __bfloat162float(v.y));
 }
 
-template <int NMAX, bool BIAS>
+// WIDE: J or H above 1024 (up to 2048). The feature rows and h do not fit
+// in shared memory, and a CTA keeps up to 2 MAXT d tiles a warpgroup in
+// registers: feat comes by TMA (tm_feat) into each ring stage beside its
+// W_dec tile; each CTA writes its h columns to the global scratch h_buf
+// [BK, J] and, once every CTA of the cluster has (the exchange point xb[1]
+// the producers wait on), h comes by TMA (tm_h) into each stage beside its
+// W_out tile. The other instances pass tm_feat, tm_h and h_buf unused.
+template <int NMAX, bool BIAS, bool WIDE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
                         const __grid_constant__ CUtensorMap tm_out,
+                        const __grid_constant__ CUtensorMap tm_feat,
+                        const __grid_constant__ CUtensorMap tm_h, bf16* __restrict__ h_buf,
                         const bf16* __restrict__ enc, const bf16* __restrict__ feat,
                         int feat_ld, const float* __restrict__ scores,
                         const float* __restrict__ b_dec, const float* __restrict__ ln_s,
@@ -248,7 +280,9 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles need 1024-byte alignment
   uint8_t* smem = smem_raw + (base - raw);
-  const Layout lay = layout(H, J, NMAX);
+  const Layout lay = layout(H, J, NMAX, WIDE);
+  constexpr int TMAX = max_tiles(WIDE);
+  constexpr uint32_t SB = stage_bytes(WIDE);
   // ring w feeds consumer warpgroup w alone: each warpgroup waits on its
   // slots' phases in order (a ring shared by warpgroups that take turns
   // would have one wait on a slot two phases ahead, which a parity wait
@@ -288,15 +322,24 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
     const bool leader = threadIdx.x % 32 == 0;
     int it = 0;
     for (int dec = 1; dec >= 0; --dec) {  // d tiles w, w + 2, ..., then logits tiles
+      if (WIDE && !dec) {
+        // every CTA's h columns are in h_buf (their writes, fenced to the
+        // async proxy, are released by the CTAs' arrivals)
+        sm90::mbar_wait_cluster(&xb[1], 0);
+        sm90::fence_proxy_async_global();
+      }
       for (int i = w; i < (dec ? nd : nv); i += NCW) {
         const int tile = r + i * C;
         for (int kb = 0; kb < (dec ? KH : KJ); ++kb, ++it) {
           const int slot = w * STAGES + it % STAGES;
           sm90::mbar_wait(&empty[slot], ((it / STAGES) & 1) ^ 1);
           if (leader) {
-            sm90::mbar_arrive_expect_tx(&full[slot], STAGE_BYTES);
-            sm90::tma_load_2d(ring + slot * STAGE_BYTES, dec ? &tm_dec : &tm_out, &full[slot],
-                              kb * 64, tile * TN);
+            sm90::mbar_arrive_expect_tx(&full[slot], SB);
+            sm90::tma_load_2d(ring + slot * SB, dec ? &tm_dec : &tm_out, &full[slot], kb * 64,
+                              tile * TN);
+            if (WIDE)
+              sm90::tma_load_2d(ring + slot * SB + STAGE_BYTES, dec ? &tm_feat : &tm_h,
+                                &full[slot], kb * 64, row0);
           }
           __syncwarp();
         }
@@ -310,23 +353,26 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
     float* sBlank = reinterpret_cast<float*>(smem + lay.blank);
     float* sEos = reinterpret_cast<float*>(smem + lay.eos);
 
-    // ---- the feature rows (rows past BK and columns past H are zero)
-    for (int i = threadIdx.x; i < RT * KH * 8; i += NCONS) {
-      const int row = i / (KH * 8), ch = i % (KH * 8), grow = row0 + row;
-      const bool ok = grow < BK && ch * 8 < H;
-      sm90::cp_async16(sX + (ch / 8) * BLOCK_BYTES + sm90::swz(row, ch % 8),
-                       ok ? feat + (size_t)grow * feat_ld + ch * 8 : feat, ok);
+    // ---- the feature rows (rows past BK and columns past H are zero; the
+    // wide instance's come through the ring)
+    if (!WIDE) {
+      for (int i = threadIdx.x; i < RT * KH * 8; i += NCONS) {
+        const int row = i / (KH * 8), ch = i % (KH * 8), grow = row0 + row;
+        const bool ok = grow < BK && ch * 8 < H;
+        sm90::cp_async16(sX + (ch / 8) * BLOCK_BYTES + sm90::swz(row, ch % 8),
+                         ok ? feat + (size_t)grow * feat_ld + ch * 8 : feat, ok);
+      }
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<0>();
+      sm90::fence_proxy_async();
+      sm90::named_sync(1, NCONS);
     }
-    sm90::cp_async_commit();
-    sm90::cp_async_wait<0>();
-    sm90::fence_proxy_async();
-    sm90::named_sync(1, NCONS);
 
     // ---- d = feat @ W_dec + b_dec for this CTA's d tiles (local i = cw + 2 s)
     int it = 0;  // this warpgroup's position in its ring
-    float dv[MAXT][32];
+    float dv[TMAX][32];
 #pragma unroll
-    for (int s = 0; s < MAXT; ++s) {
+    for (int s = 0; s < TMAX; ++s) {
       const int i = cw + 2 * s;
 #pragma unroll
       for (int e = 0; e < 32; ++e) dv[s][e] = 0.f;
@@ -338,8 +384,11 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
         sm90::wgmma_fence();
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          sm90::wgmma_ss_n64<0, 0>(dv[s], sm90::wgmma_desc(sX + kb * BLOCK_BYTES + 32 * k),
-                                   sm90::wgmma_desc(ring + slot * STAGE_BYTES + 32 * k), 1);
+          sm90::wgmma_ss_n64<0, 0>(
+              dv[s],
+              sm90::wgmma_desc((WIDE ? ring + slot * SB + STAGE_BYTES : sX + kb * BLOCK_BYTES) +
+                               32 * k),
+              sm90::wgmma_desc(ring + slot * SB + 32 * k), 1);
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();  // the previous stage's products are done
         if (prev >= 0 && t == 0) sm90::mbar_arrive(&empty[prev]);
@@ -362,7 +411,7 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
     {
       float ps[2] = {0.f, 0.f}, lm[2];
 #pragma unroll
-      for (int s = 0; s < MAXT; ++s) {
+      for (int s = 0; s < TMAX; ++s) {
         if (cw + 2 * s >= nd) continue;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
@@ -383,7 +432,7 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
         ps[h] = 0.f;
       }
 #pragma unroll
-      for (int s = 0; s < MAXT; ++s) {
+      for (int s = 0; s < TMAX; ++s) {
         if (cw + 2 * s >= nd) continue;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
@@ -434,9 +483,11 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
     }
 
     // ---- h = bf16(relu(enc + d)) for this CTA's d tiles, into x (feat is
-    // dead: both warpgroups passed the barriers above after their products)
+    // dead: both warpgroups passed the barriers above after their products),
+    // or in the wide instance into h_buf (rows past BK not stored: a
+    // predicate, not a branch over dv)
 #pragma unroll
-    for (int s = 0; s < MAXT; ++s) {
+    for (int s = 0; s < TMAX; ++s) {
       const int i = cw + 2 * s;
       if (i >= nd) continue;
       const int td = r + i * C;
@@ -451,22 +502,29 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
                                       : make_float2(0.f, 0.f);
           const float d0 = (dv[s][4 * j + 2 * h] - mu[h]) * rs[h] * ln_s[c] + ln_b[c];
           const float d1 = (dv[s][4 * j + 2 * h + 1] - mu[h]) * rs[h] * ln_s[c + 1] + ln_b[c + 1];
-          *reinterpret_cast<__nv_bfloat162*>(smem + lay.x + td * BLOCK_BYTES +
-                                             sm90::swz(row, j) + 4 * q) =
-              __halves2bfloat162(__float2bfloat16(fmaxf(ev.x + d0, 0.f)),
-                                 __float2bfloat16(fmaxf(ev.y + d1, 0.f)));
+          const __nv_bfloat162 hv = __halves2bfloat162(__float2bfloat16(fmaxf(ev.x + d0, 0.f)),
+                                                       __float2bfloat16(fmaxf(ev.y + d1, 0.f)));
+          if (WIDE)
+            sm90::st_global_if(h_buf + (size_t)(grow < BK ? grow : 0) * J + c,
+                               *reinterpret_cast<const uint32_t*>(&hv), grow < BK);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(smem + lay.x + td * BLOCK_BYTES +
+                                               sm90::swz(row, j) + 4 * q) = hv;
         }
       }
     }
-    sm90::fence_proxy_async();
+    if (WIDE)
+      sm90::fence_proxy_async_global();
+    else
+      sm90::fence_proxy_async();
     sm90::fence_cluster();
     sm90::named_sync(1, NCONS);
     if (threadIdx.x == 0)
       for (int c = 0; c < C; ++c) sm90::mbar_arrive_remote(&xb[1], c);
-    sm90::mbar_wait_cluster(&xb[1], 0);
+    if (!WIDE) sm90::mbar_wait_cluster(&xb[1], 0);
     // pull the other CTAs' h columns (d tile td lives in CTA td % C), four
-    // 16-byte loads in flight per thread
-    for (int i0 = threadIdx.x; i0 < KJ * (BLOCK_BYTES / 16); i0 += 4 * NCONS) {
+    // 16-byte loads in flight per thread (the wide instance reads h by TMA)
+    for (int i0 = threadIdx.x; !WIDE && i0 < KJ * (BLOCK_BYTES / 16); i0 += 4 * NCONS) {
       uint4 v[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -521,8 +579,11 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
         sm90::wgmma_fence();
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          sm90::wgmma_ss_n64<0, 0>(acc, sm90::wgmma_desc(sX + kb * BLOCK_BYTES + 32 * k),
-                                   sm90::wgmma_desc(ring + slot * STAGE_BYTES + 32 * k), 1);
+          sm90::wgmma_ss_n64<0, 0>(
+              acc,
+              sm90::wgmma_desc((WIDE ? ring + slot * SB + STAGE_BYTES : sX + kb * BLOCK_BYTES) +
+                               32 * k),
+              sm90::wgmma_desc(ring + slot * SB + 32 * k), 1);
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();  // the previous stage's products are done
         if (prev >= 0 && t == 0) sm90::mbar_arrive(&empty[prev]);
@@ -701,14 +762,14 @@ fused_joint_topk_kernel(const __grid_constant__ CUtensorMap tm_dec,
 }
 
 
-template <int NMAX, bool BIAS>
-int launch(const CUtensorMap* maps, const void* enc, const void* feat, int feat_ld,
+template <int NMAX, bool BIAS, bool WIDE>
+int launch(const CUtensorMap* maps, void* h_buf, const void* enc, const void* feat, int feat_ld,
            const void* scores, const void* b_dec, const void* ln_s, const void* ln_b,
            const void* b_out, const void* bias, void* blank_out, void* vals_out,
            void* flat_out, void* factor_out, int BK, int H, int J, int V, int K, int n,
            int blank, int eos, cudaStream_t stream) {
-  auto kernel = fused_joint_topk_kernel<NMAX, BIAS>;
-  const int smem = (int)layout(H, J, NMAX).total + 1024;
+  auto kernel = fused_joint_topk_kernel<NMAX, BIAS, WIDE>;
+  const int smem = (int)layout(H, J, NMAX, WIDE).total + 1024;
   static int smem_set = 0;  // raised once per kernel instance, to the largest seen
   if (smem > smem_set) {
     const cudaError_t err =
@@ -727,13 +788,13 @@ int launch(const CUtensorMap* maps, const void* enc, const void* feat, int feat_
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // the cluster size: each CTA holds at most NCW * MAXT of the J / 64 d
+  // the cluster size: each CTA holds at most NCW * max_tiles of the J / 64 d
   // tiles; among those sizes, the least time per row tile, i.e. waves of
   // co-resident clusters (as the card can place them) over C, ties to the
   // smaller C (fewer waves). The counts are asked once per size and
   // shared-memory size.
   static int occ_smem[MAXC + 1] = {0}, occ[MAXC + 1] = {0};
-  const int need = (J / 64 + NCW * MAXT - 1) / (NCW * MAXT);
+  const int need = (J / 64 + NCW * max_tiles(WIDE) - 1) / (NCW * max_tiles(WIDE));
   int clusters = 0, best_waves = 0;
   for (int c = need; c <= MAXC; ++c) {
     if (occ_smem[c] != smem) {
@@ -756,7 +817,8 @@ int launch(const CUtensorMap* maps, const void* enc, const void* feat, int feat_
   attr[0].val.clusterDim.x = clusters;
   cfg.gridDim = dim3(row_tiles * clusters);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, maps[0], maps[1], static_cast<const bf16*>(enc),
+      &cfg, kernel, maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(h_buf),
+      static_cast<const bf16*>(enc),
       static_cast<const bf16*>(feat), feat_ld, static_cast<const float*>(scores),
       static_cast<const float*>(b_dec), static_cast<const float*>(ln_s),
       static_cast<const float*>(ln_b), static_cast<const float*>(b_out),
@@ -787,12 +849,14 @@ int fused_joint_topk_tmaps(const void* wdT, const void* woT, int H, int J, int V
 // maps of fused_joint_topk_tmaps; b_dec, ln_s, ln_b [J] and b_out [V] fp32;
 // bias [BK, V] fp32 or null (then factor_out is unused); outputs blank_out
 // [BK], vals_out [BK, n] fp32, flat_out [BK, n] int32 (row % K * V +
-// column), factor_out [BK] fp32. J % 64 == 0, J <= 1024, H % 16 == 0, H <=
-// 1024, 1 <= n <= 32; eos < 0 when no eos column is folded into blank.
+// column), factor_out [BK] fp32. J % 64 == 0, J <= 2048, H % 16 == 0, H <=
+// 2048, 1 <= n <= 32; eos < 0 when no eos column is folded into blank. J or
+// H above 1024 take the wide instance, which needs h_buf [BK, J] bf16
+// scratch (16-byte aligned; null otherwise) and feat_ld a multiple of 8.
 // Launches on `stream` of card `device`; returns the CUDA error code (0 on
 // success).
 int fused_joint_topk_bf16(const void* enc, const void* feat, int feat_ld,
-                          const void* scores, const void* tmaps, const void* b_dec,
+                          const void* scores, const void* tmaps, void* h_buf, const void* b_dec,
                           const void* ln_s, const void* ln_b, const void* b_out,
                           const void* bias, void* blank_out, void* vals_out, void* flat_out,
                           void* factor_out, int BK, int H, int J, int V, int K, int n, int blank,
@@ -801,16 +865,33 @@ int fused_joint_topk_bf16(const void* enc, const void* feat, int feat_ld,
   // PyTorch's: select the tensors' card explicitly
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n < 1 || n > 32 || J % 64 != 0 || J > 1024 || H % 16 != 0 || H > 1024 || BK < 1)
+  if (n < 1 || n > 32 || J % 64 != 0 || J > 2048 || H % 16 != 0 || H > 2048 || BK < 1)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[2];
-  memcpy(maps, tmaps, sizeof(maps));
+  const bool wide = J > 1024 || H > 1024;
+  CUtensorMap maps[4];
+  memset(maps, 0, sizeof(maps));
+  memcpy(maps, tmaps, 2 * sizeof(CUtensorMap));
+  if (wide) {
+    // the feature rows [BK, H] at row stride feat_ld and h_buf [BK, J], in
+    // [64 x 64] boxes (zeros past BK and H)
+    if (h_buf == nullptr || feat_ld % 8 != 0) return (int)cudaErrorInvalidValue;
+    const uint64_t fdims[2] = {(uint64_t)H, (uint64_t)BK}, fstride[1] = {(uint64_t)feat_ld * 2};
+    const uint32_t box[2] = {64, RT};
+    int rc = sm90::encode_tmap_bf16_nd(&maps[2], feat, 2, fdims, fstride, box);
+    if (rc != 0) return rc;
+    rc = sm90::encode_tmap_bf16(&maps[3], h_buf, (uint64_t)BK, (uint64_t)J, RT);
+    if (rc != 0) return rc;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-#define FJT_LAUNCH(NM, BI)                                                                   \
-  launch<NM, BI>(maps, enc, feat, feat_ld, scores, b_dec, ln_s, ln_b, b_out, bias, blank_out, \
-                 vals_out, flat_out, factor_out, BK, H, J, V, K, n, blank, eos, s)
-  if (n <= 16) return bias ? FJT_LAUNCH(16, true) : FJT_LAUNCH(16, false);
-  return bias ? FJT_LAUNCH(32, true) : FJT_LAUNCH(32, false);
+#define FJT_LAUNCH(NM, BI, WI)                                                                \
+  launch<NM, BI, WI>(maps, h_buf, enc, feat, feat_ld, scores, b_dec, ln_s, ln_b, b_out, bias,  \
+                     blank_out, vals_out, flat_out, factor_out, BK, H, J, V, K, n, blank, eos, s)
+  if (wide) {
+    if (n <= 16) return bias ? FJT_LAUNCH(16, true, true) : FJT_LAUNCH(16, false, true);
+    return bias ? FJT_LAUNCH(32, true, true) : FJT_LAUNCH(32, false, true);
+  }
+  if (n <= 16) return bias ? FJT_LAUNCH(16, true, false) : FJT_LAUNCH(16, false, false);
+  return bias ? FJT_LAUNCH(32, true, false) : FJT_LAUNCH(32, false, false);
 #undef FJT_LAUNCH
 }
 

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
 // (lstm_step_reorder.cu, fused_joint_topk.cu, rnnt_joint_lp.cu,
-// rnnt_joint_bwd.cu, aes_backtrace.cu, rel_attention.cu and
+// rnnt_joint_bwd.cu, aes_backtrace.cu, int8_matmul.cu, rel_attention.cu and
 // rel_attention_train.cu, the last two through rel_attention_fwd.cuh):
 // shared-memory addresses, mbarriers
 // (local and across a thread-block cluster), TMA tile loads (2-D and 3-D)
 // and their tensor maps, cp.async with zero fill, wgmma descriptors for
 // K-major and MN-major tiles in the 128-byte swizzle and the bf16 m64nNk16
-// products (A from shared memory or registers), named barriers, the
-// cluster's distributed shared memory, and paired f32 atomics.
+// products (A from shared memory or registers), the s8 m64n256k32 product,
+// TMA stores, named barriers, the cluster's distributed shared memory, and
+// paired f32 atomics.
 //
 // Tile layout: every operand tile holds 64 bf16 (128 bytes) a row, rows 128
 // bytes apart, the 16-byte chunk c of row r stored at chunk c ^ (r % 8), and
@@ -171,6 +172,13 @@ __device__ inline void named_sync(uint32_t id, uint32_t threads) {
 // hands the data over
 __device__ inline void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// generic-proxy writes to global memory made visible to the async proxy
+// (TMA): a writer runs it before the barrier that hands the data over, and
+// a reader that then issues TMA loads of it runs it after that barrier
+__device__ inline void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
 }
 
 // 16 bytes global -> shared; zero-filled when !valid (src is then not read)
@@ -398,6 +406,73 @@ __device__ inline void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// ---- s8 wgmma and TMA stores ------------------------------------------------
+
+// The s8 m64n256k32 product with s32 accumulators (exact): A [64 x 32 k]
+// and B [256 x 32 k], both K-major from shared memory (s8 wgmma takes no
+// transpose), 128-byte swizzled as above: one row of a tile holds 128 k
+// bytes, and the k32 step inside it advances the start address by 32
+// bytes. The accumulator layout is the bf16 products' (thread (warp w,
+// lane 4g + q) holds rows 16w + g (d[4j], d[4j+1]) and 16w + g + 8 (d[4j+2],
+// d[4j+3]) of columns 8j + 2q, 8j + 2q + 1).
+__device__ inline void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// TMA store: the box at shared address `src` (written in the tensor map's
+// swizzle, and made visible to the async proxy by fence_proxy_async) to
+// (c0 = inner element, c1 = row) of a 2-D tensor map; the part of the box
+// past the tensor's edges is not written. One bulk group a commit.
+__device__ inline void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ inline void bulk_commit() { asm volatile("cp.async.bulk.commit_group;" ::: "memory"); }
+
+// wait until at most N committed bulk groups still read their shared memory
+template <int N>
+__device__ inline void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
 // ---- host: tensor maps ----------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -454,6 +529,27 @@ inline int encode_tmap_bf16(void* out, const void* ptr, uint64_t rows, uint64_t 
   const uint64_t dims[2] = {cols, rows}, strides[1] = {cols * 2};
   const uint32_t box[2] = {64, box_rows};
   return encode_tmap_bf16_nd(out, ptr, 2, dims, strides, box);
+}
+
+// a tensor map of the row-major 2-D tensor [rows, cols] of `type` at `ptr`
+// (16-byte aligned, row_bytes a multiple of 16), read or written in boxes of
+// box_cols x box_rows (box_cols x the element size at most 128 bytes) with
+// the 128-byte swizzle; boxes past the edges read zeros and write nothing.
+// Returns a CUDA error code (0 on success).
+inline int encode_tmap_2d(void* out, CUtensorMapDataType type, const void* ptr, uint64_t rows,
+                          uint64_t cols, uint64_t row_bytes, uint32_t box_cols,
+                          uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return (int)cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t d[2] = {cols, rows}, s[1] = {row_bytes};
+  const cuuint32_t b[2] = {box_cols, box_rows}, elem[2] = {1, 1};
+  const CUresult r = fn(&map, type, 2, const_cast<void*>(ptr), d, s, b, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  memcpy(out, &map, sizeof(map));
+  return 0;
 }
 
 inline int sm_count(int device) {

@@ -34,7 +34,10 @@
 // window} per key tile, then the V tiles three to a stage; ac, the bd window
 // and PV run on wgmma; the bd window is read skewed from shared memory; the
 // first two key tiles keep their scores in registers and the first three
-// their e (NR = 2, NE = 3).
+// their e (NR = 2, NE = 3). Past T' = 1344, where the score rows of the
+// later key tiles no longer fit in shared memory, the long-row mode of the
+// same block runs instead (two passes over the key tiles: the row's max and
+// sum of exps, then the scores again, w and PV; two blocks an SM).
 //
 // What holds it back (chip_kernel_ablation.py on an H100 at the flagship,
 // ~0.18 ms in all): the scores' scalar work (~0.08 ms), the bd window's
@@ -61,6 +64,14 @@ rel_attention_kernel(const __grid_constant__ Maps maps, const uint8_t* __restric
   attention_block<NR, NE>(maps, key_valid, out, T, H, scale_f, KeepAll{});
 }
 
+// the long-row mode (rel_attention_fwd.cuh) for the lengths whose score rows
+// do not fit in shared memory: two blocks an SM
+__global__ void __launch_bounds__(THREADS, 2)
+rel_attention_long_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ key_valid,
+                          bf16* __restrict__ out, int T, int H, float scale_f) {
+  attention_block_long(maps, key_valid, out, T, H, scale_f, KeepAll{});
+}
+
 }  // namespace
 
 extern "C" {
@@ -70,8 +81,8 @@ extern "C" {
 // `device`. Launches on `stream` (a stream of that card); returns the CUDA
 // error code of the first call that failed (0 on success). The shared
 // memory grows with T past 64 NR (64 x T bf16 scores); above T = 1344 it
-// exceeds the 227 KB a block may have and the launch is refused (the
-// wrapper raises first).
+// would exceed the 227 KB a block may have, and the long-row mode runs
+// instead (4 T bytes of key mask; the wrapper raises above T = 4096).
 int rel_attention_bf16(const void* q_u, const void* q_v, const void* k, const void* v,
                        const void* p, const void* key_valid, void* out, int B, int T, int H,
                        float scale, int device, void* stream) {
@@ -82,12 +93,13 @@ int rel_attention_bf16(const void* q_u, const void* q_v, const void* k, const vo
   Maps maps;
   const int rc = encode_maps(&maps, q_u, q_v, k, v, p, B, T, H);
   if (rc != 0) return rc;
-  const size_t smem = smem_bytes<NR>(T);
-  err = cudaFuncSetAttribute(rel_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const bool lr = long_rows<NR>(T);
+  const auto kernel = lr ? rel_attention_long_kernel : rel_attention_kernel;
+  const size_t smem = lr ? long_smem_bytes(T) : smem_bytes<NR>(T);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + TILE - 1) / TILE, H, B);
-  rel_attention_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       maps, static_cast<const uint8_t*>(key_valid), static_cast<bf16*>(out), T, H, scale);
   return (int)cudaGetLastError();
 }

@@ -447,6 +447,230 @@ __device__ __forceinline__ void attention_block(const Maps& maps,
   }
 }
 
+// ---- the long-row mode: no score row in shared memory
+//
+// Past the lengths whose score rows fit in shared memory (T' > 1344 at NR
+// = 2, > 1408 at NR = 3), a block runs two passes over the key tiles and
+// keeps only the f32 key mask (4 Tp bytes) in shared memory beside a ring
+// of two stages of {K, p window, V}:
+//   pass 1: per key tile, the ac and bd products, the skewed read and s as
+//     above; each lane folds its x = s + mask into an online (max, sum of
+//     exps) per row, one rescale a tile (e = exp(x - m_tile_run)); the four
+//     lanes of a row then combine theirs: M = max, Z = sum z exp(m - M);
+//   pass 2: per key tile, the products again (the same s), e = exp(x - M),
+//     w = bf16(hook(e * (1/Z), row, key)) formed as the PV product's A
+//     fragments (the hook where w is formed, as above), and PV with the
+//     stage's V tile, one commit group a tile.
+// Z sums the same e as the full-row softmax, rescaled once a tile, so it
+// lies within a few f32 ulps of it; the score arithmetic, the mask and the
+// keep draw are those of attention_block. The scores cost twice their
+// products and scalar work: the mode trades time for a length limit set by
+// the mask alone.
+
+struct LongLayout {
+  static constexpr uint32_t qu = 0, qv = BOX;
+  static constexpr uint32_t ring = 2 * BOX;          // S x {K, p window (2 boxes), V}
+  static constexpr uint32_t stage = 4 * BOX;
+  static constexpr uint32_t bars = ring + S * stage;  // q, full[S]
+  static constexpr uint32_t mask = bars + 64;         // [Tp] f32
+};
+
+static_assert(TILE * WLD * 2 <= 3 * BOX, "the bd window leaves the stage's V tile alone");
+
+// the dynamic shared memory of a long-row block at length T
+__host__ inline size_t long_smem_bytes(int T) {
+  return 1024 + LongLayout::mask + sizeof(float) * padded_len(T);
+}
+
+// One block of the long-row mode (grid and hook as attention_block); the
+// dynamic shared memory holds long_smem_bytes(T).
+template <class Hook>
+__device__ __forceinline__ void attention_block_long(const Maps& maps,
+                                                     const uint8_t* __restrict__ key_valid,
+                                                     bf16* __restrict__ out, int T, int H,
+                                                     float scale_f, const Hook& hook) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + LongLayout::bars);
+  uint64_t* full = qbar + 1;
+  float* mask = reinterpret_cast<float*>(smem + LongLayout::mask);
+  const int Tp = padded_len(T), nk = Tp / TILE, D = H * TILE;
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int t = threadIdx.x;
+
+  // load `it` of the ring: key tile it % nk's K and p window, and in pass 2
+  // (it >= nk) its V tile
+  auto stage_of = [&](int it) { return base + LongLayout::ring + (it % S) * LongLayout::stage; };
+  auto refill = [&](int it) {
+    if (it >= 2 * nk) return;
+    const int slot = it % S, kt = it < nk ? it : it - nk;
+    const uint32_t st = stage_of(it);
+    const int k0 = kt * TILE, j0 = T - 1 + k0 - q0 - (TILE - 1);
+    const bool pv = it >= nk;
+    mbar_arrive_expect_tx(&full[slot], (pv ? 4 : 3) * BOX);
+    tma_load_3d(st, &maps.k, &full[slot], h * TILE, k0, b);
+    tma_load_2d(st + BOX, &maps.p, &full[slot], h * TILE, j0);
+    tma_load_2d(st + 2 * BOX, &maps.p, &full[slot], h * TILE, j0 + TILE);
+    if (pv) tma_load_3d(st + 3 * BOX, &maps.v, &full[slot], h * TILE, k0, b);
+  };
+  if (t == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+    mbar_arrive_expect_tx(qbar, 2 * BOX);
+    tma_load_3d(base + LongLayout::qu, &maps.qu, qbar, h * TILE, q0, b);
+    tma_load_3d(base + LongLayout::qv, &maps.qv, qbar, h * TILE, q0, b);
+    for (int it = 0; it < S; ++it) refill(it);
+  }
+  for (int k = t; k < Tp; k += THREADS)
+    mask[k] = k < T ? (key_valid[(size_t)b * T + k] ? 0.f : kMaskFill) : -INFINITY;
+  __syncthreads();
+
+  const int warp = t / 32, g = (t % 32) / 4, q = t % 4;
+  const int qr[2] = {16 * warp + g, 16 * warp + g + 8};
+  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale_f);
+  mbar_wait(qbar, 0);
+
+  // load it's scores: x[4 j + 2 hh + e] = s + mask of row qr[hh], key
+  // 64 kt + 8 j + 2 q + e (as attention_block's score_tile); the stage of
+  // load it - 1 goes back to TMA once every warp is past these products
+  auto score_tile = [&](int it, float (&x)[32]) {
+    const int kt = it < nk ? it : it - nk;
+    const uint32_t st = stage_of(it);
+    mbar_wait(&full[it % S], (it / S) & 1);
+    __nv_bfloat162 acp[16];
+    {
+      float ac[32];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_ss_n64<0, 0>(ac, wgmma_desc(base + LongLayout::qu + 32 * k),
+                           wgmma_desc(st + 32 * k), k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acp[i] = __floats2bfloat162_rn(ac[2 * i], ac[2 * i + 1]);
+    }
+    float bd[64];
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_ss_n128<0, 0>(bd, wgmma_desc(base + LongLayout::qv + 32 * k),
+                          wgmma_desc(st + BOX + 32 * k), k > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    named_sync(1, THREADS);  // K and the p window are read; so is load it - 1's stage
+    if (t == 0 && it > 0) refill(it - 1 + S);
+    bf16* win = reinterpret_cast<bf16*>(smem + (st - base));
+#pragma unroll
+    for (int jw = 0; jw < 16; ++jw)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(win + qr[hh] * WLD + 8 * jw + 2 * q) =
+            pack_bf16(bd[4 * jw + 2 * hh], bd[4 * jw + 2 * hh + 1]);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * q;
+      const float2 mk = *reinterpret_cast<const float2*>(mask + kt * TILE + c);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const bf16* bdr = win + qr[hh] * WLD + c - qr[hh] + TILE - 1;
+        __nv_bfloat162 bdp;
+        bdp.x = bdr[0];
+        bdp.y = bdr[1];
+        const __nv_bfloat162 sp = __hmul2(__hadd2(acp[2 * j + hh], bdp), scale2);
+        x[4 * j + 2 * hh] = __low2float(sp) + mk.x;
+        x[4 * j + 2 * hh + 1] = __high2float(sp) + mk.y;
+      }
+    }
+    fence_proxy_async();  // the window's generic writes, before TMA overwrites the stage
+  };
+
+  // ---- pass 1: each lane's online (max, sum of exps) of its rows
+  float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f};
+  for (int it = 0; it < nk; ++it) {
+    float x[32];
+    score_tile(it, x);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mt = m[hh];
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (((i >> 1) & 1) == hh) mt = fmaxf(mt, x[i]);
+      // no finite score yet: keep z = 0 (exp(-inf - 0) = 0)
+      const float ref = mt == -INFINITY ? 0.f : mt;
+      float add = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (((i >> 1) & 1) == hh) add += e_of(x[i], ref);
+      z[hh] = z[hh] * e_of(m[hh], ref) + add;
+      m[hh] = mt;
+    }
+  }
+  // the row's M and 1/Z over its four lanes
+  float zinv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float M = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, 2));
+    const float ref = M == -INFINITY ? 0.f : M;
+    float Z = z[hh] * e_of(m[hh], ref);
+    Z += __shfl_xor_sync(0xffffffffu, Z, 1);
+    Z += __shfl_xor_sync(0xffffffffu, Z, 2);
+    m[hh] = M;
+    zinv[hh] = 1.f / Z;
+  }
+
+  // ---- pass 2: the scores again, w = bf16(hook(e / Z)) as wgmma's A
+  // fragments (k16 step kk: rows g, g + 8 x columns 2 q, 2 q + 1 and 2 q +
+  // 8, 2 q + 9), PV with the stage's V tile (MN-major; 16 keys past T are
+  // not run)
+  float o[32];
+  for (int it = nk; it < 2 * nk; ++it) {
+    const int kt = it - nk;
+    float x[32];
+    score_tile(it, x);
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int e = 8 * kk + 2 * r, hh = r & 1;
+        const int k = kt * TILE + 16 * kk + 8 * (r >> 1) + 2 * q;
+        af[kk][r] = pack_bf16(hook(e_of(x[e], m[hh]) * zinv[hh], hh, k),
+                              hook(e_of(x[e + 1], m[hh]) * zinv[hh], hh, k + 1));
+      }
+    const uint32_t vtile = stage_of(it) + 3 * BOX;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (kt * TILE + 16 * kk < T)
+        wgmma_rs_n64<1>(o, af[kk], wgmma_desc_mn(vtile + 2048 * kk, BOX), kt > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qq = q0 + qr[hh];
+    const bool ok = qq < T;
+    bf16* orow = out + ((size_t)b * T + (ok ? qq : 0)) * D + h * TILE + 2 * q;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      st_global_if(orow + 8 * j, pack_bf16(o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]), ok);
+  }
+}
+
+// whether a block at length T takes the long-row mode: its score rows
+// (smem_bytes<NR>) would not fit the 227 KB a block may have
+template <int NR>
+__host__ inline bool long_rows(int T) {
+  return smem_bytes<NR>(T) > 232448;
+}
+
 // the tensor maps of q_u, q_v, k, v ([B, T, H*64] bf16) and p ([2T-1, H*64]
 // bf16); 0 on success, else the driver's error
 inline int encode_maps(Maps* maps, const void* q_u, const void* q_v, const void* k,

@@ -45,8 +45,10 @@
 // (FWD_NE = 4) took 255 registers with spills and was 1-3 us slower at the
 // train shape, and two tiles' scores (FWD_NR = 2, B1's) no faster
 // (chip_kernel_ablation.py; PERF.md). Past T' = 192 the shared memory grows
-// by 64 bf16 scores a key (~75 KB a block at T' = 256); the kernel takes
-// T' <= 1408 (the wrapper raises above it). What holds it back
+// by 64 bf16 scores a key (~75 KB a block at T' = 256) up to T' = 1408;
+// past it the long-row mode of the block runs (two passes over the key
+// tiles, only the key mask in shared memory), up to T' = 4096 (the wrapper
+// raises above it). What holds it back
 // (chip_kernel_ablation.py, H100, the train shape, ~0.031 ms): the softmax's
 // exps (~4 us) and the dropout hash (~3.4 us) beside the scores' scalar
 // work; the PV products are hidden.
@@ -154,6 +156,20 @@ struct KeepHook {
   }
 };
 
+// the hook of the lane's rows in block (blockIdx.x query tile, head
+// blockIdx.y, utterance blockIdx.z)
+__device__ inline KeepHook keep_hook(const int* __restrict__ seed, const Dropout& drop) {
+  const int t = threadIdx.x;
+  KeepHook hook;
+  uint32_t hr[2];
+  row_hashes(hr, (uint32_t)seed[0], blockIdx.z, blockIdx.y,
+             blockIdx.x * relattn::TILE + 16 * (t / 32) + (t % 32) / 4);
+  for (int hh = 0; hh < 2; ++hh) hook.hs[hh] = hr[hh] ^ (hr[hh] >> 16);
+  hook.thresh2 = 2u * drop.thresh;
+  hook.inv_keep = drop.inv_keep;
+  return hook;
+}
+
 // kDrop: rate > 0 (else w is used as it is)
 template <bool kDrop>
 __global__ void __launch_bounds__(relattn::THREADS, 2)
@@ -162,18 +178,26 @@ rel_attention_train_fwd_kernel(const __grid_constant__ relattn::Maps maps,
                                const int* __restrict__ seed, bf16* __restrict__ out, int T,
                                int H, float scale_f, Dropout drop) {
   if constexpr (kDrop) {
-    const int t = threadIdx.x;
-    KeepHook hook;
-    uint32_t hr[2];
-    row_hashes(hr, (uint32_t)seed[0], blockIdx.z, blockIdx.y,
-               blockIdx.x * relattn::TILE + 16 * (t / 32) + (t % 32) / 4);
-    for (int hh = 0; hh < 2; ++hh) hook.hs[hh] = hr[hh] ^ (hr[hh] >> 16);
-    hook.thresh2 = 2u * drop.thresh;
-    hook.inv_keep = drop.inv_keep;
-    relattn::attention_block<FWD_NR, FWD_NE>(maps, key_valid, out, T, H, scale_f, hook);
+    relattn::attention_block<FWD_NR, FWD_NE>(maps, key_valid, out, T, H, scale_f,
+                                             keep_hook(seed, drop));
   } else {
     relattn::attention_block<FWD_NR, FWD_NE>(maps, key_valid, out, T, H, scale_f,
                                              relattn::KeepAll{});
+  }
+}
+
+// the long-row mode (rel_attention_fwd.cuh) past T = 1408, with the same
+// hook: the keep draw does not move
+template <bool kDrop>
+__global__ void __launch_bounds__(relattn::THREADS, 2)
+rel_attention_train_fwd_long_kernel(const __grid_constant__ relattn::Maps maps,
+                                    const uint8_t* __restrict__ key_valid,
+                                    const int* __restrict__ seed, bf16* __restrict__ out, int T,
+                                    int H, float scale_f, Dropout drop) {
+  if constexpr (kDrop) {
+    relattn::attention_block_long(maps, key_valid, out, T, H, scale_f, keep_hook(seed, drop));
+  } else {
+    relattn::attention_block_long(maps, key_valid, out, T, H, scale_f, relattn::KeepAll{});
   }
 }
 
@@ -750,8 +774,8 @@ extern "C" {
 // q_u, q_v, k, v, out: [B, T, H*64] bf16, contiguous, 16-byte aligned;
 // p: [2T-1, H*64] bf16; key_valid: [B, T] bytes; seed: one int32; all on card
 // `device`. The shared memory grows with T past 192 (64 x T bf16 score
-// rows): above T = 1408 it exceeds the 227 KB a block may have and the
-// launch is refused (the wrapper raises first).
+// rows): above T = 1408 it would exceed the 227 KB a block may have, and the
+// long-row mode runs instead (the wrapper raises above T = 4096).
 int rel_attention_train_fwd_bf16(const void* q_u, const void* q_v, const void* k,
                                  const void* v, const void* p, const void* key_valid,
                                  const void* seed, void* out, int B, int T, int H,
@@ -764,9 +788,13 @@ int rel_attention_train_fwd_bf16(const void* q_u, const void* q_v, const void* k
   relattn::Maps maps;
   const int rc = relattn::encode_maps(&maps, q_u, q_v, k, v, p, B, T, H);
   if (rc != 0) return rc;
+  const bool lr = relattn::long_rows<FWD_NR>(T);
   const auto kernel =
-      use_dropout ? rel_attention_train_fwd_kernel<true> : rel_attention_train_fwd_kernel<false>;
-  const size_t smem = relattn::smem_bytes<FWD_NR>(T);
+      lr ? (use_dropout ? rel_attention_train_fwd_long_kernel<true>
+                        : rel_attention_train_fwd_long_kernel<false>)
+         : (use_dropout ? rel_attention_train_fwd_kernel<true>
+                        : rel_attention_train_fwd_kernel<false>);
+  const size_t smem = lr ? relattn::long_smem_bytes(T) : relattn::smem_bytes<FWD_NR>(T);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + relattn::TILE - 1) / relattn::TILE, H, B);

@@ -21,7 +21,10 @@ The kernel computes the power spectrum by a real FFT: the frame packed as
 twiddles of :func:`fft_twiddles`; the first stage in f32, the rest in
 f64), and the split into the 256 bins below Nyquist. Its host tables: the
 window zero-padded to 512, the twiddles, and the mel banks as a schedule
-of rounds of 32 lanes (:func:`mel_schedule`).
+of rounds of 32 lanes (:func:`mel_schedule`). At 8 kHz (a 200-sample
+window, a 256-point DFT) the same kernel runs on its tables: the frame is
+zero past the window, so the 256-point bins are the 512-point even bins,
+and the mel schedule reads those (:func:`kernel_mel_banks`).
 
 ``fbank_plain`` is the torch composition of JAX ``fbank_fused``
 (chunk-concat framing, fp32 matmuls with the cos/sin DFT bases). On a CPU
@@ -155,15 +158,35 @@ def mel_schedule(mel_t: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]
     return weights, meta, lens
 
 
+# the DFT sizes the kernel takes: its own, and the half whose bins are its
+# even bins (a window of at most 256 samples zero-padded to 512 points has
+# X512[2 k] = X256[k] exactly)
+KERNEL_DFT_SIZES = (FFT_SIZE // 2, FFT_SIZE)
+
+
+def kernel_mel_banks(window: int, padded: int, M: int, sample_rate: float) -> np.ndarray:
+    """The mel banks over the kernel's FFT_POINTS power bins (those below
+    the 512-point Nyquist), [FFT_POINTS, M]: the padded-point banks as they
+    are at 512 points; at 256 points (8 kHz) each DFT bin k's row at the
+    kernel's bin 2 k and zero rows between, so that the mel product sums
+    the 256-point powers in bin order (a zero term adds exactly 0)."""
+    assert padded in KERNEL_DFT_SIZES, padded
+    _, _, mel_t = _dft_mel_matrices(window, padded, M, float(sample_rate))
+    nb = padded // 2
+    assert not mel_t[nb].any(), "the mel banks' Nyquist row must be zero"
+    out = np.zeros((FFT_POINTS, M), np.float32)
+    out[:: FFT_SIZE // padded] = mel_t[:nb]
+    return out
+
+
 @functools.lru_cache(maxsize=16)
 def _kernel_tables(
     device: torch.device, window: int, M: int, sample_rate: float
 ) -> Dict[str, torch.Tensor]:
     """The kernel's tables on ``device``, once per device and geometry: the
     window zero-padded to FFT_SIZE, the twiddles, the mel schedule."""
-    _, _, mel_t = _dft_mel_matrices(window, FFT_SIZE, M, float(sample_rate))
-    assert not mel_t[FFT_POINTS].any(), "the mel banks' Nyquist row must be zero"
-    mel_w, mel_meta, mel_len = mel_schedule(mel_t[:FFT_POINTS])
+    banks = kernel_mel_banks(window, _next_power_of_two(window), M, sample_rate)
+    mel_w, mel_meta, mel_len = mel_schedule(banks)
     win = np.zeros(FFT_SIZE, np.float32)
     win[:window] = povey_window(window)
     tw1, tw23 = fft_twiddles()
@@ -236,8 +259,11 @@ def fbank_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, S] waveforms and [B] sample counts -> ([B, T, M] f32 log-mel
     frames, [B] int32 lengths). On the card the geometry must be the
-    512-point one (a window of 257 to 512 samples, 16 kHz among the rates
-    that give it) with an even shift."""
+    512-point one (a window of 257 to 512 samples: 16 kHz) or the 256-point
+    one (129 to 256 samples: 8 kHz, window 200, shift 80), with an even
+    shift; the 1024- and 2048-point ones (22.05 to 48 kHz) raise. The
+    kernel computes the 512-point power spectrum either way: a 256-point
+    DFT's bins are its even bins."""
     if waveforms.device.type == "cpu":
         return fbank_plain(waveforms, num_samples, sample_rate, num_mel_bins)
     if waveforms.device.type != "cuda":
@@ -251,9 +277,12 @@ def fbank_fused(
         raise ValueError(f"fbank_fused: num_samples must be on {waveforms.device}")
     B, S = waveforms.shape
     window, shift, padded, T = _geometry(S, sample_rate)
-    if padded != FFT_SIZE or shift % 2:
-        raise ValueError(f"fbank_fused: the kernel takes a {FFT_SIZE}-point DFT and an even "
-                         f"shift, not {padded} points (window {window}) and shift {shift}")
+    if padded not in KERNEL_DFT_SIZES or shift % 2:
+        raise ValueError(
+            f"fbank_fused: the kernel takes a 256- or 512-point DFT (8 or 16 kHz) and an even "
+            f"shift, not {padded} points (window {window}) and shift {shift}: the 1024- and "
+            "2048-point geometries (22.05 to 48 kHz) are not ported"
+        )
     tab = _kernel_tables(waveforms.device, window, num_mel_bins, float(sample_rate))
     x = waveforms.float().contiguous()
     ns = num_samples.to(torch.int32).contiguous()

@@ -7,13 +7,20 @@ with a key-padding mask.
 * Eval mode: square self-attention without weights or an additive mask goes
   through the fused inference kernel (``ops/attention_kernels.rel_attention``,
   the JAX dispatch conditions of attention.py:237-245); everything else takes
-  the deterministic gather path (attention.py:349-373, 398-417).
+  the deterministic gather path (attention.py:349-373, 384-387, 398-417).
 * Train mode: square self-attention without weights or an additive mask
   goes through the train kernels (``rel_attention_train``, attention.py
   :288-348), with dropout on the softmax weights at the layer's rate. The
   per-call seed is an int32 drawn on the device from the dropout generator,
   so no value reaches the host. Other train-mode attention raises
   ``NotImplementedError``: no caller of the port has it.
+* A clipped table (``L < T``: the encoder's ``encoder_relative_max_size``
+  below the length) takes the kernels too, in both modes: the projected
+  table [2L-1, D] is expanded by an index gather to [2T-1, D] with row j =
+  row clip(j - (T-1) + (L-1), 0, 2L-2), so that bd[q, k] = q_v . p[clip(k -
+  q + L - 1)], the clipped shift JAX computes by the gather at inference
+  (attention.py:384-387) and the clipped skew in training (:388-397); the
+  gather's autograd sums dp back into the clipped rows.
 
 Caches and rotary positions wait for later slices.
 """
@@ -37,6 +44,14 @@ def gather_p_shift(p: torch.Tensor, Tq: int, Tk: int) -> torch.Tensor:
     qi = torch.arange(Tq, device=p.device)[:, None]
     kj = torch.arange(Tk, device=p.device)[None, :]
     return p[((L - 1) + kj - qi).clamp(0, p.shape[0] - 1)]
+
+
+def clipped_rows(L: int, T: int, device: torch.device) -> torch.Tensor:
+    """The rows of a [2L-1] table that the rows of its expansion to [2T-1]
+    take: row j <- clip(j - (T-1) + (L-1), 0, 2L-2), the clipped offset
+    of relative position j - (T-1)."""
+    j = torch.arange(2 * T - 1, device=device)
+    return (j - (T - 1) + (L - 1)).clamp(0, 2 * L - 2)
 
 
 class MultiheadAttention(nn.Module):
@@ -80,10 +95,16 @@ class MultiheadAttention(nn.Module):
         L = (p_flat.shape[0] + 1) // 2
         scale = self.head_dim ** -0.5
 
-        fused = not need_weights and attn_mask is None and key is query and Tq == Tk == L
+        # square self-attention; a table clipped below the length (L < T)
+        # is expanded to the length's
+        fused = not need_weights and attn_mask is None and key is query and Tq == Tk >= L
         if self.training and not fused:
             raise NotImplementedError("train-mode attention other than square self-attention")
         if fused:
+            if L < Tq:
+                # gathered in f32, so that the gather's backward sums the
+                # clipped rows' gradients in f32
+                p_flat = p_flat.float()[clipped_rows(L, Tq, p_flat.device)].to(p_flat.dtype)
             kv_mask = (
                 key_padding_mask
                 if key_padding_mask is not None

@@ -7,15 +7,19 @@ the flattened-heads layout of the JAX call site: ``q_u, q_v, k, v``
 * Inference: ``rel_attention`` wraps ``csrc/rel_attention.cu`` (which
   replaces the Pallas ``rel_attention_fused``); ``rel_attention_reference``
   is its plain version (attention_kernels.py:106-128). The kernel keeps a
-  query tile's scores in shared memory past its first two key tiles, so
-  it takes T up to ``REL_ATTENTION_MAX_T``.
+  query tile's scores in shared memory past its first two key tiles up to
+  ``REL_ATTENTION_SHORT_MAX_T`` (1344); past it a long-row mode of the
+  same kernel (two passes over the key tiles, no score row in shared
+  memory) runs, up to ``REL_ATTENTION_MAX_T`` (4096), where it raises.
 * Training: ``rel_attention_train`` is a ``torch.autograd.Function`` around
   ``rel_attention_train_fwd`` and ``rel_attention_train_bwd``, which wrap the
   two halves of ``csrc/rel_attention_train.cu`` (the Pallas
   ``rel_attention_train`` forward and backward, attention_kernels.py
   :444-678). The forward is the inference kernel's block
   (``csrc/rel_attention_fwd.cuh``) with its scores in registers for three
-  key tiles, so it takes T up to ``REL_ATTENTION_TRAIN_MAX_T``; it drops
+  key tiles, in shared memory up to ``REL_ATTENTION_TRAIN_SHORT_MAX_T``
+  (1408) and in the long-row mode past it; the forward and the backward
+  take T up to ``REL_ATTENTION_TRAIN_MAX_T`` (4096) and raise above it; it drops
   softmax weights with an in-kernel counter hash of (seed, batch item,
   head, query, key), replayed bit for bit by ``dropout_keep_mask``
   (attention_kernels.py:312-368); the backward recomputes scores, softmax
@@ -61,16 +65,39 @@ def _fwd_smem_bytes(T: int, nr: int) -> int:
     return 1024 + (2 + 3 * 2) * box + 64 + 4 * Tp + (2 * tile * (rest + 8) if rest > 0 else 0)
 
 
+def long_rows_smem_bytes(T: int) -> int:
+    """The dynamic shared memory of a block of the long-row mode of
+    ``csrc/rel_attention_fwd.cuh`` (its ``long_smem_bytes``): 1024 bytes of
+    alignment slack; q+u, q+v and a ring of two stages of four 8 KB tiles
+    (K, the p window, V); 64 bytes of barriers; the f32 key mask."""
+    tile, box = 64, 8192
+    return 1024 + (2 + 4 * 2) * box + 64 + 4 * (-(-T // tile) * tile)
+
+
+def rel_attention_long_rows(T: int) -> bool:
+    """Whether the inference kernel runs its long-row mode at length T: the
+    scores of the key tiles past the first two would not fit in shared
+    memory (the C entry's ``long_rows<2>``)."""
+    return _fwd_smem_bytes(T, 2) > SMEM_LIMIT
+
+
+def rel_attention_train_long_rows(T: int) -> bool:
+    """The same for the train forward (``long_rows<FWD_NR = 3>``)."""
+    return _fwd_smem_bytes(T, 3) > SMEM_LIMIT
+
+
 def rel_attention_smem_bytes(T: int) -> int:
     """The dynamic shared memory of ``csrc/rel_attention.cu`` at length T
-    (scores in registers for two key tiles)."""
-    return _fwd_smem_bytes(T, 2)
+    (scores in registers for two key tiles; the long-row mode past them)."""
+    return long_rows_smem_bytes(T) if rel_attention_long_rows(T) else _fwd_smem_bytes(T, 2)
 
 
 def rel_attention_train_smem_bytes(T: int) -> int:
     """The dynamic shared memory of the train forward of
     ``csrc/rel_attention_train.cu`` at length T (scores in registers for
-    three key tiles, ``FWD_NR``)."""
+    three key tiles, ``FWD_NR``; the long-row mode past them)."""
+    if rel_attention_train_long_rows(T):
+        return long_rows_smem_bytes(T)
     return _fwd_smem_bytes(T, 3)
 
 
@@ -78,9 +105,13 @@ def _max_len(smem_bytes) -> int:
     return max(T for T in range(64, 4097, 64) if smem_bytes(T) <= SMEM_LIMIT)
 
 
-# the longest T the inference kernel takes (1344) and the train forward (1408)
-REL_ATTENTION_MAX_T = _max_len(rel_attention_smem_bytes)
-REL_ATTENTION_TRAIN_MAX_T = _max_len(rel_attention_train_smem_bytes)
+# the longest T whose score rows fit in shared memory: the inference
+# kernel's (1344) and the train forward's (1408); past them the long-row
+# mode runs, up to the wrappers' limit (~164 s of audio at the flagship's
+# 40 ms a frame), above which they raise
+REL_ATTENTION_SHORT_MAX_T = _max_len(lambda T: _fwd_smem_bytes(T, 2))
+REL_ATTENTION_TRAIN_SHORT_MAX_T = _max_len(lambda T: _fwd_smem_bytes(T, 3))
+REL_ATTENTION_MAX_T = REL_ATTENTION_TRAIN_MAX_T = 4096
 
 
 def rel_attention_reference(
@@ -159,8 +190,9 @@ def rel_attention(
     scale: float,
 ) -> torch.Tensor:
     """Fused rel-pos self-attention; returns the [B, T, D] context (before
-    the output projection). ``rel_attention.launches`` counts kernel
-    launches."""
+    the output projection). On the card: bf16 inputs, head width 64, T up
+    to ``REL_ATTENTION_MAX_T`` (4096; past 1344 the kernel's long-row mode).
+    ``rel_attention.launches`` counts kernel launches."""
     if q_u.device.type == "cpu":
         return rel_attention_reference(q_u, q_v, k, v, p, key_valid, H, scale)
     if q_u.device.type != "cuda":
@@ -168,10 +200,7 @@ def rel_attention(
     _check(q_u, q_v, k, v, p, key_valid, H)
     B, T, D = q_u.shape
     if T > REL_ATTENTION_MAX_T:
-        raise ValueError(
-            f"rel_attention: T={T} needs {rel_attention_smem_bytes(T)} bytes of shared memory "
-            f"(the kernel takes T <= {REL_ATTENTION_MAX_T})"
-        )
+        raise ValueError(f"rel_attention: T={T} (the kernel takes T <= {REL_ATTENTION_MAX_T})")
     out = torch.empty_like(q_u)
     device = q_u.device.index  # a CUDA tensor's device always has its index
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -369,7 +398,9 @@ def _train_launch_args(q_u, seed, H, scale, rate):
 
 def rel_attention_train_fwd(q_u, q_v, k, v, p, key_valid, seed, H, scale, rate):
     """The train forward: [B, T, D] context with attention-weight dropout.
-    ``seed`` is an int32 tensor of one element on the inputs' device."""
+    ``seed`` is an int32 tensor of one element on the inputs' device. On
+    the card: bf16 inputs, head width 64, T up to
+    ``REL_ATTENTION_TRAIN_MAX_T`` (4096; past 1408 the long-row mode)."""
     if q_u.device.type == "cpu":
         return rel_attention_train_reference(q_u, q_v, k, v, p, key_valid, H, scale, rate, seed)
     if q_u.device.type != "cuda":
@@ -378,8 +409,7 @@ def rel_attention_train_fwd(q_u, q_v, k, v, p, key_valid, seed, H, scale, rate):
     T = q_u.shape[1]
     if T > REL_ATTENTION_TRAIN_MAX_T:
         raise ValueError(
-            f"rel_attention_train_fwd: T={T} needs {rel_attention_train_smem_bytes(T)} bytes of "
-            f"shared memory (the kernel takes T <= {REL_ATTENTION_TRAIN_MAX_T})"
+            f"rel_attention_train_fwd: T={T} (the kernel takes T <= {REL_ATTENTION_TRAIN_MAX_T})"
         )
     tail = _train_launch_args(q_u, seed, H, scale, rate)
     out = torch.empty_like(q_u)
@@ -395,7 +425,8 @@ def rel_attention_train_fwd(q_u, q_v, k, v, p, key_valid, seed, H, scale, rate):
 
 def rel_attention_train_bwd(q_u, q_v, k, v, p, key_valid, seed, g, H, scale, rate):
     """The train backward: (dq_u, dq_v, dk, dv) [B, T, D] bf16 and dp
-    [2T-1, D] f32 summed over the batch."""
+    [2T-1, D] f32 summed over the batch. On the card T up to
+    ``REL_ATTENTION_TRAIN_MAX_T`` (4096), as the forward."""
     if q_u.device.type == "cpu":
         return rel_attention_train_backward_reference(
             q_u, q_v, k, v, p, key_valid, g, H, scale, rate, seed
@@ -405,8 +436,12 @@ def rel_attention_train_bwd(q_u, q_v, k, v, p, key_valid, seed, g, H, scale, rat
     _check(q_u, q_v, k, v, p, key_valid, H, "rel_attention_train_bwd")
     if g.shape != q_u.shape or g.dtype != torch.bfloat16 or not g.is_contiguous():
         raise ValueError("rel_attention_train_bwd: g must be contiguous bf16 like q_u")
-    tail = _train_launch_args(q_u, seed, H, scale, rate)
     B, T, D = q_u.shape
+    if T > REL_ATTENTION_TRAIN_MAX_T:
+        raise ValueError(
+            f"rel_attention_train_bwd: T={T} (the kernels take T <= {REL_ATTENTION_TRAIN_MAX_T})"
+        )
+    tail = _train_launch_args(q_u, seed, H, scale, rate)
     dqu, dqv, dk, dv = (torch.empty_like(q_u) for _ in range(4))
     # the query pass adds each block's dp window into dp by atomics, and
     # leaves each row's softmax statistics (m, 1/l, sum dw w) for the key pass

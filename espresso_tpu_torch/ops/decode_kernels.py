@@ -54,7 +54,7 @@ LIBRARIES = {
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> (library, argument types); a launching entry ends in (device, stream)
 _SIGNATURES = {
-    "fused_joint_topk_bf16": ("fused_joint_topk", [_P, _P, _I] + [_P] * 11 + [_I] * 9 + [_P]),
+    "fused_joint_topk_bf16": ("fused_joint_topk", [_P, _P, _I] + [_P] * 12 + [_I] * 9 + [_P]),
     "fused_joint_topk_tmaps": ("fused_joint_topk", [_P, _P, _I, _I, _I, _P]),
     "lstm_step_reorder_bf16": ("lstm_step_reorder", [_P] * 8 + [_I] * 4 + [_P]),
     "lstm_step_reorder_tmap": ("lstm_step_reorder", [_P, _I, _I, _P]),
@@ -469,6 +469,10 @@ def _make_joint_weights(w_dec: torch.Tensor, w_out: torch.Tensor):
     return wdT, woT, tmaps
 
 
+# the widest J and H of the fused joint kernel's instance that keeps feat
+# and h in shared memory, and of its wide instance
+FUSED_JOINT_NARROW_WIDTH, FUSED_JOINT_MAX_WIDTH = 1024, 2048
+
 _lstm_weights = _PerWeightSet(_make_lstm_weights)
 _joint_weights = _PerWeightSet(_make_joint_weights)
 
@@ -496,7 +500,9 @@ def fused_joint_topk(
     with unit column stride (``lstm_feat``'s strided view is taken as is);
     ``scores`` and ``label_bias`` fp32; J a multiple of 64, H of 16,
     ``n_cand`` at most 32 and at most the unmasked vocab; J and H at most
-    1024. The weights are read as their transposes ([J, H] and [V, J], the
+    ``FUSED_JOINT_MAX_WIDTH`` (2048; above 1024 the kernel's wide instance
+    runs, with a [BK, J] bf16 scratch for h). The weights are read as their
+    transposes ([J, H] and [V, J], the
     ``nn.Linear`` layout; no copy when ``w_dec``/``w_out`` are transposed
     views of contiguous tensors) through TMA tensor maps encoded once per
     weight set. ``fused_joint_topk.launches`` counts kernel launches."""
@@ -524,7 +530,10 @@ def fused_joint_topk(
         feat.stride(1) == 1 and feat.stride(0) % 8 == 0 and feat.data_ptr() % 16 == 0,
         "feat rows must be unit-stride, 16-byte aligned",
     )
-    _need(name, J <= 1024 and H <= 1024, f"J={J} and H={H} must be at most 1024")
+    _need(
+        name, J <= FUSED_JOINT_MAX_WIDTH and H <= FUSED_JOINT_MAX_WIDTH,
+        f"J={J} and H={H} must be at most {FUSED_JOINT_MAX_WIDTH}",
+    )
     *_, tmaps = _joint_weights(w_dec, w_out)  # the transposes stay alive beside their maps
     vecs = [_vec(v) for v in (b_dec, ln_scale, ln_bias, b_out)]
     for key, v, n in zip(("b_dec", "ln_scale", "ln_bias", "b_out"), vecs, (J, J, J, V)):
@@ -540,10 +549,14 @@ def fused_joint_topk(
     blank_lp = torch.empty(BK, dtype=torch.float32, device=dev)
     vals = torch.empty(BK, n_cand, dtype=torch.float32, device=dev)
     flat = torch.empty(BK, n_cand, dtype=torch.int32, device=dev)
+    h_buf = None  # the wide instance's h, written and read back by the kernel
+    if J > FUSED_JOINT_NARROW_WIDTH or H > FUSED_JOINT_NARROW_WIDTH:
+        h_buf = torch.empty(BK, J, dtype=torch.bfloat16, device=dev)
     _launch(
         "fused_joint_topk_bf16", dev,
         enc_t.data_ptr(), feat.data_ptr(), feat.stride(0), scores.data_ptr(),
-        ctypes.addressof(tmaps), vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
+        ctypes.addressof(tmaps), None if h_buf is None else h_buf.data_ptr(),
+        vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
         vecs[3].data_ptr(), bias_ptr,
         blank_lp.data_ptr(), vals.data_ptr(), flat.data_ptr(),
         None if factor is None else factor.data_ptr(),

@@ -31,31 +31,33 @@ DB70 = 70 * math.log(10) / 10
 Tensors = Dict[str, torch.Tensor]
 
 
-def waveform_inputs(num_samples: Sequence[int], S: int, seed: int, dev) -> Tensors:
-    """int16-scale noise plus two tones per utterance, zero past each count:
-    ``waveforms`` [B, S] f32 and ``num_samples`` [B] int32."""
+def waveform_inputs(
+    num_samples: Sequence[int], S: int, seed: int, dev, sample_rate: float = 16000.0
+) -> Tensors:
+    """int16-scale noise plus two tones per utterance below Nyquist, zero
+    past each count: ``waveforms`` [B, S] f32 and ``num_samples`` [B] int32."""
     rng = np.random.default_rng(seed)
     B = len(num_samples)
-    t = torch.arange(S, dtype=torch.float64) / 16000.0
+    t = torch.arange(S, dtype=torch.float64) / sample_rate
     g = torch.Generator().manual_seed(seed)
     wav = torch.randn(B, S, generator=g, dtype=torch.float64) * 2000.0
     for b in range(B):
-        f1, f2 = rng.uniform(100, 7900, 2)
+        f1, f2 = rng.uniform(100, sample_rate / 2 - 100, 2)
         wav[b] += 8000 * torch.sin(2 * math.pi * f1 * t) + 3000 * torch.sin(2 * math.pi * f2 * t)
     ns = torch.tensor(list(num_samples), dtype=torch.int32)
     wav[torch.arange(S)[None, :] >= ns[:, None].long()] = 0.0
     return {"waveforms": wav.float().to(dev), "num_samples": ns.to(dev)}
 
 
-def check_fbank(a: Tensors, num_mel_bins: int = 80) -> Dict[str, float]:
+def check_fbank(a: Tensors, num_mel_bins: int = 80, sample_rate: float = 16000.0) -> Dict[str, float]:
     """Kernel vs plain version by the goldens' rule; lengths equal and the
     frames past each length exactly zero. Returns the worst log error on
     the loud bins and the worst linear error relative to the frame's peak."""
     before = fk.fbank_fused.launches
-    out, lengths = fk.fbank_fused(a["waveforms"], a["num_samples"], num_mel_bins=num_mel_bins)
+    out, lengths = fk.fbank_fused(a["waveforms"], a["num_samples"], sample_rate, num_mel_bins)
     torch.cuda.synchronize()
     assert fk.fbank_fused.launches == before + 1
-    ref, ref_len = fk.fbank_plain(a["waveforms"], a["num_samples"], num_mel_bins=num_mel_bins)
+    ref, ref_len = fk.fbank_plain(a["waveforms"], a["num_samples"], sample_rate, num_mel_bins)
     assert out.shape == ref.shape, (tuple(out.shape), tuple(ref.shape))
     assert torch.equal(lengths, ref_len), (lengths.tolist(), ref_len.tolist())
     T = out.shape[1]

@@ -37,7 +37,7 @@ from torch import nn
 
 from espresso_tpu_torch.bridge import flax_leaves, from_flax_layout, to_flax_layout
 
-LIBRARIES = {"int8_matmul": ("int8_matmul.cu",)}
+LIBRARIES = {"int8_matmul": ("int8_matmul.cu", "hopper_sm90.cuh")}
 
 # ---------------------------------------------------------------------------
 # scalar int8 (host)
@@ -253,17 +253,32 @@ def _lib() -> ctypes.CDLL:
     from espresso_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load("int8_matmul", LIBRARIES["int8_matmul"])
-    # x, x_bf16, w, w_scale, xq, xs, out; M, N, K, Kp, ldb, aligned, device; stream
-    lib.int8_matmul_f32.argtypes = [_P, _I] + [_P] * 5 + [_I] * 7 + [_P]
+    # x, x_bf16, x_vec, w, w_scale, xq, xs, out; M, N, K, Kp, Kw, ldb, device; stream
+    lib.int8_matmul_f32.argtypes = [_P, _I, _I] + [_P] * 5 + [_I] * 7 + [_P]
     lib.int8_matmul_f32.restype = _I
     return lib
+
+
+K_TILE = 128  # the product's k-tile: one 128-byte TMA box of int8
+
+
+def int8_w_route(w_q: torch.Tensor) -> str:
+    """How the kernel reads ``w_q`` (the transposed view of an [N, K] int8
+    tensor): "direct" by TMA where its rows start on 16 bytes, else
+    "padded", from a zero-padded [N, Kp] copy the wrapper makes."""
+    K, N = w_q.shape
+    ldb = w_q.stride(1) if N > 1 else K
+    return "direct" if ldb % 16 == 0 and w_q.data_ptr() % 16 == 0 else "padded"
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
     """w8a8 matmul: x [M, K] f32 or bf16, w_q [K, N] int8, w_scale [N] f32
     -> [M, N] f32. On the card ``w_q`` is the transposed view of a [N, K]
     tensor whose rows are contiguous (an int8 ``nn.Linear`` weight, as
-    :func:`quantize_params_int8` gives it: ``torch.from_numpy(q).t()``)."""
+    :func:`quantize_params_int8` gives it: ``torch.from_numpy(q).t()``);
+    any M, K and N: rows of w not on 16 bytes are read from a zero-padded
+    copy (:func:`int8_w_route`), and an N whose f32 rows are not a multiple
+    of 16 bytes is written by predicated stores instead of TMA stores."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_q, w_scale)
     if x.device.type != "cuda":
@@ -282,16 +297,21 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> to
         raise ValueError(f"int8_matmul: w_scale must be [{N}] f32 on {x.device}")
     x = x.contiguous()
     w_scale = w_scale.contiguous()
-    ldb = w_q.stride(1) if N > 1 else K
-    Kp = -(-K // 64) * 64
-    aligned = int(K % 16 == 0 and ldb % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    Kp = max(-(-K // K_TILE) * K_TILE, K_TILE)
+    if int8_w_route(w_q) == "direct":
+        w, Kw, ldb = w_q, K, (w_q.stride(1) if N > 1 else K)
+    else:
+        w = torch.zeros(N, Kp, dtype=torch.int8, device=x.device)
+        w[:, :K] = w_q.t()
+        Kw, ldb = Kp, Kp
+    x_vec = int(x.data_ptr() % 16 == 0 and K % (16 // x.element_size()) == 0)
     xq = torch.empty(M, Kp, dtype=torch.int8, device=x.device)
     xs = torch.empty(M, dtype=torch.float32, device=x.device)
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
     device = x.device.index
     rc = _lib().int8_matmul_f32(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), w_q.data_ptr(), w_scale.data_ptr(),
-        xq.data_ptr(), xs.data_ptr(), out.data_ptr(), M, N, K, Kp, ldb, aligned, device,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), x_vec, w.data_ptr(), w_scale.data_ptr(),
+        xq.data_ptr(), xs.data_ptr(), out.data_ptr(), M, N, K, Kp, Kw, ldb, device,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:

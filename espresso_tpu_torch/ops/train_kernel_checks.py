@@ -10,6 +10,7 @@ disagreement beyond the stated bound, and returns the max errors.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict
 
@@ -123,6 +124,115 @@ def check_attention_train(a: Tensors, H: int, rate: float) -> Dict[str, float]:
             for n, x, r in zip(("dq_u", "dq_v", "dk", "dv", "dp"), grads, ref_grads)
         ]
     }
+
+
+# a layer whose relative table is clipped (L < T'): its bf16 gradients
+# through the train kernels against autograd through the layer's gather path
+# in f32; the kernels round the scores, weights and ds to bf16, and each
+# weight gradient sums B T' such products: 5 % of the gradient's norm, far
+# below what a wrong row of the expanded table gives (O(1))
+CLIPPED_GRAD_REL = 0.05
+
+
+def long_attention_inputs(B: int, T: int, seed: int, dev, H: int = 2):
+    """Arguments of ``rel_attention`` at a long T': bf16 q+u, q+v, k, v
+    [B, T, H*64], p [2T-1, H*64], ragged key masks (the first utterance
+    full, from B = 3 on the last with one valid key), H, the scale."""
+    D = H * ak.HEAD_DIM
+    g = _gen(seed)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dev, torch.bfloat16)
+    lens = torch.randint(1, T + 1, (B,), generator=g)
+    lens[0] = T
+    if B >= 3:
+        lens[-1] = 1
+    key_valid = (torch.arange(T)[None, :] < lens[:, None]).to(dev)
+    return mk(B, T, D), mk(B, T, D), mk(B, T, D), mk(B, T, D), mk(2 * T - 1, D), key_valid, H, \
+        ak.HEAD_DIM ** -0.5
+
+
+def check_rel_attention(*args) -> float:
+    """The inference kernel (one launch) against its plain version at
+    ``rel_attention``'s arguments; 2 bf16 ulps of the output's largest
+    magnitude (as ATTN_OUT_ULPS). Returns the max abs error."""
+    before = ak.rel_attention.launches
+    out = ak.rel_attention(*args)
+    torch.cuda.synchronize()
+    assert ak.rel_attention.launches == before + 1
+    ref = ak.rel_attention_reference(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    bound = ATTN_OUT_ULPS * bf16_ulp(ref.float().abs().max().item())
+    if not bool(torch.isfinite(out.float()).all()) or err > bound:
+        raise AssertionError(f"rel_attention at {tuple(args[0].shape)}: max error {err} > {bound}")
+    return err
+
+
+def check_clipped_table_layer(dev, T: int, L: int, B: int = 2, D: int = 512, H: int = 8):
+    """A bf16 ``MultiheadAttention`` (dropout 0, its output projection
+    taken out so that its output is the attention's context) on a relative
+    table clipped at L < T: in eval one ``rel_attention`` launch, the
+    context within ATTN_OUT_ULPS of the layer's own gather path (weights
+    requested); in train one launch of each train kernel, the context within
+    ATTN_OUT_ULPS of the gather path and the gradients of q, k, v, the
+    position projection and the position biases within CLIPPED_GRAD_REL of
+    autograd through the gather path of an f32 copy. Returns the max
+    errors."""
+    from torch import nn
+
+    from espresso_tpu_torch.modules.attention import MultiheadAttention
+    from espresso_tpu_torch.modules.positional import RelativePositionalEmbedding
+
+    g = _gen(T + L)
+    mha = MultiheadAttention(D, H)
+    with torch.no_grad():
+        for prm in mha.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=g) * (0.1 if prm.dim() < 2 else D ** -0.5))
+    mha.out_proj = nn.Identity()
+    mha = mha.to(dev, torch.bfloat16)
+    mha32 = copy.deepcopy(mha).float()
+    rel = RelativePositionalEmbedding(D, L)(T).to(dev, torch.bfloat16)
+    assert rel.shape == (2 * L - 1, D)
+    x = torch.randn(B, T, D, generator=g).to(dev, torch.bfloat16)
+    mask = (torch.arange(T)[None, :] < torch.tensor([T, 2 * T // 3])[:, None]).to(dev)
+
+    def held(name, got, want, bound):
+        err = (got.float() - want.float()).abs().max().item()
+        if not bool(torch.isfinite(got.float()).all()) or err > bound:
+            raise AssertionError(f"clipped table, {name}: max error {err} > {bound}")
+        return err
+
+    errs = {}
+    mha.eval()
+    before = ak.rel_attention.launches
+    with torch.no_grad():
+        out = mha(x, x, x, rel, key_padding_mask=mask)[0]
+        ref = mha(x, x, x, rel, key_padding_mask=mask, need_weights=True)[0]
+    torch.cuda.synchronize()
+    assert ak.rel_attention.launches == before + 1, "eval did not launch rel_attention once"
+    errs["eval"] = held("eval", out, ref, ATTN_OUT_ULPS * bf16_ulp(ref.float().abs().max().item()))
+
+    up = torch.randn(B, T, D, generator=g).to(dev, torch.bfloat16)
+    leaves = lambda m: [m.q_proj.weight, m.k_proj.weight, m.v_proj.weight, m.pos_proj.weight,
+                        m.pos_bias_u, m.pos_bias_v]
+    mha32.eval()
+    x32 = x.float()
+    ref32 = mha32(x32, x32, x32, rel.float(), key_padding_mask=mask, need_weights=True)[0]
+    ref_grads = torch.autograd.grad(ref32, leaves(mha32), up.float())
+    with torch.no_grad():
+        ref = mha.eval()(x, x, x, rel, key_padding_mask=mask, need_weights=True)[0]
+    mha.train()
+    before = (ak.rel_attention_train_fwd.launches, ak.rel_attention_train_bwd.launches)
+    out = mha(x, x, x, rel, key_padding_mask=mask)[0]
+    grads = torch.autograd.grad(out, leaves(mha), up)
+    torch.cuda.synchronize()
+    assert (ak.rel_attention_train_fwd.launches, ak.rel_attention_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1), "train did not launch the train kernels once each"
+    errs["train"] = held("train", out, ref, ATTN_OUT_ULPS * bf16_ulp(ref.float().abs().max().item()))
+    for name, gk, gp in zip(("q", "k", "v", "pos", "bias_u", "bias_v"), grads, ref_grads):
+        rel_err = ((gk.float() - gp.float()).norm() / gp.float().norm()).item()
+        if not rel_err <= CLIPPED_GRAD_REL:
+            raise AssertionError(f"clipped table, gradient of {name}: {rel_err} > {CLIPPED_GRAD_REL}")
+        errs[f"grad_{name}"] = rel_err
+    return errs
 
 
 # ---------------------------------------------------------------------------

@@ -134,3 +134,84 @@ def test_train_mode_attention_takes_only_square_self_attention():
         mha(x, x, x, rel, attn_mask=torch.zeros(6, 6))
     with pytest.raises(NotImplementedError):
         mha(x[:, :3], x, x, rel)
+
+
+# two conformer layers whose relative table is clipped below the length:
+# encoder_relative_max_size 8 at T' = 20 (the flagship clips at 1024)
+CLIP_L, CLIP_T, CLIP_FFN, CLIP_K = 8, 20, 256, 3
+
+
+@functools.lru_cache(maxsize=None)
+def _clipped_layers():
+    """Two JAX conformer layers, their variables perturbed from a numpy
+    seed, the inputs, and the relative table clipped at CLIP_L."""
+    from espresso_tpu.modules.conformer import ConformerEncoderLayer as JaxLayer
+    from espresso_tpu.modules.positional import RelativePositionalEmbedding as JaxRelPos
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((B, CLIP_T, D)).astype(np.float32)
+    mask = np.arange(CLIP_T)[None, :] < np.array([CLIP_T, 13])[:, None]
+    rel = np.array(JaxRelPos(D, max_size=CLIP_L).apply({}, CLIP_T))
+    assert rel.shape == (2 * CLIP_L - 1, D)
+    jlayer = JaxLayer(D, CLIP_FFN, H, depthwise_kernel_size=CLIP_K)
+
+    def perturb(path, a):
+        a = np.asarray(a, np.float32)
+        if str(getattr(path[-1], "key", path[-1])) == "var":
+            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        return a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
+
+    init = jax.device_get(jax.jit(jlayer.init)(jax.random.PRNGKey(0), x, mask, None, rel))
+    variables = [jax.tree_util.tree_map_with_path(perturb, init) for _ in range(2)]
+    return jlayer, variables, x, mask, rel
+
+
+def _port_layers(variables, train: bool):
+    from espresso_tpu_torch.bridge import load_jax_variables
+    from espresso_tpu_torch.modules.conformer import ConformerEncoderLayer
+
+    layers = [
+        load_jax_variables(ConformerEncoderLayer(D, CLIP_FFN, H, CLIP_K), v) for v in variables
+    ]
+    return [layer.train(train) for layer in layers]
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_clipped_table_layers_match_jax(train, monkeypatch):
+    """At T' above the table's size the port's layers take the kernels
+    (plain versions here) on the expanded table and agree with JAX's own
+    non-fused path: the clipped gather in eval, the clipped skew in train
+    (the output, and the gradients of the projections q, k, v and pos)."""
+    monkeypatch.setenv("ESPRESSO_FUSED_ATTN", "off")
+    jlayer, variables, x, mask, rel = _clipped_layers()
+    g = np.random.default_rng(8).standard_normal(x.shape).astype(np.float32)
+    proj = ("q_proj", "k_proj", "v_proj", "pos_proj")
+
+    def jax_loss(params):
+        h = jnp.asarray(x)
+        for p, v in zip(params, variables):
+            args = ({**v, "params": p}, h, jnp.asarray(mask), None, jnp.asarray(rel))
+            # train: batch statistics of the batch, as the port's train mode
+            h = jlayer.apply(*args, train=True, mutable=["batch_stats"])[0] if train else (
+                jlayer.apply(*args)
+            )
+        return jnp.sum(h * g), h
+
+    params = [v["params"] for v in variables]
+    if train:
+        (_, j_out), j_grads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(params)
+    else:
+        j_out = jax.jit(jax_loss)(params)[1]
+    layers = _port_layers(variables, train)
+    h = torch.from_numpy(x)
+    for layer in layers:
+        h = layer(h, torch.from_numpy(mask), torch.from_numpy(rel))
+    np.testing.assert_allclose(h.detach().numpy(), np.asarray(j_out), rtol=1e-4, atol=1e-4)
+    if not train:
+        return
+    (h * torch.from_numpy(g)).sum().backward()
+    for layer, jg in zip(layers, j_grads):
+        for name in proj:
+            got = getattr(layer.self_attn, name).weight.grad.t().numpy()
+            want = np.asarray(jg["self_attn"][name]["kernel"])
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-4, err_msg=name)

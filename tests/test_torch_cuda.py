@@ -86,13 +86,26 @@ def test_rel_attention_kernel_at_tiling_edges(dev, T):
 
 
 def test_rel_attention_rejects_a_length_past_its_shared_memory(dev):
+    # past the long-row mode's limit (4096; the score rows' limit, 1344, no
+    # longer stops it)
     from espresso_tpu_torch.ops.attention_kernels import REL_ATTENTION_MAX_T
 
     args = _inputs(1, REL_ATTENTION_MAX_T + 1, seed=0, dev=dev) + (H, 0.125)
     before = rel_attention.launches
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="takes T <= 4096"):
         rel_attention(*args)
     assert rel_attention.launches == before
+
+
+# the long-row mode (T' past 1344): two passes over the key tiles; two
+# heads (the plain version's [T, T, H, d] position gather at T' = 4096 and
+# eight heads would take 17 GB), ragged key masks with one utterance of
+# one valid key; at today's bound (2 bf16 ulps)
+@pytest.mark.parametrize("B,T", [(3, 1345), (2, 1500), (2, 2048), (1, 4096)])
+def test_rel_attention_long_rows_match_plain_version(dev, B, T):
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    tc.check_rel_attention(*tc.long_attention_inputs(B, T, seed=T, dev=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +147,26 @@ def test_fused_joint_topk_kernel_matches_plain_version(dev, B, K, V, fold, bias)
 )
 def test_fused_joint_topk_kernel_at_tiling_edges(dev, B, K, V, J, n, fold, bias):
     a = kc.joint_inputs(B, K, V, J, J, seed=V + J + n, dev=dev, bias=bias)
+    kc.check_joint(a, K, n, blank=0, eos=2, fold=fold)
+
+
+# the wide instance (J or H above 1024: feat and h through the ring, h by
+# a global scratch, four d tiles a warpgroup): J = H = 1088 and 2048, V =
+# 1024 and 5003, with and without a label bias, with an eos fold; J and H
+# apart; BK not a multiple of 64; at today's bound (0.02)
+@pytest.mark.parametrize(
+    "B,K,V,J,H_,n,fold,bias",
+    [
+        (256, 10, 1024, 1088, 1088, 12, False, False),
+        (256, 10, 5003, 2048, 2048, 12, False, False),
+        (255, 10, 1024, 2048, 2048, 32, True, True),
+        (8, 4, 5003, 1088, 1088, 12, False, True),
+        (3, 4, 1032, 2048, 512, 1, True, False),
+        (5, 4, 1024, 512, 2048, 16, False, True),
+    ],
+)
+def test_fused_joint_topk_wide_instance_matches_plain_version(dev, B, K, V, J, H_, n, fold, bias):
+    a = kc.joint_inputs(B, K, V, J, H_, seed=V + J + H_ + n, dev=dev, bias=bias)
     kc.check_joint(a, K, n, blank=0, eos=2, fold=fold)
 
 
@@ -201,8 +234,11 @@ def test_decode_kernels_reject_what_they_do_not_take(dev):
         dk.fused_joint_topk(**dict(a, scores=a["scores"][:1]), K=4, n_cand=6)
     with pytest.raises(ValueError, match="n_cand"):
         dk.fused_joint_topk(**a, K=4, n_cand=33)
-    with pytest.raises(ValueError, match="at most 1024"):
-        dk.fused_joint_topk(**kc.joint_inputs(2, 4, 128, 1088, 64, seed=0, dev=dev), K=4, n_cand=6)
+    # J and H up to 2048 take the wide instance; past it the wrapper raises
+    with pytest.raises(ValueError, match="at most 2048"):
+        dk.fused_joint_topk(**kc.joint_inputs(2, 4, 128, 2112, 64, seed=0, dev=dev), K=4, n_cand=6)
+    with pytest.raises(ValueError, match="at most 2048"):
+        dk.fused_joint_topk(**kc.joint_inputs(2, 4, 128, 512, 2064, seed=0, dev=dev), K=4, n_cand=6)
     s = kc.lstm_inputs(2, 4, 64, 2, seed=0, dev=dev)
     with pytest.raises(ValueError, match="bfloat16"):
         dk.lstm_step_reorder(**dict(s, S=s["S"].float()), B=2, K=4)
@@ -346,9 +382,38 @@ def test_rel_attention_train_fwd_rejects_a_length_past_its_shared_memory(dev):
     a = tc.attention_train_inputs(1, ak.REL_ATTENTION_TRAIN_MAX_T + 1, seed=0, dev=dev)
     args = (a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"], a["seed"], H, 0.125, 0.1)
     before = ak.rel_attention_train_fwd.launches
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="takes T <= 4096"):
         ak.rel_attention_train_fwd(*args)
     assert ak.rel_attention_train_fwd.launches == before
+    g = a["g"]
+    before = ak.rel_attention_train_bwd.launches
+    with pytest.raises(ValueError, match="take T <= 4096"):
+        ak.rel_attention_train_bwd(*args[:7], g, H, 0.125, 0.1)
+    assert ak.rel_attention_train_bwd.launches == before
+
+
+# the forward's long-row mode (past T' = 1408) and the backward at the same
+# lengths, rates 0 and 0.1: both against the plain versions at today's
+# bounds (2 and 8 bf16 ulps); the keep mask is the short mode's
+@pytest.mark.parametrize("B,T", [(2, 1409), (2, 1500), (1, 2048), (1, 4096)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rel_attention_train_kernels_at_long_lengths(dev, B, T, rate):
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    a = tc.attention_train_inputs(B, T, seed=T + B, dev=dev)
+    if B > 1:
+        a["key_valid"][-1] = torch.arange(T, device=dev) < 1
+    tc.check_attention_train(a, H, rate)
+
+
+# a layer past the relative table's size (encoder_relative_max_size 64 at
+# T' = 300): eval through B1 and train through B2/B3 on the expanded
+# table, each held to the layer's gather path (weights requested) on the
+# same bf16 weights, with the launches counted
+def test_clipped_table_layer_runs_the_kernels(dev):
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    tc.check_clipped_table_layer(dev, T=300, L=64)
 
 
 # an utterance whose keys are all masked past a short length (2 of 200),
@@ -409,6 +474,19 @@ def test_fbank_kernel_matches_plain_version(dev, num_samples, S):
     assert errs["log"] < fc.FBANK_LOG_TOL
 
 
+# 8 kHz (window 200, shift 80): the 256-point DFT as the kernel's even bins
+@pytest.mark.parametrize(
+    "num_samples,S", [([8200, 4500, 150], 8200), ([50080, 35000] * 2, 50080), ([201], 201)]
+)
+def test_fbank_kernel_at_8khz(dev, num_samples, S):
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+
+    a = fc.waveform_inputs(num_samples, S, seed=S + 8, dev=dev, sample_rate=8000.0)
+    errs = fc.check_fbank(a, sample_rate=8000.0)
+    assert errs["log"] < fc.FBANK_LOG_TOL
+    fc.check_fbank(a, num_mel_bins=40, sample_rate=8000.0)
+
+
 def test_fbank_kernel_at_40_bins(dev):
     from espresso_tpu_torch.ops import front_kernel_checks as fc
 
@@ -432,6 +510,15 @@ def test_fbank_kernel_at_40_bins_at_edge_shapes(dev, num_samples, S):
         (37, 2048, 129, torch.bfloat16),
         (1, 1, 1, torch.float32),
         (130, 64, 8, torch.bfloat16),
+        # the three check shapes in both dtypes: the FFN's two products over
+        # a serving batch's frames and the ragged one (w from a padded copy)
+        (39936, 512, 2048, torch.float32),
+        (39936, 2048, 512, torch.float32),
+        (1000, 200, 300, torch.bfloat16),
+        (39936, 512, 2048, torch.bfloat16),
+        (39936, 2048, 512, torch.bfloat16),
+        (301, 133, 301, torch.float32),  # K odd (scalar row pass), N * 4 not on 16 bytes
+        (129, 7, 259, torch.bfloat16),
     ],
 )
 def test_int8_matmul_kernel_matches_plain_version_bit_exact(dev, M, K, N, dtype):
@@ -447,8 +534,9 @@ def test_front_kernels_reject_what_they_do_not_take(dev):
     wav = torch.zeros(2, 1000, device=dev)
     with pytest.raises(ValueError, match="num_samples"):
         fbank_fused(wav, torch.zeros(3, dtype=torch.int32, device=dev))
-    with pytest.raises(ValueError, match="512-point"):
-        fbank_fused(wav, torch.zeros(2, dtype=torch.int32, device=dev), sample_rate=8000.0)
+    # 22.05 kHz: a 1024-point DFT (8 and 16 kHz are taken)
+    with pytest.raises(ValueError, match="1024- and 2048-point"):
+        fbank_fused(wav, torch.zeros(2, dtype=torch.int32, device=dev), sample_rate=22050.0)
     x = torch.zeros(4, 32, device=dev)
     w = torch.zeros(8, 32, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="transposed"):

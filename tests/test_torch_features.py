@@ -118,6 +118,32 @@ def test_fbank_matches_jax_fused_and_pallas(jax_fbank):
             assert np.abs(got[b, :n] - ref[b, :n])[ok].max(initial=0.0) <= FBANK_ATOL_JAX
 
 
+
+def test_fbank_8khz_matches_jax_fused():
+    """8 kHz (window 200, shift 80, a 256-point DFT): the port's plain
+    version against JAX ``fbank_fused`` on the CPU."""
+    S = 8200
+    rng = np.random.default_rng(9)
+    t = np.arange(S) / 8000.0
+    wav = rng.standard_normal((2, S)) * 2000.0
+    for b in range(2):
+        f1, f2 = rng.uniform(100, 3900, 2)
+        wav[b] += 8000 * np.sin(2 * np.pi * f1 * t) + 3000 * np.sin(2 * np.pi * f2 * t)
+    ns = np.array([S, 4321], np.int32)
+    wav[np.arange(S)[None, :] >= ns[:, None]] = 0.0
+    wav = wav.astype(np.float32)
+    ref, ref_len = (np.asarray(a) for a in jax_fbank_fused(jnp.asarray(wav), jnp.asarray(ns), 8000.0))
+    got, lengths = fbank_fused(torch.from_numpy(wav), torch.from_numpy(ns), 8000.0)
+    got, lengths = got.numpy(), lengths.numpy()
+    np.testing.assert_array_equal(lengths, ref_len)
+    np.testing.assert_array_equal(lengths, [1 + (S - 200) // 80, 1 + (4321 - 200) // 80])
+    assert got.shape == ref.shape == (2, 1 + (S - 200) // 80, 80)
+    for b, n in enumerate(lengths):
+        assert not got[b, n:].any()
+        ok = _loud(ref[b, :n])
+        assert ok.mean() > 0.9
+        assert np.abs(got[b, :n] - ref[b, :n])[ok].max() <= FBANK_ATOL_JAX
+
 @pytest.mark.parametrize("bins", [80, 40])
 def test_fbank_matches_kaldi_goldens(bins):
     """The goldens' rule (tests/test_features.py): bins within 70 dB of the

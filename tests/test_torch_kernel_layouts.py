@@ -201,11 +201,17 @@ def test_rel_attention_tiles_cover_every_score_once(T):
 
 def test_rel_attention_shared_memory_limits_its_length():
     # the flagship's blocks fit three an SM (228 KB, 1 KB of it reserved a
-    # block); the longest T fits one block
+    # block); the longest T whose score rows fit takes one block, and past
+    # it the long-row mode runs, two blocks an SM up to the wrapper's limit
     assert 3 * (ak.rel_attention_smem_bytes(156) + 1024) <= 228 * 1024
-    assert ak.rel_attention_smem_bytes(ak.REL_ATTENTION_MAX_T) <= ak.SMEM_LIMIT
-    assert ak.rel_attention_smem_bytes(ak.REL_ATTENTION_MAX_T + 1) > ak.SMEM_LIMIT
-    assert ak.REL_ATTENTION_MAX_T == 1344
+    short = ak.REL_ATTENTION_SHORT_MAX_T
+    assert ak.rel_attention_smem_bytes(short) <= ak.SMEM_LIMIT
+    assert ak._fwd_smem_bytes(short + 1, 2) > ak.SMEM_LIMIT
+    assert short == 1344 and not ak.rel_attention_long_rows(short)
+    assert ak.rel_attention_long_rows(short + 1)
+    assert ak.rel_attention_smem_bytes(short + 1) == ak.long_rows_smem_bytes(short + 1)
+    assert ak.REL_ATTENTION_MAX_T == 4096
+    assert 2 * (ak.rel_attention_smem_bytes(ak.REL_ATTENTION_MAX_T) + 1024) <= 228 * 1024
     # up to two key tiles the scores stay in registers: no shared score rows
     assert ak.rel_attention_smem_bytes(128) - ak.rel_attention_smem_bytes(64) == 4 * 64
 
@@ -263,7 +269,7 @@ def _pv_fragments():
                 kk=kk, hh=r & 1, acc=8 * kk + 2 * r + e)
 
 
-@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 192, 193, 256, ak.REL_ATTENTION_TRAIN_MAX_T])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 192, 193, 256, ak.REL_ATTENTION_TRAIN_SHORT_MAX_T])
 def test_rel_attention_train_fwd_tiles_cover_every_score_and_weight_once(T):
     """Scores: query tile q0 = 64 qt, key tile k0 = 64 kt, the bd of (q0 + r,
     k0 + c) from window row c - r + 63 of p rows j0 = T - 1 + k0 - q0 - 63;
@@ -350,11 +356,96 @@ def test_rel_attention_train_fwd_shared_memory_limits_its_length():
     # reserved a block); one block at the longest T the kernel takes, which
     # is at least the longest the inference kernel takes
     assert 2 * (ak.rel_attention_train_smem_bytes(256) + 1024) <= 228 * 1024
-    assert ak.rel_attention_train_smem_bytes(ak.REL_ATTENTION_TRAIN_MAX_T) <= ak.SMEM_LIMIT
-    assert ak.rel_attention_train_smem_bytes(ak.REL_ATTENTION_TRAIN_MAX_T + 1) > ak.SMEM_LIMIT
-    assert ak.REL_ATTENTION_TRAIN_MAX_T == 1408 >= ak.REL_ATTENTION_MAX_T
+    short = ak.REL_ATTENTION_TRAIN_SHORT_MAX_T
+    assert ak.rel_attention_train_smem_bytes(short) <= ak.SMEM_LIMIT
+    assert ak._fwd_smem_bytes(short + 1, 3) > ak.SMEM_LIMIT
+    assert short == 1408 >= ak.REL_ATTENTION_SHORT_MAX_T
+    assert ak.rel_attention_train_long_rows(short + 1)
+    assert not ak.rel_attention_train_long_rows(short)
+    # the long-row mode: two blocks an SM up to the limit of both wrappers
+    assert ak.REL_ATTENTION_TRAIN_MAX_T == ak.REL_ATTENTION_MAX_T == 4096
+    assert 2 * (ak.rel_attention_train_smem_bytes(4096) + 1024) <= 228 * 1024
     # up to three key tiles the scores stay in registers: no shared score rows
     assert ak.rel_attention_train_smem_bytes(192) - ak.rel_attention_train_smem_bytes(64) == 4 * 128
+
+
+# ---------------------------------------------------------------------------
+# the long-row mode of rel_attention_fwd.cuh (B1 past T' = 1344, B2 past
+# 1408): two passes over the key tiles through a ring of {K, p window, V}
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T", [1345, 1409, 1500, 2048, 4096])
+def test_long_rows_tiles_cover_every_score_once_in_each_pass(T):
+    """Ring load it (it < 2 nk) brings key tile it % nk's K and p window
+    rows [j0, j0 + 128), j0 = T - 1 + k0 - q0 - 63 (and in pass 2, it >= nk,
+    its V tile) into stage it % 2, whose phase is it // 2; pass 1 reads
+    every (query, key) score once for the row statistics, pass 2 once more
+    for the weights, whose A fragment elements (row, column) come from the
+    lane's x of that same (row, column); the bd window (64 rows of 136 bf16)
+    lies over the stage's K and p window and leaves its V tile alone."""
+    nt = -(-T // 64)
+    f = _pv_fragments()
+    assert 64 * (2 * 64 + 8) * 2 <= 3 * 8192  # the window below the V tile
+    r = torch.arange(64)[:, None]
+    c = torch.arange(64)[None, :]
+    for qt in sorted({0, 1, nt // 2, nt - 1}):
+        q0 = 64 * qt
+        seen = torch.zeros(2, 64, 64 * nt, dtype=torch.int64)
+        phases = {0: [], 1: []}
+        for it in range(2 * nt):
+            kt, pas = it % nt, it // nt
+            phases[it % 2].append(it // 2)
+            k0 = 64 * kt
+            j0 = T - 1 + k0 - q0 - 63
+            jp = c - r + 63
+            assert int(jp.min()) >= 0 and int(jp.max()) + 1 < 128
+            assert torch.equal(j0 + jp, T - 1 + (k0 + c) - (q0 + r))
+            if pas == 0:
+                seen[0, :, k0:k0 + 64] += 1
+            else:
+                run = k0 + 16 * f["kk"] < T
+                k = k0 + f["col"]
+                assert not ((k < T) & ~run).any()
+                seen[1, f["row"][run], k[run]] += 1
+        for slot in (0, 1):
+            assert phases[slot] == list(range(len(phases[slot])))
+        q_in = (q0 + torch.arange(64)) < T
+        for pas in (0, 1):
+            assert torch.equal(seen[pas][q_in][:, :T], torch.ones(int(q_in.sum()), T, dtype=torch.int64))
+
+
+def test_long_rows_online_softmax_matches_the_full_row():
+    """Pass 1's statistics: each lane folds its 16 scores a tile into (m, z)
+    with one rescale (z = z exp(m - m') + sum exp(x - m')), the four lanes
+    of a row combine theirs (M = max, Z = sum z exp(m - M)); 1 / Z is within
+    a few f32 ulps of the full row's and w = bf16(exp(x - M) / Z) is the
+    plain version's up to one bf16 rounding."""
+    rng = np.random.default_rng(0)
+    T = 2000
+    x = (rng.standard_normal(T) * 8).astype(np.float32)
+    x[rng.random(T) < 0.1] = -1e8  # masked keys
+    xp = np.full(64 * -(-T // 64), -np.inf, np.float32)
+    xp[:T] = x
+    lanes = []
+    for q in range(4):  # lane q holds columns 8 j + 2 q + e of every tile
+        m, z = np.float32(-np.inf), np.float32(0)
+        for kt in range(len(xp) // 64):
+            cols = [64 * kt + 8 * j + 2 * q + e for j in range(8) for e in range(2)]
+            mt = max(m, xp[cols].max())
+            ref = np.float32(0) if mt == -np.inf else mt
+            z = np.float32(z * np.exp(np.float32(m - ref)) + np.exp(xp[cols] - ref).sum(dtype=np.float32))
+            m = mt
+        lanes.append((m, z))
+    M = max(m for m, _ in lanes)
+    Z = np.float32(sum(np.float32(z * np.exp(np.float32(m - M))) for m, z in lanes))
+    full = np.exp(x - x.max()).sum(dtype=np.float64)
+    assert M == x.max()
+    assert abs(float(Z) - full) <= 8 * np.spacing(np.float32(full))
+    w = torch.from_numpy(np.exp(x - M) * (np.float32(1) / Z)).to(torch.bfloat16).float()
+    want = torch.softmax(torch.from_numpy(x), -1).to(torch.bfloat16).float()
+    ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    assert bool(((w - want).abs() <= ulp).all())
 
 
 # ---------------------------------------------------------------------------
@@ -449,10 +540,9 @@ def _fft_power_model(y: np.ndarray, late=np.complex128) -> np.ndarray:
     return P
 
 
-def _windowed_frames(wave: np.ndarray, n_frames: int) -> np.ndarray:
+def _windowed_frames(wave: np.ndarray, n_frames: int, W: int = 400, shift: int = 160) -> np.ndarray:
     """The plain version's frames before the DFT: DC removed, pre-emphasis,
     the povey window, zero-padded to 512 (f32)."""
-    W, shift = 400, 160
     x = np.stack([wave[t * shift : t * shift + W] for t in range(n_frames)]).astype(np.float32)
     x = x - x.mean(1, keepdims=True)
     prev = np.concatenate([x[:, :1], x[:, :-1]], 1)
@@ -511,6 +601,51 @@ def test_fbank_fft_schedule_through_the_mel_banks_matches_the_plain_version():
     tab = fk._kernel_tables(torch.device("cpu"), 400, 80, 16000.0)
     mel = _mel_schedule_model(P, tab["mel_w"].numpy(), tab["mel_meta"].numpy(),
                               tab["mel_len"].numpy(), 80)
+    got = np.log(np.maximum(mel, np.float32(1.1920928955078125e-07))).astype(np.float64)
+    want = ref[0, :n].double().numpy()
+    loud = want - want.max(1, keepdims=True) >= -fc.DB70
+    assert np.abs(got - want)[loud].max() < fc.FBANK_LOG_TOL
+    lin = np.abs(np.exp(got) - np.exp(want)) / np.exp(want).max(1, keepdims=True)
+    assert lin.max() < fc.FBANK_LIN_TOL
+
+
+def test_fbank_256_point_dft_is_the_512_point_schedules_even_bins():
+    """At 8 kHz (window 200, shift 80) the kernel runs its 512-point FFT on
+    the frame zero-padded to 512: X512[2 k] = X256[k] exactly, so its even
+    bins are the 256-point power spectrum, with the 512-point error floor
+    (under 2e-7 of the frame's peak energy)."""
+    wave = fc.waveform_inputs([8200], 8200, seed=5, dev="cpu", sample_rate=8000.0)
+    y = _windowed_frames(wave["waveforms"][0].numpy(), 100, W=200, shift=80)
+    assert not y[:, 256:].any()
+    P = _fft_power_model(y).astype(np.float64)
+    ref = np.abs(np.fft.rfft(y[:, :256].astype(np.float64), axis=1)) ** 2  # [F, 129]
+    err = np.abs(P[:, 0::2] - ref[:, :128]) / ref.max(1, keepdims=True)
+    assert err.max() < 2e-7, err.max()
+
+
+def test_fbank_8khz_mel_schedule_through_the_model_matches_the_plain_version():
+    """8 kHz, 80 mel bins: 14 bins take a single DFT bin and none is empty;
+    the kernel's banks hold each 256-point row at its even bin, the schedule
+    gives them back, and the model's spectrum through it matches fbank_plain
+    by the goldens' rule."""
+    _, _, mel_t = fk._dft_mel_matrices(200, 256, 80, 8000.0)
+    nz = (mel_t[:128] != 0).sum(0)
+    assert not mel_t[128].any() and nz.min() >= 1 and int((nz == 1).sum()) == 14
+    banks = fk.kernel_mel_banks(200, 256, 80, 8000.0)
+    assert banks.shape == (fk.FFT_POINTS, 80)
+    np.testing.assert_array_equal(banks[0::2], mel_t[:128])
+    assert not banks[1::2].any()
+    w, meta, lens = fk.mel_schedule(banks)
+    tab = fk._kernel_tables(torch.device("cpu"), 200, 80, 8000.0)
+    np.testing.assert_array_equal(tab["mel_w"].numpy(), w)
+    np.testing.assert_array_equal(tab["mel_meta"].numpy(), meta)
+    S = 8200
+    a = fc.waveform_inputs([S], S, seed=6, dev="cpu", sample_rate=8000.0)
+    ref, lengths = fk.fbank_plain(a["waveforms"], a["num_samples"], 8000.0)
+    n = int(lengths[0])
+    assert n == 1 + (S - 200) // 80
+    P = _fft_power_model(_windowed_frames(a["waveforms"][0].numpy(), n, W=200, shift=80))
+    mel = _mel_schedule_model(P, w, meta, lens, 80)
     got = np.log(np.maximum(mel, np.float32(1.1920928955078125e-07))).astype(np.float64)
     want = ref[0, :n].double().numpy()
     loud = want - want.max(1, keepdims=True) >= -fc.DB70
@@ -632,3 +767,84 @@ def test_fbank_mel_schedule_gives_back_the_banks(M):
     mel = _mel_schedule_model(np.ones((1, fk.FFT_POINTS), np.float32), w2, meta2, lens2, M)[0]
     assert mel[1] == 0.0
     np.testing.assert_allclose(mel, empty.sum(0), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# int8_matmul (B11): the persistent product's tile schedule, its TMA boxes
+# and epilogue boxes, and the routes each check shape takes
+# ---------------------------------------------------------------------------
+
+from espresso_tpu_torch.ops import quantization as qz  # noqa: E402
+
+I8_BM, I8_BN, I8_BOX_ROWS, I8_BOX_COLS = 128, 256, 64, 32  # int8_matmul.cu
+
+
+@pytest.mark.parametrize(
+    "M,K,N,w_route,out_route",
+    [(39936, 512, 2048, "direct", "tma"), (39936, 2048, 512, "direct", "tma"),
+     (1000, 200, 300, "padded", "tma"), (301, 133, 301, "padded", "predicated")],
+)
+def test_int8_matmul_schedule_covers_every_output_once(M, K, N, w_route, out_route):
+    """Tiles of 128 x 256 taken N-inner, tile i by block i % grid (grid =
+    min(tiles, 132)); each tile's k-tiles of 128 bytes up to Kp (K rounded
+    up to 128: the row pass's zeros, or TMA's past K); each consumer
+    warpgroup's 64 rows leave in eight [64 x 32] boxes, clipped at M and N:
+    every output element is written once. Each check shape's routes."""
+    w = fc.int8_inputs(2, K, N, seed=0, dev="cpu")["w_q"]
+    # the product's TMA stores need f32 rows on 16 bytes, else it stores
+    # through a predicate (int8_matmul.cu)
+    assert qz.int8_w_route(w) == w_route
+    assert ("tma" if N * 4 % 16 == 0 else "predicated") == out_route
+    Kp = max(-(-K // qz.K_TILE) * qz.K_TILE, qz.K_TILE)
+    assert Kp % 128 == 0 and Kp - K < 128
+    ntn, mt = -(-N // I8_BN), -(-M // I8_BM)
+    tiles, grid = mt * ntn, min(mt * ntn, 132)
+    per_block = [list(range(b, tiles, grid)) for b in range(grid)]
+    assert sorted(t for ts in per_block for t in ts) == list(range(tiles))
+    # consecutive tiles of a block (stride grid) walk N fastest: a block's
+    # neighbours at one moment share the same rows of xq
+    rows_cov = np.zeros(mt * I8_BM, np.int64)
+    cols_cov = np.zeros(ntn * I8_BN, np.int64)
+    boxes = set()
+    for t in range(tiles):
+        m0, n0 = t // ntn * I8_BM, t % ntn * I8_BN
+        for cw in range(2):
+            for c in range(I8_BN // I8_BOX_COLS):
+                boxes.add((m0 + I8_BOX_ROWS * cw, n0 + I8_BOX_COLS * c))
+        if t % ntn == 0:
+            rows_cov[m0:m0 + I8_BM] += 1
+        if t < ntn:
+            cols_cov[n0:n0 + I8_BN] += 1
+    # the boxes are the [64 x 32] grid over the tiles, so clipped at M and N
+    # they cover [0, M) x [0, N) once
+    want = {(r, c) for r in range(0, mt * I8_BM, I8_BOX_ROWS) for c in range(0, ntn * I8_BN, I8_BOX_COLS)}
+    assert boxes == want
+    assert (rows_cov[:M] == 1).all() and (cols_cov[:N] == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(1000, 200, 300), (67, 133, 45), (9, 1, 3)])
+def test_int8_matmul_routes_model_is_the_plain_version_bit_for_bit(M, K, N, dtype):
+    """The kernel's arithmetic along its routes, in numpy: the row pass
+    (16-byte chunks of E elements where K allows, else one by one) writes
+    xq [M, Kp] with zeros past K; w is read directly or from the zero-padded
+    [N, Kp] copy; int32 sums over the 128-byte k-tiles; the epilogue's two
+    f32 products in order. Bit for bit the plain version."""
+    a = fc.int8_inputs(M, K, N, seed=M + K, dev="cpu", dtype=dtype)
+    x = a["x"].float().numpy()
+    Kp = max(-(-K // qz.K_TILE) * qz.K_TILE, qz.K_TILE)
+    amax = np.abs(x).max(1) if K else np.zeros(M, np.float32)
+    xs = (np.maximum(amax, np.float32(1e-8)) * np.float32(1.0 / 127.0)).astype(np.float32)
+    xq = np.zeros((M, Kp), np.int32)
+    xq[:, :K] = np.clip(np.rint(x / xs[:, None]), -127, 127)  # IEEE quotient, half to even
+    wq = a["w_q"].t().numpy().astype(np.int32)  # [N, K]
+    if qz.int8_w_route(a["w_q"]) == "padded":
+        wq = np.pad(wq, ((0, 0), (0, Kp - K)))
+    else:
+        xq = xq[:, :K]
+    acc = np.zeros((M, N), np.int64)
+    for k0 in range(0, xq.shape[1], 128):
+        acc += xq[:, k0:k0 + 128].astype(np.int64) @ wq[:, k0:k0 + 128].T.astype(np.int64)
+    out = (acc.astype(np.float32) * xs[:, None]).astype(np.float32) * a["w_scale"].numpy()[None, :]
+    want = qz.int8_matmul_plain(a["x"], a["w_q"], a["w_scale"]).numpy()
+    np.testing.assert_array_equal(out.astype(np.float32), want)
