@@ -31,7 +31,11 @@ eleven Hopper kernels:
    400, one window short, one utterance) by the Kaldi goldens' rule, and
    timed at the PCM-fed train point too;
    ``int8_matmul`` at the flagship FFN shapes over a serving batch's frames
-   and a ragged one, bit for bit), and times kernel and plain version at
+   and a ragged one, bit for bit; ``lstm_step_reorder`` also at the
+   ``beam_lm`` point's LM, embed 512 gate-padded to H=1024, L=3, at BK=2560
+   and 12; ``fbank`` also at 22.05, 44.1 (an odd shift), 48 and 96 kHz, the
+   1024-, 2048- and 4096-point instances, at edge counts and at a batch of
+   the serving batch's audio seconds), and times kernel and plain version at
    the flagship shape (and, beside B5, B6 and B7, their products alone
    through cuBLAS as a yardstick, beside B1 the forward of
    ``scaled_dot_product_attention``, beside B2 its forward with dropout,
@@ -57,7 +61,17 @@ eleven Hopper kernels:
    one timed batch, one ``fbank`` launch a batch and every other kernel
    launched as often as in a frame-fed batch, no host sync in the front,
    and the front's share of the batch;
-5. trains the flagship from a seeded init at ``bench_train.py``'s point
+5. decodes the serving batch at ``bench_decode.py``'s ``beam_lm`` point
+   (:212-239): the same beam search fused with an LSTM LM of 3 layers,
+   hidden 1024, embed 512, out_embed 512, V_lm = 1023 (seeded init, bf16)
+   at lm_weight 0.47: one warm-up and three timed batches with the launch
+   counts asserted (B6 and B8 three times a frame, B7 twice a frame for
+   the prediction net and twice for the LM, B9 once), a profiled batch,
+   and an 8-utterance sub-batch (joint peaked x6, the LM as built)
+   through the kernels against the plain versions (top-1 scores within
+   1 %); times B7's LM instance alone beside its bound and cuBLAS on its
+   products;
+6. trains the flagship from a seeded init at ``bench_train.py``'s point
    (B=16 utterances of 1024 frames, U=100, dropout 0.1, bf16 compute on
    fp32 masters, adam at a fixed lr of 1e-3, clip 2.0): one warm-up step,
    then 10 steps on one batch with every kernel's count set to 0 just
@@ -130,6 +144,10 @@ JOINT_WIDE = [
     (3, 4, 1032, 2048, 512, 1, True, False), (5, 4, 1024, 512, 2048, 16, False, True),
 ]
 JOINT_WIDE_TIMED = 2048
+# bench_decode.py's beam_lm point (:212-239): BEAM with an LSTM LM
+LM = dict(vocab_size=1023, embed_dim=512, hidden_size=1024, out_embed_dim=512, num_layers=3,
+          dropout=0.0)
+LM_WEIGHT = 0.47
 # B7's: (B, K, H, L, share of live rows)
 LSTM_EDGES = [
     (1, 1, 512, 2, 0.8), (3, 4, 512, 3, 0.8), (1, 12, 512, 2, 0.8), (255, 10, 512, 2, 0.8),
@@ -219,6 +237,14 @@ FBANK_EDGES = [([399, 400, 16000], 16000), ([250], 250), ([4321], 4321),
 # batch's frame counts at 8 kHz
 FBANK_8K = [([8200, 4500, 150], 8200), ([201], 201), ([4321], 4321)]
 SHIFT_8K, WINDOW_8K = 80, 200
+# B10's larger instances: (sample rate, edge counts and S), each also timed
+# at the serving batch's frame counts (S = (T - 1) shift + window)
+FBANK_RATES = [
+    (22050.0, [([22050, 12000, 540], 22050), ([551], 551)]),
+    (44100.0, [([44100, 30001, 1101], 44100), ([1102, 1543], 1543)]),
+    (48000.0, [([48000, 31111, 1199], 48000)]),
+    (96000.0, [([96000, 50001, 2399], 96000), ([2400], 2400)]),
+]
 # B11's shapes: the flagship FFN's two products over a serving batch's
 # encoder frames (256 x 156), and a ragged edge
 INT8_SHAPES = [(39936, 512, 2048), (39936, 2048, 512), (1000, 200, 300)]
@@ -584,7 +610,49 @@ def check_decode_kernels(dev) -> dict:
     xa = torch.cat([s["x"], s["S"][s["src"], :J]], 1)
     wa = torch.cat([s["w_ih"][0], s["w_hh"][0]], 0).contiguous()
     row["cublas_products_ms"] = device_ms(lambda: (xa @ wa, xa @ wa))
+    # the beam_lm point's LM instance: embed 512 gate-padded to H = 1024,
+    # L = 3 (prep_lstm_kernel_inputs), at BK = 2560 and 12, some rows dead;
+    # timed at BK = 2560 beside its bound and cuBLAS on its products (a
+    # layer's [BK, 2H] . [2H, 4H], L times). The bound counts the LM step,
+    # not the padded stack: layer 0's products at width E + H, the others'
+    # at 2H, the weights and the embedded tokens at their unpadded sizes;
+    # the padded stack's products (layer 0 at 2H, its zero columns
+    # multiplied too) are reported beside it as lm_padded_gflop
+    E_lm, H_lm, L_lm = LM["embed_dim"], LM["hidden_size"], LM["num_layers"]
+    errs += [kc.check_lstm(kc.lstm_lm_inputs(Bx, Kx, E_lm, H_lm, L_lm, seed=Bx + 7, dev=dev), Bx, Kx)
+             for Bx, Kx in ((B, K), (1, 12))]
+    log(f"lstm_step_reorder LM instance max_abs_err {errs[-2:]} (bound {kc.LSTM_TOL})")
+    s = kc.lstm_lm_inputs(B, K, E_lm, H_lm, L_lm, seed=B + 7, dev=dev)
+    k_rows = (E_lm + H_lm) + (L_lm - 1) * 2 * H_lm  # the rows of the step's gate kernels
+    n_bytes = ((BK * E_lm + 2 * BK * 2 * L_lm * H_lm + k_rows * 4 * H_lm) * 2
+               + L_lm * 4 * H_lm * 4 + BK * 9)
+    lm_flops = 2 * BK * k_rows * 4 * H_lm
+    row["lm_bound_ms"], row["lm_bound_by"] = bound(n_bytes, lm_flops, PEAK_BF16)
+    Hp_lm = s["w_ih"].shape[1]
+    row["lm_padded_gflop"] = L_lm * 2 * BK * 2 * Hp_lm * 4 * Hp_lm / 1e9
+    lm = time_pair(
+        "lstm_step_reorder LM instance", lambda: dk.lstm_step_reorder(**s, B=B, K=K),
+        lambda: dk.lstm_step_reorder_reference(**s, B=B, K=K), "", per_call=L_lm,
+    )
+    row["lm_ms"], row["lm_plain_ms"] = lm["ms"], lm["plain_ms"]
+    xa = torch.cat([s["x"], s["S"][s["src"], :H_lm]], 1)
+    wa = torch.cat([s["w_ih"][0], s["w_hh"][0]], 0).contiguous()
+    row["lm_cublas_products_ms"] = device_ms(lambda: [xa @ wa for _ in range(L_lm)])
+    log(f"lstm_step_reorder LM instance BK={BK} H={H_lm} L={L_lm}: {row['lm_ms']} ms, bound "
+        f"{row['lm_bound_ms']} ms ({row['lm_bound_by']}, {lm_flops / 1e9:.1f} GFLOP the step needs; "
+        f"the padded stack's products {row['lm_padded_gflop']:.1f} GFLOP), cuBLAS "
+        f"products {row['lm_cublas_products_ms']} ms")
     rows["lstm_step_reorder"] = dict(row, max_abs_err=max(errs))
+    # B6 as the beam_lm point calls it: with a label bias, returning the
+    # factor (its bytes add the bias read and the factor written)
+    a = kc.joint_inputs(B, K, V, J, J, seed=0, dev=dev, bias=True)
+    r = rows["fused_joint_topk"]
+    n_bytes = ((2 * BK * J + J * J + J * V) * 2 + (BK + 3 * J + V) * 4 + BK * 8 + BK * n * 8
+               + BK * V * 4)
+    r["lm_bound_ms"] = bound(n_bytes, 2 * BK * J * (J + V), PEAK_BF16)[0]
+    lm = time_pair("fused_joint_topk with a label bias", lambda: dk.fused_joint_topk(**a, K=K, n_cand=n),
+                   lambda: dk.fused_joint_topk_reference(**a, K=K, n_cand=n), "", per_call=1)
+    r["lm_ms"], r["lm_plain_ms"] = lm["ms"], lm["plain_ms"]
     for name in ("fused_joint_topk", "lstm_step_reorder"):
         log(f"{name} flagship: cuBLAS products alone {rows[name]['cublas_products_ms']} ms device")
 
@@ -816,6 +884,21 @@ def windowed_frames(waveforms: torch.Tensor, num_samples: torch.Tensor) -> torch
     return torch.nn.functional.pad(y, (0, fk.FFT_SIZE - WINDOW)).contiguous()
 
 
+def rate_waveforms(num_samples, S: int, sample_rate: float, seed: int, dev) -> dict:
+    """``front_kernel_checks.waveform_inputs``' signal drawn on the card (a
+    serving batch at 96 kHz is 154 M samples): int16-scale noise plus two
+    tones an utterance below Nyquist, zero past each count."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(num_samples)
+    t = torch.arange(S, device=dev, dtype=torch.float64) / sample_rate
+    f = 100 + torch.rand(B, 2, 1, device=dev, generator=g, dtype=torch.float64) * (sample_rate / 2 - 200)
+    wav = torch.randn(B, S, device=dev, generator=g, dtype=torch.float64) * 2000.0
+    wav += 8000 * torch.sin(2 * math.pi * f[:, 0] * t) + 3000 * torch.sin(2 * math.pi * f[:, 1] * t)
+    ns = torch.tensor(num_samples, dtype=torch.int32, device=dev)
+    wav = torch.where(torch.arange(S, device=dev)[None, :] < ns[:, None], wav, 0.0)
+    return {"waveforms": wav.float(), "num_samples": ns}
+
+
 def check_front_kernels(dev) -> dict:
     """B10 (fbank) at the serving batch and at edge shapes, by the goldens'
     rule; B11 (int8_matmul) at the flagship FFN shapes and a ragged one, bit
@@ -890,6 +973,29 @@ def check_front_kernels(dev) -> dict:
                      "fbank_kernel", per_call=1)
     row["khz8_ms"], row["khz8_plain_ms"] = khz8["ms"], khz8["plain_ms"]
     log(f"fbank 8 kHz serving batch B={B} S={S8}: bound {row['khz8_bound_ms']} ms")
+    # 22.05 to 96 kHz: edge counts, then the serving batch's frame counts
+    # at each rate (the same audio seconds), timed, each bound from its
+    # own FFT size
+    for sr, edges in FBANK_RATES:
+        tag = f"khz{int(sr // 1000)}"
+        window, shift = round(sr * 0.025), round(sr * 0.01)
+        nfft = fk.kernel_fft_size(fk._next_power_of_two(window))
+        for nums, S_edge in edges:
+            ae = fc.waveform_inputs(nums, S_edge, seed=S_edge, dev=dev, sample_rate=sr)
+            errs += [fc.check_fbank(ae, num_mel_bins=bins, sample_rate=sr) for bins in (M, 40)]
+        Sr = (T - 1) * shift + window
+        ar = rate_waveforms(((lengths - 1) * shift + window).tolist(), Sr, sr, seed=int(sr), dev=dev)
+        errs.append(fc.check_fbank(ar, sample_rate=sr))
+        nnz = int(np.count_nonzero(fk._dft_mel_matrices(window, nfft, M, sr)[2]))
+        flops = valid8 * (2.5 * nfft * math.log2(nfft) + 3 * (nfft // 2 + 1) + 2 * nnz + 5 * window + M)
+        row[f"{tag}_bound_ms"] = bound(B * Sr * 4 + B * T * M * 4 + 8 * B, flops, PEAK_FP32)[0]
+        r = time_pair(f"fbank {sr / 1000} kHz", lambda: fk.fbank_fused(ar["waveforms"], ar["num_samples"], sr),
+                      lambda: fk.fbank_plain(ar["waveforms"], ar["num_samples"], sr), "fbank_kernel",
+                      per_call=1)
+        row[f"{tag}_ms"], row[f"{tag}_plain_ms"] = r["ms"], r["plain_ms"]
+        log(f"fbank {sr / 1000} kHz ({nfft} points, shift {shift}) serving seconds B={B} S={Sr}: "
+            f"{r['ms']} ms, bound {row[f'{tag}_bound_ms']} ms; errors {errs[-2 * len(edges) - 1:]}")
+        del ar
     rows["fbank"] = dict(row, max_abs_err=max(e["log"] for e in errs), valid_frames=valid,
                          linear_err=max(e["linear"] for e in errs))
     log(f"fbank serving-batch bound: {row['bound_ms']} ms ({row['bound_by']}, {valid} valid "
@@ -1159,6 +1265,57 @@ def run_beam(model, batch, dev, enc_ms: float, T_enc: int) -> dict:
     )
 
 
+def lm_model(dev):
+    """The beam_lm point's LSTM LM from a seeded init, bf16."""
+    from espresso_tpu_torch.models.lstm_lm import LSTMLanguageModel, LSTMLMConfig
+
+    torch.manual_seed(1)
+    return LSTMLanguageModel(LSTMLMConfig(**LM)).to(dev, torch.bfloat16).eval()
+
+
+def run_beam_lm(model, lm, batch, dev, enc_ms: float, T_enc: int) -> dict:
+    """The serving batch at bench_decode.py's beam_lm point: BEAM fused with
+    the LSTM LM at LM_WEIGHT. Every frame B6 and B8 three times, B7 twice for
+    the prediction net and twice for the LM; B9 once a batch."""
+    from espresso_tpu_torch.data.dictionary import AsrDictionary
+    from espresso_tpu_torch.decode.transducer_beam import TransducerBeamSearchDecoder
+
+    B, T = FLAGSHIP["B"], FLAGSHIP["T_FRAMES"]
+    iters, n_layers = 3, len(model.encoder.layers)
+    R = BEAM["max_num_expansions_per_step"] + 1
+    decoder = TransducerBeamSearchDecoder(
+        model, AsrDictionary(enable_bos=True), **BEAM, lm=lm, lm_weight=LM_WEIGHT
+    )
+    hyps, wall, counts, peak_gb = timed_batches(decoder, batch, dev, iters)
+    want = {
+        "rel_attention": n_layers * iters,
+        "fused_joint_topk": R * T_enc * iters,
+        "lstm_step_reorder": 2 * (R - 1) * T_enc * iters,
+        "aes_merge": R * T_enc * iters,
+        "aes_backtrace": iters,
+    }
+    if counts != want:
+        raise AssertionError(f"beam_lm launches {counts}, want {want}")
+    L_max = max(int(T * BEAM["max_out_factor"]), 8)
+    emitted, emitted_all = check_hypotheses(
+        [h for b in hyps for h in b], L_max, FLAGSHIP["VOCAB"], 0, BEAM["beam_size"]
+    )
+    batch_ms = wall / iters * 1e3
+    rtfx = iters * B * T * FRAME_SHIFT_S / wall
+    log(
+        f"beam_lm decode B={B} T={T} (T'={T_enc}), LM {LM} at {LM_WEIGHT}: {wall:.4f} s for {iters} "
+        f"batches, RTFx {rtfx:.1f}; encoder {enc_ms:.2f} ms/batch, frame loop "
+        f"{batch_ms - enc_ms:.2f} ms/batch; peak memory {peak_gb:.2f} GB; launches per batch "
+        f"{ {k: v / iters for k, v in counts.items()} }; tokens per batch {emitted / iters:.0f} in "
+        f"the best hypotheses, {emitted_all / iters:.0f} in all n-best hypotheses"
+    )
+    return dict(
+        rtfx=rtfx, wall_s=wall, encoder_ms=enc_ms, frame_loop_ms=batch_ms - enc_ms,
+        peak_gb=peak_gb, launches=counts, tokens_per_batch=emitted / iters,
+        nbest_tokens_per_batch=emitted_all / iters, profile=profile_batch(decoder, batch),
+    )
+
+
 def compare_encoder(model, batch, sub=slice(0, 8)) -> float:
     """The encoder output on a sub-batch: kernel vs plain attention."""
     frames, lengths = batch["src_frames"][sub], batch["src_lengths"][sub]
@@ -1175,13 +1332,95 @@ def compare_encoder(model, batch, sub=slice(0, 8)) -> float:
     return err
 
 
-def compare_beam(model, batch) -> dict:
+def _agreement(got, want) -> dict:
+    """The largest relative difference of the top-1 scores of two decodes and
+    the utterances whose top-1 tokens agree."""
+    rel = [abs(g[0]["score"] - w[0]["score"]) / abs(w[0]["score"]) for g, w in zip(got, want)]
+    same = sum(np.array_equal(g[0]["tokens"], w[0]["tokens"]) for g, w in zip(got, want))
+    return dict(top1_score_max_rel_diff=max(rel), top1_tokens_equal=int(same), utterances=len(got))
+
+
+def in_situ(decoder, stats: dict):
+    """Swaps for the beam decoder's B6 and B7 wrappers: each call launches the
+    kernel and holds its outputs against the plain version's on the same
+    inputs, by ``check_joint``'s and ``check_lstm``'s rules (an
+    ``AssertionError`` beyond JOINT_TOL or LSTM_TOL); the decode goes on
+    with the kernel's outputs. Appends each call's max error to ``stats``
+    under fused_joint_topk, lstm_lm (the LM's cell stack) or lstm_pred, and
+    for B7 the share of the live rows' state values that differ from the
+    plain version's under lstm_lm_share or lstm_pred_share."""
+    import inspect
+
+    from espresso_tpu_torch.decode import transducer_beam
+    from espresso_tpu_torch.ops import decode_kernels as dk
+    from espresso_tpu_torch.ops import kernel_checks as kc
+
+    joint_sig, lstm_sig = inspect.signature(dk.fused_joint_topk), inspect.signature(dk.lstm_step_reorder)
+
+    def joint(*args, **kw):
+        b = joint_sig.bind(*args, **kw)
+        b.apply_defaults()
+        o = b.arguments
+        got = dk.fused_joint_topk(*args, **kw)
+        want = dk.fused_joint_topk_reference(*args, **kw)
+        a = {k: v for k, v in o.items() if isinstance(v, torch.Tensor)}
+        stats["fused_joint_topk"].append(kc.compare_joint(
+            a, o["K"], o["n_cand"], got, want, o["blank"], o["eos"], o["fold_eos_into_blank"]))
+        return got
+
+    def lstm(*args, **kw):
+        a = {k: v for k, v in lstm_sig.bind(*args, **kw).arguments.items() if k not in ("B", "K")}
+        got = dk.lstm_step_reorder(*args, **kw)
+        want = dk.lstm_step_reorder_reference(*args, **kw)
+        err = kc.compare_lstm(a, got, want)
+        key = "lstm_pred" if a["w_ih"] is decoder.pred_w["w_ih"] else "lstm_lm"
+        stats[key].append(err)
+        # the share of the live rows' state values that differ
+        stats[key + "_share"].append((got != want)[a["live"]].float().mean().item())
+        return got
+
+    return swapped([(transducer_beam, "fused_joint_topk", joint),
+                    (transducer_beam, "lstm_step_reorder", lstm)])
+
+
+def one_ulp_noise(decoder, stack: str, seed: int):
+    """A swap for the beam decoder's B7 wrapper, for a decode through the
+    plain versions: after each step of one cell stack (``stack`` "lm" or
+    "pred", the prediction net's), half the live rows' nonzero state values
+    (drawn from ``seed``) move one bf16 step up or down, the size of the
+    differences B7 leaves in a state."""
+    from espresso_tpu_torch.decode import transducer_beam
+    from espresso_tpu_torch.ops import decode_kernels as dk
+
+    g = torch.Generator(device=decoder.pred_w["w_ih"].device).manual_seed(seed)
+
+    def lstm(x, S, src, live, w_ih, b_ih, w_hh, B, K):
+        out = dk.lstm_step_reorder_reference(x, S, src, live, w_ih, b_ih, w_hh, B=B, K=K)
+        if (w_ih is decoder.pred_w["w_ih"]) != (stack == "pred"):
+            return out
+        flip = (torch.rand(out.shape, generator=g, device=out.device) < 0.5) & live[:, None] & (out != 0)
+        step = torch.randint(0, 2, out.shape, generator=g, device=out.device, dtype=torch.int16) * 2 - 1
+        return (out.view(torch.int16) + torch.where(flip, step, 0).to(torch.int16)).view(torch.bfloat16)
+
+    return swapped([(transducer_beam, "lstm_step_reorder", lstm)])
+
+
+def compare_beam(model, batch, lm=None) -> dict:
     """An 8-utterance beam decode with the joint peaked x6 (hypotheses are
     not empty and near-ties are rare), through the kernels and through the
     plain versions: top-1 scores within BEAM_SCORE_RTOL, token agreement
-    reported."""
+    reported. With ``lm``, fused with it at LM_WEIGHT, and every B6 and B7
+    call of the kernel decode held against its plain version on the same
+    inputs (``in_situ``); at the LM as built its log-probs are nearly flat,
+    so the decodes' agreement alone could not show a wrong LM term. With
+    the LM's output layer peaked x4 as well, the decode through the kernels
+    (held in situ too) and, as witnesses of how far one-ulp differences in
+    a state move the decode, the plain decode with one-ulp noise in the
+    LM's state and in the prediction net's (``one_ulp_noise``), each
+    against the plain decode: reported, with no bound."""
     from espresso_tpu_torch.data.dictionary import AsrDictionary
     from espresso_tpu_torch.decode.transducer_beam import TransducerBeamSearchDecoder
+    from espresso_tpu_torch.ops import kernel_checks as kc
 
     peaked = copy.deepcopy(model)
     with torch.no_grad():
@@ -1190,22 +1429,62 @@ def compare_beam(model, batch) -> dict:
     sub = {k: v[:8] for k, v in batch.items()}
     dic = AsrDictionary(enable_bos=True)
     L_max = max(int(FLAGSHIP["T_FRAMES"] * BEAM["max_out_factor"]), 8)
-    got = TransducerBeamSearchDecoder(peaked, dic, **BEAM).decode(sub)
+    name = "beam" if lm is None else "beam_lm"
+
+    def decoder(lm_):
+        kw = {} if lm_ is None else dict(lm=lm_, lm_weight=LM_WEIGHT)
+        return TransducerBeamSearchDecoder(peaked, dic, **BEAM, **kw)
+
+    stats = {k: [] for k in ("fused_joint_topk", "lstm_lm", "lstm_pred", "lstm_lm_share",
+                             "lstm_pred_share")}
+    dec = decoder(lm)
+    with in_situ(dec, stats) if lm is not None else contextlib.nullcontext():
+        got = dec.decode(sub)
     with plain_versions():
-        want = TransducerBeamSearchDecoder(peaked, dic, **BEAM).decode(sub)
+        want = decoder(lm).decode(sub)
     for hyps in (got, want):
         check_hypotheses(hyps, L_max, FLAGSHIP["VOCAB"], 0, BEAM["beam_size"])
-    rel = [abs(g[0]["score"] - w[0]["score"]) / abs(w[0]["score"]) for g, w in zip(got, want)]
-    same = sum(np.array_equal(g[0]["tokens"], w[0]["tokens"]) for g, w in zip(got, want))
+    out = _agreement(got, want)
+    rel = out["top1_score_max_rel_diff"]
     log(
-        f"beam sub-batch kernels vs plain: top-1 scores {[round(g[0]['score'], 4) for g in got]} vs "
+        f"{name} sub-batch kernels vs plain: top-1 scores {[round(g[0]['score'], 4) for g in got]} vs "
         f"{[round(w[0]['score'], 4) for w in want]}; lengths {[len(g[0]['tokens']) for g in got]}; "
-        f"top-1 tokens equal in {same} of {len(got)}; max relative score difference "
-        f"{max(rel)} (bound {BEAM_SCORE_RTOL})"
+        f"top-1 tokens equal in {out['top1_tokens_equal']} of {len(got)}; max relative score "
+        f"difference {rel} (bound {BEAM_SCORE_RTOL})"
     )
-    if max(rel) > BEAM_SCORE_RTOL:
-        raise AssertionError(f"beam top-1 scores disagree by {max(rel)} > {BEAM_SCORE_RTOL} relative")
-    return dict(top1_score_max_rel_diff=max(rel), top1_tokens_equal=int(same), utterances=len(got))
+    if rel > BEAM_SCORE_RTOL:
+        raise AssertionError(f"beam top-1 scores disagree by {rel} > {BEAM_SCORE_RTOL} relative")
+    if lm is None:
+        return out
+
+    lm4 = copy.deepcopy(lm)
+    with torch.no_grad():
+        lm4.decoder.fc_out.weight.mul_(4)
+        lm4.decoder.fc_out.bias.mul_(4)
+    dec = decoder(lm4)
+    with in_situ(dec, stats):
+        got4 = dec.decode(sub)
+    noisy = {}
+    with plain_versions():
+        want4 = decoder(lm4).decode(sub)
+        for stack in ("lm", "pred"):
+            dec = decoder(lm4)
+            with one_ulp_noise(dec, stack, seed=5):
+                noisy[stack] = dec.decode(sub)
+    for hyps in (got4, want4, *noisy.values()):
+        check_hypotheses(hyps, L_max, FLAGSHIP["VOCAB"], 0, BEAM["beam_size"])
+    out["in_situ"] = {k: dict(calls=len(stats[k]), max_abs_err=max(stats[k]))
+                      for k in ("fused_joint_topk", "lstm_lm", "lstm_pred")}
+    for k in ("lstm_lm", "lstm_pred"):
+        out["in_situ"][k]["mean_share_differing"] = statistics.fmean(stats[k + "_share"])
+    out["lm_peaked_x4"] = dict(
+        kernels_vs_plain=_agreement(got4, want4),
+        **{f"plain_{k}_one_ulp_noise_vs_plain": _agreement(v, want4) for k, v in noisy.items()},
+    )
+    log(f"beam_lm sub-batch, every B6 and B7 call held against its plain version on its inputs "
+        f"(bounds {kc.JOINT_TOL}, {kc.LSTM_TOL}): {out['in_situ']}; LM output layer x4: "
+        f"{out['lm_peaked_x4']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1785,11 +2064,16 @@ def main() -> int:
     nvcc_log = build_kernels()
     log(f"kernel build {time.perf_counter() - t0:.2f} s (libraries in parallel)\n{nvcc_log}")
 
-    rows = {
-        "rel_attention": check_attention(dev), **check_decode_kernels(dev),
-        **check_train_kernels(dev), **check_front_kernels(dev),
-    }
+    def phase(name: str) -> None:
+        log(f"-- {name} at {time.perf_counter() - t_start:.1f} s")
+
+    phase("attention kernel checks")
+    rows = {"rel_attention": check_attention(dev)}
+    for check in (check_decode_kernels, check_train_kernels, check_front_kernels):
+        phase(check.__name__)
+        rows.update(check(dev))
     tmp = tempfile.TemporaryDirectory()
+    phase("serving paths")
 
     model = flagship_model(dev)
     batch = flagship_batch(dev)
@@ -1802,16 +2086,23 @@ def main() -> int:
     beam["sub_batch"] = compare_beam(model, batch)
     beam_pcm = run_beam_from_pcm(model, dev, tmp.name, beam["wall_s"] / 3 * 1e3,
                                  {k: v // 3 for k, v in beam["launches"].items()})
-    print(json.dumps({"greedy": greedy, "beam": beam, "beam_from_pcm": beam_pcm, "card": card}))
-    del model, batch
+    phase("beam_lm")
+    lm = lm_model(dev)
+    beam_lm = run_beam_lm(model, lm, batch, dev, enc_ms, T_enc)
+    beam_lm["sub_batch"] = compare_beam(model, batch, lm)
+    print(json.dumps({"greedy": greedy, "beam": beam, "beam_from_pcm": beam_pcm,
+                      "beam_lm": beam_lm, "card": card}))
+    del model, batch, lm
     torch.cuda.empty_cache()
 
+    phase("train paths")
     train = run_train(dev)
     train["sub_batch"] = compare_train_step(dev)
     torch.cuda.empty_cache()
     train_pcm = run_train_from_pcm(dev, tmp.name, train["ms_per_step"])
     tmp.cleanup()
     torch.cuda.empty_cache()
+    phase("long utterances")
     long_utt = run_long_utterances(dev)
     print(json.dumps({"train": train, "train_from_pcm": train_pcm, "long_utterances": long_utt,
                       "card": card}))
@@ -1865,9 +2156,14 @@ def main() -> int:
                                  "ms_all_kernels", "cufft_ms", "train_ms", "train_bound_ms",
                                  "host_us", "unfused_host_us", "int_mm_ms", "row_pass_ms",
                                  "product_ms", "second_shape") if k in r},
-            # the shapes this slice added: the long-row mode (B1, B2; B3 at
-            # the same lengths), the wide joint (B6), 8 kHz (B10)
-            **{k: r[k] for k in r if k.split("_")[0] in ("long", "wide", "khz8")},
+            # the shapes later slices added: the long-row mode (B1, B2; B3
+            # at the same lengths), the wide joint (B6), 8 to 96 kHz (B10),
+            # the beam_lm point's calls (B6 with a label bias, B7's LM
+            # instance) and the launches of its batches (B6-B9)
+            **{k: r[k] for k in r if k.split("_")[0] in ("long", "wide", "lm")
+               or k.startswith("khz")},
+            **({"beam_lm_launches": beam_lm["launches"][name]}
+               if name in beam_lm["launches"] else {}),
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

@@ -43,6 +43,8 @@ _RENAMES = {
         "Dense_1": "pointwise_conv2",
     },
     "predictor": {r"cell(\d+)_ih": r"cells_ih.\1", r"cell(\d+)_hh": r"cells_hh.\1"},
+    # the LSTM LM's decoder (models/lstm_lm.py)
+    "decoder": {r"cell(\d+)_ih": r"cells_ih.\1", r"cell(\d+)_hh": r"cells_hh.\1"},
 }
 _LEAVES = {
     "scale": "weight",

@@ -1,25 +1,39 @@
 """Batched transducer beam search: Adaptive Expansion Search (AES).
 
 Counterpart of ``espresso_tpu/decode/transducer_beam.py`` (:157-1344) in its
-fused structure, the one the JAX decoder runs on its TPU (``use_fused`` and
-``use_pred_kernel``): per encoder frame, every utterance and hypothesis
-advances in lockstep through ``max_num_expansions_per_step`` label rounds,
-each scored by the joint kernel ``fused_joint_topk`` and followed by a
-blank merge (``aes_merge``); candidates are pruned by value (``gamma``
-below the round's best) and count (beam + ``beta``); the prediction net
-advances through ``lstm_step_reorder`` on one packed state matrix. At each
-frame start the proper-prefix merge folds a prefix hypothesis' mass into
-its extensions (depth <= ``prefix_alpha``, found by inverting the rolling
-hash). Token sequences are not carried: each frame emits backpointers, and
-``aes_backtrace`` walks them in reverse once per batch.
+fused structure, the one the JAX decoder runs on its TPU (``use_fused``,
+``use_pred_kernel`` and ``use_lm_kernel``): per encoder frame, every
+utterance and hypothesis advances in lockstep through
+``max_num_expansions_per_step`` label rounds, each scored by the joint
+kernel ``fused_joint_topk`` and followed by a blank merge (``aes_merge``);
+candidates are pruned by value (``gamma`` below the round's best) and count
+(beam + ``beta``); the prediction net advances through ``lstm_step_reorder``
+on one packed state matrix. At each frame start the proper-prefix merge
+folds a prefix hypothesis' mass into its extensions (depth <=
+``prefix_alpha``, found by inverting the rolling hash). Token sequences are
+not carried: each frame emits backpointers, and ``aes_backtrace`` walks them
+in reverse once per batch.
+
+LSTM-LM shallow fusion (``lm``, ``lm_weight``): the LM starts from eos, with
+the blank-less index shift (LM index = model index - 1), and each row keeps
+the f32 log-softmax of its LM logits. Each round the joint kernel adds them,
+shifted and scaled by ``lm_weight``, as a label bias and returns each row's
+renormalisation factor (the non-blank mass is kept); the prefix merge adds
+the same LM terms (depth >= 2 through a ring of the last A - 1 cached LM
+rows). After each round the LM advances by ``lstm_step_reorder`` on its own
+packed state, gate-padded by ``prep_lstm_kernel_inputs``; its head (the
+additional projection, the output layer or the tied embedding) stays
+``torch.matmul``. A prediction net whose embedding width differs from its
+hidden width runs through the same padding.
 
 The decoder always calls the four kernel wrappers, so on the CPU their plain
 versions carry it and on the card the kernels do. The JAX jnp structure
-(``fused_kernel="off"``) is not ported. The frame loop is a Python loop over
-encoder frames with the rounds unrolled inside; nothing in it waits for the
-host, so a later CUDA graph can capture it. Not ported: LM shallow fusion
-(``lm=`` raises), ``max_num_expansions_per_step=0``, and prediction nets
-whose embedding width differs from their hidden width (both raise).
+(``fused_kernel="off"``) is not ported, nor JAX's row-major big-LM path
+(``_prep_big_lm``), which exists for the TPU's VMEM: the kernel runs every
+LSTM LM. The frame loop is a Python loop over encoder frames with the
+rounds unrolled inside; nothing in it waits for the host, so a later CUDA
+graph can capture it. Not ported: ``max_num_expansions_per_step=0`` and LMs
+other than the LSTM LM (both raise).
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from espresso_tpu_torch.models.lstm_lm import LSTMLanguageModel
 from espresso_tpu_torch.ops.decode_kernels import (
     LN_EPS,
     NEG_INF,
@@ -39,6 +54,7 @@ from espresso_tpu_torch.ops.decode_kernels import (
     lstm_feat,
     lstm_step_reorder,
     pack_lstm_state,
+    prep_lstm_kernel_inputs,
     rows_topk,
 )
 
@@ -59,6 +75,17 @@ def hash_pop(h: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
     return ((h.long() - tok.long() - 1) * INV31).to(torch.int32)
 
 
+def lm_label_bias(lp: torch.Tensor, V: int, lm_weight: float) -> torch.Tensor:
+    """[BK, V] label bias of the joint kernel (transducer_beam.py:386-400):
+    the cached LM log-probs [BK, V_lm] shifted right by one (LM index =
+    model index - 1, the blank-less shift), NEG_INF at the blank and past the
+    LM's vocab, times ``lm_weight``."""
+    width = min(V - 1, lp.shape[-1])
+    shifted = torch.full((lp.shape[0], V), NEG_INF, dtype=torch.float32, device=lp.device)
+    shifted[:, 1 : 1 + width] = lp[:, :width]
+    return lm_weight * shifted.clamp(min=NEG_INF)
+
+
 class TransducerBeamSearchDecoder:
     def __init__(
         self,
@@ -70,19 +97,20 @@ class TransducerBeamSearchDecoder:
         max_num_expansions_per_step: int = 2,
         max_out_factor: float = 0.35,
         lm=None,
+        lm_weight: float = 0.0,
         model_predicts_eos: bool = False,
         prefix_alpha: Optional[int] = 1,
     ):
-        if lm is not None:
-            raise NotImplementedError("LM shallow fusion is not ported yet")
+        """``lm``: an ``LSTMLanguageModel`` for shallow fusion, weighted by
+        ``lm_weight`` (at 0 the LM is not run: its terms vanish). JAX
+        weights load into it beforehand with ``bridge.load_jax_variables``."""
+        if lm is not None and not isinstance(lm, LSTMLanguageModel):
+            raise TypeError(
+                f"LM fusion takes an LSTMLanguageModel, got {type(lm).__name__}: the adapters of "
+                "the Transformer LM and the speech decoders are not ported (ROADMAP queue A)"
+            )
         if max_num_expansions_per_step < 1:
             raise NotImplementedError("max_num_expansions_per_step=0 is not ported")
-        cfg = model.cfg
-        if cfg.pred_embed_dim != cfg.pred_hidden_size:
-            raise NotImplementedError(
-                "lstm_step_reorder needs the pred-net embedding width to equal its hidden "
-                f"width ({cfg.pred_embed_dim} != {cfg.pred_hidden_size})"
-            )
         # None is the reference's uncapped depth, which fixed shapes cannot
         # express: the advised depth 1 (transducer_beam.py:187-198)
         if prefix_alpha is None:
@@ -102,15 +130,45 @@ class TransducerBeamSearchDecoder:
         self.prefix_alpha = prefix_alpha
         # kernel-layout weights, once per decoder (the LSTM stacks are copies)
         self.joint_w, self.pred_w = model.beam_kernel_weights()
+        self.lm, self.lm_weight, self.lm_w = lm, lm_weight, None
+        if lm is not None and lm_weight != 0.0:
+            dec = lm.decoder
+            with torch.no_grad():
+                self.lm_w = prep_lstm_kernel_inputs(
+                    dec.embed_tokens.weight, [m.weight.t() for m in dec.cells_ih],
+                    [m.bias for m in dec.cells_ih], [m.weight.t() for m in dec.cells_hh],
+                )
 
     # ------------------------------------------------------------------
-    def _prefix_merge(self, enc_t, exp_feat, exp_scores, exp_hash, ints, fh, blank_lp):
+    def _lm_start(self, BK: int, dev):
+        """The LM state after eos (LM index eos - 1), stepped as JAX steps
+        it (transducer_beam.py:426-465): the packed gate-padded
+        state [BK, 2 L Hp], the f32 log-softmax of its logits [BK, V_lm],
+        and for prefix_alpha >= 2 an empty ring of the last A - 1 cached
+        rows."""
+        eos_lm = torch.full((BK,), self.eos - 1, dtype=torch.long, device=dev)
+        logits, (h, c) = self.lm.decode_step(eos_lm, self.lm.init_carry(BK))
+        pad = self.lm_w["Hp"] - self.lm_w["H"]
+        S = pack_lstm_state(F.pad(h, (0, pad)), F.pad(c, (0, pad)))
+        lp = torch.log_softmax(logits.float(), -1)
+        A = self.prefix_alpha
+        ring = lp.new_zeros((A - 1,) + lp.shape) if A >= 2 else None
+        return S, lp, ring
+
+    def _prefix_merge(self, enc_t, exp_feat, exp_scores, exp_hash, ints, fh, blank_lp,
+                      lm=None, lm_factor=None):
         """Proper-prefix merge at the frame start (transducer_beam.py:615-781,
         the fused branch): returns the merged scores. The joint kernel keeps
         no [BK, V] log-probs, so each row's normaliser comes back from its
-        blank log-prob: lse = logit_blank - blank_lp."""
+        blank log-prob: lse = logit_blank - blank_lp. Under LM fusion
+        (``lm`` the rows' (state, cached log-probs, ring), ``lm_factor`` the
+        joint kernel's per-row factor) each extension token adds its
+        weighted LM log-prob and its source row's factor (:728-780); at
+        depth >= 2 the token m emissions ago takes the ring's LM row and its
+        own factor (:476-490, :693-725)."""
         B, K = exp_scores.shape
         A, blank, eos, jw = self.prefix_alpha, self.blank, self.eos, self.joint_w
+        lw = self.lm_weight
         sl2 = ints[:, 1].reshape(B, K)
         th3 = ints[:, 2:].reshape(B, K, A)
         live2 = exp_scores > NEG_INF / 2
@@ -139,7 +197,24 @@ class TransducerBeamSearchDecoder:
             )
             lp_h = torch.log_softmax(logits_h.float(), -1).reshape(A - 1, B, K, -1)
             toks_h = th3[:, :, : A - 1].permute(2, 0, 1).long()
-            cum_h = torch.cumsum(lp_h.gather(3, toks_h[..., None])[..., 0], 0)
+            term_h = lp_h.gather(3, toks_h[..., None])[..., 0]
+            if lm is not None:
+                # its LM log-prob under the cached row of that time, and
+                # that row's renormalisation factor
+                lmh3 = lm[2].reshape(A - 1, B, K, -1)
+                wdt = min(lp_h.shape[-1] - 1, lmh3.shape[-1])
+                lm_tok_h = lmh3.gather(3, (toks_h - 1).clamp(min=0)[..., None])[..., 0]
+                lab_h = lp_h.clone()
+                lab_h[..., blank] = NEG_INF
+                shifted_h = torch.full_like(lp_h, NEG_INF)
+                shifted_h[..., 1 : 1 + wdt] = lmh3[..., :wdt]
+                fused_h = lab_h + lw * shifted_h.clamp(min=NEG_INF)
+                fac_h = torch.logsumexp(lab_h, -1) - torch.logsumexp(fused_h, -1)
+                term_h = term_h + lw * lm_tok_h + fac_h
+            cum_h = torch.cumsum(term_h, 0)
+        if lm is not None:
+            lp_rows = lm[1].reshape(B, -1)  # [B, K V_lm]
+            V_lm = lm[1].shape[-1]
         mass = torch.full_like(exp_scores, NEG_INF)
         anc = exp_hash
         for depth in range(1, A + 1):
@@ -154,36 +229,52 @@ class TransducerBeamSearchDecoder:
             )
             has = eq.any(1)
             src = eq.to(torch.int32).argmax(1)  # the first prefix row
-            contrib = exp_scores.gather(1, src) + row_tok_lp(src, th3[:, :, depth - 1])
+            tok0 = th3[:, :, depth - 1]
+            contrib = exp_scores.gather(1, src) + row_tok_lp(src, tok0)
             if depth >= 2:
                 contrib = contrib + cum_h[depth - 2]
+            if lm is not None:
+                lm_tok = (tok0.long() - 1).clamp(min=0)
+                contrib = (
+                    contrib + lw * lp_rows.gather(1, src * V_lm + lm_tok) + lm_factor.gather(1, src)
+                )
             mass = torch.logaddexp(mass, torch.where(has, contrib, NEG_INF))
         return torch.logaddexp(exp_scores, mass)
 
     @torch.no_grad()
     def _run(self, src_frames: torch.Tensor, src_lengths: torch.Tensor, L_max: int):
         model, K, A, n_exp = self.model, self.beam, self.prefix_alpha, self.n_exp
-        blank, jw, pw = self.blank, self.joint_w, self.pred_w
+        blank, jw, pw, lw = self.blank, self.joint_w, self.pred_w, self.lm_w
         gamma = self.expansion_gamma
         n_cand = K + self.expansion_beta
         B, dev = src_frames.shape[0], src_frames.device
         BK = B * K
         V = jw["w_out"].shape[1]
-        L = pw["w_ih"].shape[0]
+        L, Hpred = pw["w_ih"].shape[0], pw["H"]
         i32 = torch.int32
 
         enc = model.encode(src_frames, src_lengths)
         pdtype = next(model.parameters()).dtype
         carry = model.init_pred_carry(BK, pdtype, dev)
         _, (h0, c0) = model.pred_step(torch.full((BK,), blank, dtype=torch.long, device=dev), carry)
-        S = pack_lstm_state(h0, c0)  # [BK, 2LH]; the feature is its top h
+        # [BK, 2 L Hp], gate-padded past H; the feature is its top h
+        pad = pw["Hp"] - Hpred
+        S = pack_lstm_state(F.pad(h0, (0, pad)), F.pad(c0, (0, pad)))
+
+        def feature(S_):
+            return lstm_feat(S_, L)[:, :Hpred]
+
+        # under LM fusion each row's (packed LM state, cached f32 log-probs,
+        # ring of the last A - 1 cached rows)
+        lm = self._lm_start(BK, dev) if lw is not None else None
+        L_lm = None if lw is None else lw["w_ih"].shape[0]
         kcols = torch.arange(K, device=dev)
         scores = torch.where(kcols == 0, 0.0, NEG_INF).expand(B, K).contiguous()
         # packed int bookkeeping per row: the rolling hash, and under the
         # prefix merge the emitted-label count and the last A tokens (newest
         # first); for depth >= 2 a ring of the last A-1 features
         ints = torch.zeros((BK, 1 + (1 + A if A >= 1 else 0)), dtype=i32, device=dev)
-        fh = torch.zeros((A - 1, BK, h0.shape[-1]), dtype=pdtype, device=dev) if A >= 2 else None
+        fh = torch.zeros((A - 1, BK, Hpred), dtype=pdtype, device=dev) if A >= 2 else None
         enc_proj = model.joint_enc_proj(enc.encoder_out)  # [B, T', J]
         T_enc, J = enc_proj.shape[1], enc_proj.shape[2]
         row_base = torch.arange(B, device=dev)[:, None] * K
@@ -198,18 +289,21 @@ class TransducerBeamSearchDecoder:
             pool_ver = torch.zeros((B, K), dtype=i32, device=dev)
             pool_slot = slot0
             exp_scores, exp_hash, exp_S, exp_ints, exp_fh = scores, pool_hash, S, ints, fh
-            exp_feat = lstm_feat(exp_S, L)
+            exp_lm = lm
+            exp_feat = feature(exp_S)
             # version v = the expansion state after v label rounds
-            versions = [(exp_S, exp_ints, exp_fh)]
+            versions = [(exp_S, exp_ints, exp_fh, exp_lm)]
             fp_l, msrc_l, esrc_l, etok_l = [], [], [], []
             for j in range(n_exp + 1):
-                blank_lp, row_vals, row_flat = fused_joint_topk(
+                bias = None if exp_lm is None else lm_label_bias(exp_lm[1], V, self.lm_weight)
+                blank_lp, row_vals, row_flat, *factor = fused_joint_topk(
                     enc_t, exp_feat, exp_scores, **jw, K=K, n_cand=n_cand, blank=blank,
-                    eos=self.eos, fold_eos_into_blank=self.model_predicts_eos,
+                    eos=self.eos, fold_eos_into_blank=self.model_predicts_eos, label_bias=bias,
                 )
                 if j == 0 and A >= 1:
                     merged = self._prefix_merge(
-                        enc_t, exp_feat, exp_scores, exp_hash, exp_ints, exp_fh, blank_lp
+                        enc_t, exp_feat, exp_scores, exp_hash, exp_ints, exp_fh, blank_lp,
+                        exp_lm, factor[0] if factor else None,
                     )
                     # a row's candidate set does not depend on its score:
                     # shift the row values by the merge's delta
@@ -259,8 +353,27 @@ class TransducerBeamSearchDecoder:
                     F.embedding(tok.long(), pw["embed"]), exp_S, flat_beam, live,
                     pw["w_ih"], pw["b_ih"], pw["w_hh"], B=B, K=K,
                 )
-                exp_feat = lstm_feat(exp_S, L)
-                versions.append((exp_S, exp_ints, exp_fh))
+                exp_feat = feature(exp_S)
+                if exp_lm is not None:
+                    # the LM advances on the new labels (LM index = label -
+                    # 1); the cached rows that scored them move with their
+                    # source rows, and dead rows keep them (:968-1081)
+                    S_lm, lp, ring_lm = exp_lm
+                    lp_src = lp[flat_beam]
+                    if ring_lm is not None:
+                        ring_g = ring_lm[:, flat_beam]
+                        ring_lm = torch.where(
+                            live[None, :, None], torch.cat([lp_src[None], ring_g[:-1]], 0), ring_g
+                        )
+                    lm_tok = (tok.long() - 1).clamp(min=0)
+                    S_lm = lstm_step_reorder(
+                        F.embedding(lm_tok, lw["embed"]), S_lm, flat_beam, live,
+                        lw["w_ih"], lw["b_ih"], lw["w_hh"], B=B, K=K,
+                    )
+                    logits = self.lm.decoder.head(lstm_feat(S_lm, L_lm)[:, : lw["H"]])
+                    lp = torch.where(live[:, None], torch.log_softmax(logits.float(), -1), lp_src)
+                    exp_lm = (S_lm, lp, ring_lm)
+                versions.append((exp_S, exp_ints, exp_fh, exp_lm))
 
             # materialise the pool's states: per-version row gathers selected
             # by each slot's version; inactive utterances keep the old beam
@@ -268,7 +381,7 @@ class TransducerBeamSearchDecoder:
             flat_ver = pool_ver.reshape(-1)
             keep_bk = keep_old[:, None].expand(B, K).reshape(-1)
 
-            def gather_versions(old, leaves, axis):
+            def gather_versions(old, leaves, axis=0):
                 shape = [1] * old.dim()
                 shape[axis] = BK
                 out = leaves[0].index_select(axis, flat_slot)
@@ -277,10 +390,16 @@ class TransducerBeamSearchDecoder:
                     out = torch.where(pick, leaves[v].index_select(axis, flat_slot), out)
                 return torch.where(keep_bk.reshape(shape), old, out)
 
-            S = gather_versions(S, [v[0] for v in versions], 0)
-            ints = gather_versions(ints, [v[1] for v in versions], 0)
+            S = gather_versions(S, [v[0] for v in versions])
+            ints = gather_versions(ints, [v[1] for v in versions])
             if fh is not None:
                 fh = gather_versions(fh, [v[2] for v in versions], 1)
+            if lm is not None:
+                lm = tuple(
+                    None if lm[i] is None
+                    else gather_versions(lm[i], [v[3][i] for v in versions], 1 if i == 2 else 0)
+                    for i in range(3)
+                )
             scores = torch.where(keep_old[:, None], scores, pool_scores)
             bps.append(
                 tuple(torch.stack(x).to(i32) for x in (fp_l, msrc_l, esrc_l, etok_l))

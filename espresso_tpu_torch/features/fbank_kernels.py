@@ -21,10 +21,14 @@ The kernel computes the power spectrum by a real FFT: the frame packed as
 twiddles of :func:`fft_twiddles`; the first stage in f32, the rest in
 f64), and the split into the 256 bins below Nyquist. Its host tables: the
 window zero-padded to 512, the twiddles, and the mel banks as a schedule
-of rounds of 32 lanes (:func:`mel_schedule`). At 8 kHz (a 200-sample
-window, a 256-point DFT) the same kernel runs on its tables: the frame is
-zero past the window, so the 256-point bins are the 512-point even bins,
-and the mel schedule reads those (:func:`kernel_mel_banks`).
+of rounds of 32 lanes (:func:`mel_schedule`). Windows of up to 256 samples
+(8 kHz: 200) run the same kernel on its tables: the frame is zero past the
+window, so a smaller DFT's bins are the 512-point FFT's bins at a stride,
+and the mel schedule reads those (:func:`kernel_mel_banks`). Windows of
+513 to 4096 samples (22.05 to 96 kHz) run the kernel's 1024-, 2048- and
+4096-point instances: a first radix-R stage in f32 (R = 2, 4, 8), then R
+256-point FFTs in f64. Any shift takes the kernel (44.1 kHz: 441 samples);
+a window past 4096 samples raises.
 
 ``fbank_plain`` is the torch composition of JAX ``fbank_fused``
 (chunk-concat framing, fp32 matmuls with the cos/sin DFT bases). On a CPU
@@ -98,16 +102,24 @@ def _tables(
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
-# the kernel's FFT: 512 real points as FFT_POINTS complex ones, 8 x 8 x 4
+# the kernel's FFT: 512 real points as FFT_POINTS complex ones, 8 x 8 x 4;
+# its larger instances take up to MAX_FFT_SIZE points
 FFT_SIZE = 512
 FFT_POINTS = FFT_SIZE // 2
 TW3 = 32  # where the split's twiddles start in fft_twiddles()[1]
+MAX_FFT_SIZE = 4096
+KERNEL_FFT_SIZES = (512, 1024, 2048, 4096)
+# the larger instances' f64 table: w256^(l k1) at 32 k1 + l, w32^(l1 k2a)
+# from TWL_32, w_N^k from TWL_SPLIT
+TWL_32, TWL_SPLIT = 256, 288
 
 
 @functools.lru_cache(maxsize=None)
-def fft_twiddles() -> Tuple[np.ndarray, np.ndarray]:
-    """The kernel's twiddles as (real, imaginary) pairs of float64 values,
-    w_N = exp(-2 pi i / N):
+def fft_twiddles(nfft: int = FFT_SIZE) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernel's twiddles for an ``nfft``-point real FFT as (real,
+    imaginary) pairs of float64 values, w_N = exp(-2 pi i / N).
+
+    At 512 points:
 
     * tw1 [256, 2] rounded to f32: w256^(l k1) at 32 k1 + l (k1 < 8, l <
       32), after the first 8-point DFT (over j of n = l + 32 j), which
@@ -116,16 +128,36 @@ def fft_twiddles() -> Tuple[np.ndarray, np.ndarray]:
       after the second (over l2 of l = l1 + 4 l2), then w512^k for k =
       0..128 from TW3 on, for the split of the packed transform Z into
       the real one X.
+
+    At nfft = 512 R (R = 2, 4, 8), NZ = 256 R packed points:
+
+    * tw1 [257 R, 2] rounded to f32, the first (radix-R) stage's: w_NZ^(m
+      q) at 256 q + m (q < R, m < 256), then w_R^j at 256 R + j;
+    * tw23 [288 + NZ, 2] f64: w256^(l k1) at 32 k1 + l, w32^(l1 k2a) at
+      TWL_32 + 4 k2a + l1, w_nfft^k for k < NZ at TWL_SPLIT + k.
     """
+    assert nfft in KERNEL_FFT_SIZES, nfft
+    pair = lambda w: np.stack([w.real, w.imag], 1)
     k1, lane = np.arange(8)[:, None], np.arange(32)[None, :]
     k2a, l1 = np.arange(8)[:, None], np.arange(4)[None, :]
-    w1 = np.exp(-2j * np.pi * k1 * lane / 256).reshape(-1)
-    w23 = np.concatenate([
-        np.exp(-2j * np.pi * k2a * l1 / 32).reshape(-1),
-        np.exp(-2j * np.pi * np.arange(FFT_POINTS // 2 + 1) / FFT_SIZE),
-    ])
-    pair = lambda w: np.stack([w.real, w.imag], 1)
-    return pair(w1).astype(np.float32), pair(w23)
+    w256 = np.exp(-2j * np.pi * k1 * lane / 256).reshape(-1)
+    w32 = np.exp(-2j * np.pi * k2a * l1 / 32).reshape(-1)
+    if nfft == FFT_SIZE:
+        w23 = np.concatenate([w32, np.exp(-2j * np.pi * np.arange(FFT_POINTS // 2 + 1) / FFT_SIZE)])
+        return pair(w256).astype(np.float32), pair(w23)
+    R, NZ = nfft // FFT_SIZE, nfft // 2
+    q, m = np.arange(R)[:, None], np.arange(256)[None, :]
+    wa = np.concatenate([np.exp(-2j * np.pi * q * m / NZ).reshape(-1),
+                         np.exp(-2j * np.pi * np.arange(R) / R)])
+    wd = np.concatenate([w256, w32, np.exp(-2j * np.pi * np.arange(NZ) / nfft)])
+    return pair(wa).astype(np.float32), pair(wd)
+
+
+def kernel_fft_size(padded: int) -> int:
+    """The kernel instance that computes a ``padded``-point DFT: 512 points
+    for any smaller one (its bins are the 512-point bins at a stride), the
+    DFT's own size above."""
+    return max(FFT_SIZE, padded)
 
 
 def mel_schedule(mel_t: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -158,24 +190,20 @@ def mel_schedule(mel_t: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]
     return weights, meta, lens
 
 
-# the DFT sizes the kernel takes: its own, and the half whose bins are its
-# even bins (a window of at most 256 samples zero-padded to 512 points has
-# X512[2 k] = X256[k] exactly)
-KERNEL_DFT_SIZES = (FFT_SIZE // 2, FFT_SIZE)
-
-
 def kernel_mel_banks(window: int, padded: int, M: int, sample_rate: float) -> np.ndarray:
-    """The mel banks over the kernel's FFT_POINTS power bins (those below
-    the 512-point Nyquist), [FFT_POINTS, M]: the padded-point banks as they
-    are at 512 points; at 256 points (8 kHz) each DFT bin k's row at the
-    kernel's bin 2 k and zero rows between, so that the mel product sums
-    the 256-point powers in bin order (a zero term adds exactly 0)."""
-    assert padded in KERNEL_DFT_SIZES, padded
+    """The mel banks over the kernel's power bins (those below its FFT's
+    Nyquist), [kernel_fft_size(padded) / 2, M]: the padded-point banks as
+    they are at 512 points and above; below 512 points (8 kHz: 256) each
+    DFT bin k's row at the kernel's bin k 512 / padded and zero rows
+    between, so that the mel product sums the smaller DFT's powers in bin
+    order (a zero term adds exactly 0)."""
+    assert padded & (padded - 1) == 0 and padded <= MAX_FFT_SIZE, padded
     _, _, mel_t = _dft_mel_matrices(window, padded, M, float(sample_rate))
     nb = padded // 2
     assert not mel_t[nb].any(), "the mel banks' Nyquist row must be zero"
-    out = np.zeros((FFT_POINTS, M), np.float32)
-    out[:: FFT_SIZE // padded] = mel_t[:nb]
+    nfft = kernel_fft_size(padded)
+    out = np.zeros((nfft // 2, M), np.float32)
+    out[:: nfft // padded] = mel_t[:nb]
     return out
 
 
@@ -184,15 +212,19 @@ def _kernel_tables(
     device: torch.device, window: int, M: int, sample_rate: float
 ) -> Dict[str, torch.Tensor]:
     """The kernel's tables on ``device``, once per device and geometry: the
-    window zero-padded to FFT_SIZE, the twiddles, the mel schedule."""
-    banks = kernel_mel_banks(window, _next_power_of_two(window), M, sample_rate)
+    window zero-padded to the kernel's FFT size, the twiddles, the mel
+    schedule; ``nfft`` the kernel instance's size."""
+    padded = _next_power_of_two(window)
+    nfft = kernel_fft_size(padded)
+    banks = kernel_mel_banks(window, padded, M, sample_rate)
     mel_w, mel_meta, mel_len = mel_schedule(banks)
-    win = np.zeros(FFT_SIZE, np.float32)
+    win = np.zeros(nfft, np.float32)
     win[:window] = povey_window(window)
-    tw1, tw23 = fft_twiddles()
+    tw1, tw23 = fft_twiddles(nfft)
     host = dict(window=win, tw1=tw1, tw23=tw23, mel_w=mel_w, mel_meta=mel_meta, mel_len=mel_len)
     out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()}
     out["mel_steps"] = int(mel_len.sum())
+    out["nfft"] = nfft
     return out
 
 
@@ -245,8 +277,8 @@ def _lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("fbank", LIBRARIES["fbank"])
     # wave, num_samples, window, tw1, tw23, mel_w, mel_meta, mel_len, out,
-    # lengths; B, S, T, window, shift, M, mel_steps, device; stream
-    lib.fbank_f32.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    # lengths; B, S, T, window, shift, M, mel_steps, nfft, device; stream
+    lib.fbank_f32.argtypes = [_P] * 10 + [_I] * 9 + [_P]
     lib.fbank_f32.restype = _I
     return lib
 
@@ -258,12 +290,12 @@ def fbank_fused(
     num_mel_bins: int = 80,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, S] waveforms and [B] sample counts -> ([B, T, M] f32 log-mel
-    frames, [B] int32 lengths). On the card the geometry must be the
-    512-point one (a window of 257 to 512 samples: 16 kHz) or the 256-point
-    one (129 to 256 samples: 8 kHz, window 200, shift 80), with an even
-    shift; the 1024- and 2048-point ones (22.05 to 48 kHz) raise. The
-    kernel computes the 512-point power spectrum either way: a 256-point
-    DFT's bins are its even bins."""
+    frames, [B] int32 lengths). On the card any window of 1 to
+    MAX_FFT_SIZE (4096) samples and any shift of at least 1 (with the
+    plain version's framing, window <= 3 * shift) take the kernel: up to
+    512 points its 512-point instance (a smaller DFT's bins are its bins at
+    a stride: 8 kHz), above it the 1024-, 2048- and 4096-point instances
+    (22.05 to 96 kHz). A longer window raises."""
     if waveforms.device.type == "cpu":
         return fbank_plain(waveforms, num_samples, sample_rate, num_mel_bins)
     if waveforms.device.type != "cuda":
@@ -277,11 +309,15 @@ def fbank_fused(
         raise ValueError(f"fbank_fused: num_samples must be on {waveforms.device}")
     B, S = waveforms.shape
     window, shift, padded, T = _geometry(S, sample_rate)
-    if padded not in KERNEL_DFT_SIZES or shift % 2:
+    if window < 1 or shift < 1 or window > 3 * shift:
         raise ValueError(
-            f"fbank_fused: the kernel takes a 256- or 512-point DFT (8 or 16 kHz) and an even "
-            f"shift, not {padded} points (window {window}) and shift {shift}: the 1024- and "
-            "2048-point geometries (22.05 to 48 kHz) are not ported"
+            f"fbank_fused: window {window} and shift {shift} at {sample_rate} Hz: the framing "
+            "needs 1 <= window <= 3 * shift"
+        )
+    if window > MAX_FFT_SIZE:
+        raise ValueError(
+            f"fbank_fused: a window of {window} samples ({sample_rate} Hz) is past the kernel's "
+            f"{MAX_FFT_SIZE}-sample limit (a {MAX_FFT_SIZE}-point DFT: up to 96 kHz)"
         )
     tab = _kernel_tables(waveforms.device, window, num_mel_bins, float(sample_rate))
     x = waveforms.float().contiguous()
@@ -293,7 +329,7 @@ def fbank_fused(
         x.data_ptr(), ns.data_ptr(), tab["window"].data_ptr(), tab["tw1"].data_ptr(),
         tab["tw23"].data_ptr(), tab["mel_w"].data_ptr(), tab["mel_meta"].data_ptr(), tab["mel_len"].data_ptr(),
         out.data_ptr(), lengths.data_ptr(), B, S, T, window, shift, num_mel_bins,
-        tab["mel_steps"], device,
+        tab["mel_steps"], tab["nfft"], device,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:

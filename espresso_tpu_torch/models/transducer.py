@@ -203,11 +203,15 @@ class TransducerModel(nn.Module):
           [J, V] as transposed views of the ``nn.Linear`` weights (no copy;
           the kernel reads the Linear layout), ``b_dec``, ``ln_scale``,
           ``ln_bias`` and ``b_out`` in fp32;
-        * prediction net, for ``lstm_step_reorder``: the embedding table
-          ``embed`` [V, H] and the stacked ``w_ih``/``w_hh`` [L, H, 4H]
-          (transposed views of stacked copies) and ``b_ih`` [L, 4H] fp32.
+        * prediction net, for ``lstm_step_reorder``: the cell stack through
+          ``prep_lstm_kernel_inputs`` (the embedding table ``embed`` [V, Hp],
+          the stacked ``w_ih``/``w_hh`` [L, Hp, 4Hp], ``b_ih`` [L, 4Hp]
+          fp32, ``H`` and ``Hp``): Hp = H when the embedding width is H and
+          H a multiple of 64, else the stack is gate-padded to Hp.
 
         The stacks are copies: weights loaded later need a new call."""
+        from espresso_tpu_torch.ops.decode_kernels import prep_lstm_kernel_inputs
+
         j, p = self.joint, self.predictor
         joint = dict(
             w_dec=j.proj_dec.weight.t(),
@@ -217,10 +221,8 @@ class TransducerModel(nn.Module):
             w_out=j.fc_out.weight.t(),
             b_out=j.fc_out.bias.float(),
         )
-        pred = dict(
-            embed=p.embed_tokens.weight,
-            w_ih=torch.stack([m.weight for m in p.cells_ih]).transpose(1, 2),
-            b_ih=torch.stack([m.bias for m in p.cells_ih]).float(),
-            w_hh=torch.stack([m.weight for m in p.cells_hh]).transpose(1, 2),
+        pred = prep_lstm_kernel_inputs(
+            p.embed_tokens.weight, [m.weight.t() for m in p.cells_ih],
+            [m.bias for m in p.cells_ih], [m.weight.t() for m in p.cells_hh],
         )
         return joint, pred

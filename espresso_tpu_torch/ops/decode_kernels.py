@@ -22,8 +22,10 @@ its launches (``fn.launches``). The plain versions take the wrappers'
 arguments, so a caller can route to them on the card for a comparison.
 
 Not ported: the JAX shape gates (``supports_fused_joint_topk``,
-``supports_lstm_step_reorder``), the ``V % 128`` test, the VMEM budget,
-``ESPRESSO_LSTM_KERNEL_F32`` and the gate padding of LSTM LMs. The fused
+``supports_lstm_step_reorder``), the ``V % 128`` test, the VMEM budget and
+``ESPRESSO_LSTM_KERNEL_F32``. ``prep_lstm_kernel_inputs`` gate-pads a cell
+stack (an LSTM LM, a prediction net whose embedding width is not its hidden
+width) to the kernel's multiple of 64. The fused
 joint always returns per-row candidates (the JAX ``row_level=True`` form);
 ``rows_topk`` finishes the per-utterance selection.
 """
@@ -92,6 +94,56 @@ def lstm_feat(S: torch.Tensor, L: int) -> torch.Tensor:
     strided view, row stride 2LH."""
     H = S.shape[1] // (2 * L)
     return S[:, (L - 1) * H : L * H]
+
+
+LSTM_KERNEL_MULTIPLE = 64  # lstm_step_reorder's hidden widths
+
+
+def prep_lstm_kernel_inputs(
+    embed: torch.Tensor,
+    w_ih: Sequence[torch.Tensor],
+    b_ih: Sequence[torch.Tensor],
+    w_hh: Sequence[torch.Tensor],
+) -> dict:
+    """A cell stack in the form :func:`lstm_step_reorder` takes
+    (decode_kernels.py:648-718): ``embed`` [V, E], the input kernels
+    ``w_ih`` [E or H, 4H] (``x @ w``), biases ``b_ih`` [4H] and recurrent
+    kernels ``w_hh`` [H, 4H], one per layer, gate order i, f, g, o. Returns
+    dict(embed [V, Hp], w_ih / w_hh [L, Hp, 4Hp], b_ih [L, 4Hp] fp32, H, Hp),
+    Hp the larger of H and E rounded up to the kernel's multiple of 64; the
+    embedding is zero past E and each gate block of the kernels and the
+    bias zero past H units (no copy of the table and no padding when Hp = H
+    = E).
+
+    The padding is exact: a padded unit's preactivations are 0, so i = f = o
+    = sigmoid(0) = 0.5 and g = tanh(0) = 0 (bf16 chains included), c' =
+    0.5 c and h' = 0.5 tanh(c'): a padded channel that starts at 0 stays 0,
+    and the real channels never read it (its rows of the kernels are 0)."""
+    L, H, E = len(w_hh), w_hh[0].shape[0], embed.shape[1]
+    mult = LSTM_KERNEL_MULTIPLE
+    Hp = -(-max(H, E) // mult) * mult
+    shapes = [tuple(w.shape) for w in w_ih] + [tuple(w.shape) for w in w_hh]
+    if shapes != [(E, 4 * H)] + [(H, 4 * H)] * (2 * L - 1) or len(b_ih) != L:
+        raise ValueError(f"not an LSTM stack of width {H} on embeddings of {E}: {shapes}")
+    bias = torch.stack([b.float() for b in b_ih])
+    if Hp == H == E:
+        return dict(embed=embed, w_ih=torch.stack(list(w_ih)), b_ih=bias,
+                    w_hh=torch.stack(list(w_hh)), H=H, Hp=Hp)
+
+    def pad_gates(x: torch.Tensor, rows: int) -> torch.Tensor:
+        # [r, 4H] -> [rows, 4Hp]: gate g's H units at columns g Hp .. g Hp + H
+        out = x.new_zeros((rows, 4, Hp))
+        out[: x.shape[0], :, :H] = x.reshape(x.shape[0], 4, H)
+        return out.reshape(rows, 4 * Hp)
+
+    return dict(
+        embed=torch.nn.functional.pad(embed, (0, Hp - E)),
+        w_ih=torch.stack([pad_gates(w, Hp) for w in w_ih]),
+        b_ih=pad_gates(bias, L),
+        w_hh=torch.stack([pad_gates(w, Hp) for w in w_hh]),
+        H=H,
+        Hp=Hp,
+    )
 
 
 def rows_topk(
@@ -169,7 +221,7 @@ def fused_joint_topk_reference(
     vals, idx = vals[:, :n_cand], idx[:, :n_cand]
     row = torch.arange(BK, device=lp.device)[:, None] % K
     flat = (row * V + idx).to(torch.int32)
-    out = (blank_col.reshape(B, K), vals.reshape(B, K, n_cand), flat.reshape(B, K, n_cand))
+    out = (blank_col.reshape(B, K).contiguous(), vals.reshape(B, K, n_cand), flat.reshape(B, K, n_cand))
     if factor is not None:
         return out + (factor.reshape(B, K),)
     return out

@@ -96,7 +96,12 @@ def check_joint(a: Tensors, K, n, blank=0, eos=None, fold=False, tol=JOINT_TOL) 
     got = dk.fused_joint_topk(**a, **kw)
     torch.cuda.synchronize()
     assert dk.fused_joint_topk.launches == before + 1
-    want = dk.fused_joint_topk_reference(**a, **kw)
+    return compare_joint(a, K, n, got, dk.fused_joint_topk_reference(**a, **kw), blank, eos, fold, tol)
+
+
+def compare_joint(a: Tensors, K, n, got, want, blank=0, eos=None, fold=False, tol=JOINT_TOL) -> float:
+    """``check_joint``'s rule on the outputs of one call of the kernel
+    (``got``) and of the plain version (``want``) on the inputs ``a``."""
     assert len(got) == len(want)
     pairs = [(got[0], want[0]), (got[1], want[1])] + ([(got[3], want[3])] if len(got) == 4 else [])
     errs = [(g - w).abs().max().item() for g, w in pairs]
@@ -134,6 +139,34 @@ def lstm_inputs(B, K, H, L, seed, dev, live_frac=0.8) -> Tensors:
     )
 
 
+def lstm_lm_inputs(B, K, E, H, L, seed, dev, live_frac=0.8, V=1023) -> Tensors:
+    """An LSTM LM's step as the beam decoder gives it to the kernel: a bf16
+    cell stack on embeddings of width E < H at init scale, gate-padded by
+    ``prep_lstm_kernel_inputs`` (the embedding and layer 0's input kernel
+    zero past E; Hp = H when H is a multiple of 64), the embedded tokens of
+    the padded table, and a packed state zero in its padded channels."""
+    g = _gen(seed)
+    BK = B * K
+    bf = lambda x: x.to(dev, torch.bfloat16)
+    uni = lambda *s: (torch.rand(*s, generator=g) * 2 - 1) / math.sqrt(H)
+    kw = dk.prep_lstm_kernel_inputs(
+        bf(torch.randn(V, E, generator=g)), [bf(uni(E if i == 0 else H, 4 * H)) for i in range(L)],
+        [uni(4 * H).to(dev) for _ in range(L)], [bf(uni(H, 4 * H)) for _ in range(L)],
+    )
+    Hp = kw["Hp"]
+    pad = lambda x: torch.nn.functional.pad(x.reshape(BK, L, H), (0, Hp - H)).reshape(BK, L * Hp)
+    h = torch.tanh(torch.randn(BK, L * H, generator=g))
+    tok = torch.randint(0, V, (BK,), generator=g).to(dev)
+    src = (torch.arange(BK) // K) * K + torch.randint(0, K, (BK,), generator=g)
+    return dict(
+        x=kw["embed"][tok],
+        S=bf(torch.cat([pad(h), pad(torch.randn(BK, L * H, generator=g))], 1)),
+        src=src.to(dev),
+        live=(torch.rand(BK, generator=g) < live_frac).to(dev),
+        w_ih=kw["w_ih"], b_ih=kw["b_ih"], w_hh=kw["w_hh"],
+    )
+
+
 def check_lstm(a: Tensors, B, K, tol=LSTM_TOL) -> float:
     """Within ``tol`` of the plain bf16 version; dead rows carry the gathered
     state bit for bit."""
@@ -141,7 +174,12 @@ def check_lstm(a: Tensors, B, K, tol=LSTM_TOL) -> float:
     got = dk.lstm_step_reorder(**a, B=B, K=K)
     torch.cuda.synchronize()
     assert dk.lstm_step_reorder.launches == before + 1
-    want = dk.lstm_step_reorder_reference(**a, B=B, K=K)
+    return compare_lstm(a, got, dk.lstm_step_reorder_reference(**a, B=B, K=K), tol)
+
+
+def compare_lstm(a: Tensors, got, want, tol=LSTM_TOL) -> float:
+    """``check_lstm``'s rule on the outputs of one call of the kernel
+    (``got``) and of the plain version (``want``) on the inputs ``a``."""
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     dead = ~a["live"]
     assert torch.equal(got[dead], a["S"][a["src"][dead]]), "lstm_step_reorder: dead rows changed"

@@ -195,6 +195,106 @@ def test_lstm_step_reorder_kernel_at_tiling_edges(dev, B, K, H_, L, live):
     kc.check_lstm(a, B, K)
 
 
+# B7 on an LSTM LM's gate-padded stack: the beam_lm point's LM (embed 512
+# padded to H = 1024, 3 layers) at BK = 2560 and 12, and the LM config's
+# default H = 650 (padded to 704: the padded channels stay 0); some rows dead
+@pytest.mark.parametrize(
+    "B,K,E,H_,L", [(256, 10, 512, 1024, 3), (1, 12, 512, 1024, 3), (3, 4, 48, 650, 2)]
+)
+def test_lstm_step_reorder_kernel_at_lm_shapes(dev, B, K, E, H_, L):
+    a = kc.lstm_lm_inputs(B, K, E, H_, L, seed=B + E, dev=dev)
+    kc.check_lstm(a, B, K)
+    h, c = dk.unpack_lstm_state(dk.lstm_step_reorder(**a, B=B, K=K), L)
+    assert not h[..., H_:].any() and not c[..., H_:].any()
+
+
+def test_fused_joint_topk_with_an_lm_label_bias_in_a_two_round_step(dev):
+    """B6 at V = 1024 with the beam decoder's label bias (an LM's log-probs
+    over V_lm = 1023, shifted past the blank, at lm_weight 0.47), for two
+    rounds: the second scores the first's kept candidates."""
+    from espresso_tpu_torch.decode.transducer_beam import lm_label_bias
+
+    B, K, V, J = 8, 10, 1024, 512
+    g = torch.Generator().manual_seed(12)
+    a = kc.joint_inputs(B, K, V, J, J, seed=12, dev=dev)
+    for _ in range(2):
+        lp = torch.log_softmax(3 * torch.randn(B * K, V - 1, generator=g), -1).to(dev)
+        a["label_bias"] = lm_label_bias(lp, V, 0.47)
+        kc.check_joint(a, K, K + 2)
+        _, vals, flat, _ = dk.fused_joint_topk_reference(**a, K=K, n_cand=K + 2)
+        top, idx = dk.rows_topk(vals, flat, K + 2)
+        a["scores"] = top[:, :K].contiguous()
+        src = (torch.arange(B, device=dev)[:, None] * K + idx[:, :K] // V).reshape(-1)
+        a["feat"] = torch.tanh(a["feat"][src].float() + 0.1).bfloat16()
+
+
+def _small_model(dev, pred_embed=128):
+    from espresso_tpu_torch.models.speech_transformer import SpeechTransformerConfig
+    from espresso_tpu_torch.models.transducer import TransducerConfig, TransducerModel
+
+    cfg = TransducerConfig(
+        feat_dim=80, vocab_size=1024,
+        encoder=SpeechTransformerConfig(
+            encoder_embed_dim=256, encoder_ffn_dim=1024, encoder_layers=2, encoder_heads=4,
+            depthwise_conv_kernel_size=31,
+        ),
+        pred_embed_dim=pred_embed, pred_hidden_size=256, pred_layers=2, joint_dim=256,
+    )
+    torch.manual_seed(0)
+    model = TransducerModel(cfg).to(dev, torch.bfloat16).eval()
+    with torch.no_grad():
+        model.joint.fc_out.weight.mul_(6)
+        model.joint.fc_out.bias.mul_(6)
+    return model
+
+
+def test_lm_fused_beam_decode_kernels_match_plain_versions(dev):
+    """The LM-fused beam decode of 4 utterances (a 2-layer model with a
+    prediction net of embedding 128 < hidden 256, an LSTM LM of embed 128,
+    hidden 320, 2 layers, V_lm = 1023, all bf16) through the kernels, with
+    every kernel's launches counted, against the same decode through the
+    plain versions: top-1 scores within 1 %."""
+    from espresso_tpu_torch.data.dictionary import AsrDictionary
+    from espresso_tpu_torch.decode import transducer_beam
+    from espresso_tpu_torch.models.lstm_lm import LSTMLanguageModel, LSTMLMConfig
+
+    model = _small_model(dev)
+    torch.manual_seed(1)
+    lm = LSTMLanguageModel(LSTMLMConfig(
+        vocab_size=1023, embed_dim=128, hidden_size=320, out_embed_dim=256, num_layers=2,
+        dropout=0.0,
+    )).to(dev, torch.bfloat16).eval()
+    g = torch.Generator().manual_seed(2)
+    batch = {"src_frames": torch.randn(4, 200, 80, generator=g).to(dev, torch.bfloat16),
+             "src_lengths": torch.tensor([200, 180, 150, 101], device=dev)}
+    beam = dict(beam_size=4, expansion_beta=2, expansion_gamma=2.3, max_num_expansions_per_step=2,
+                prefix_alpha=1, lm=lm, lm_weight=0.47)
+    dic = AsrDictionary(enable_bos=True)
+    decoder = transducer_beam.TransducerBeamSearchDecoder(model, dic, **beam)
+    assert decoder.pred_w["Hp"] == 256 and decoder.lm_w["Hp"] == 320
+    for f in dk.KERNELS:
+        f.launches = 0
+    got = decoder.decode(batch)
+    with torch.no_grad():
+        T_enc = model.encode(batch["src_frames"], batch["src_lengths"]).encoder_out.shape[1]
+    assert {f.__name__: f.launches for f in dk.KERNELS} == {
+        "fused_joint_topk": 3 * T_enc, "lstm_step_reorder": 2 * 2 * T_enc,
+        "aes_merge": 3 * T_enc, "aes_backtrace": 1,
+    }
+    plain = [(transducer_beam, f.__name__, getattr(dk, f.__name__ + "_reference")) for f in dk.KERNELS]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in plain]
+    try:
+        for m, n, fn in plain:
+            setattr(m, n, fn)
+        want = transducer_beam.TransducerBeamSearchDecoder(model, dic, **beam).decode(batch)
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    assert sum(len(h[0]["tokens"]) for h in got) > 0
+    rel = [abs(g_[0]["score"] - w[0]["score"]) / abs(w[0]["score"]) for g_, w in zip(got, want)]
+    assert max(rel) <= 0.01, rel
+
+
 @pytest.mark.parametrize("B,K", [(256, 10), (1, 1), (1, 4), (5, 16), (5, 20), (3, 40)])
 def test_aes_merge_kernel_matches_plain_version(dev, B, K):
     kc.check_merge(kc.merge_inputs(B, K, seed=K, dev=dev))
@@ -502,6 +602,34 @@ def test_fbank_kernel_at_40_bins_at_edge_shapes(dev, num_samples, S):
     fc.check_fbank(fc.waveform_inputs(num_samples, S, seed=S + 40, dev=dev), num_mel_bins=40)
 
 
+# 22.05 to 96 kHz: the 1024-, 2048- and 4096-point instances, 44.1 kHz with
+# its odd shift (441 samples); ragged lengths, one under a window, exactly
+# one window, one frame and one sample past it
+@pytest.mark.parametrize(
+    "sample_rate,num_samples,S",
+    [
+        (22050.0, [22050, 12000, 540], 22050),
+        (22050.0, [551, 771], 771),
+        (24000.0, [24000, 16001, 599], 24000),
+        (32000.0, [32000, 20000, 799, 801], 32000),
+        (44100.0, [44100, 30001, 1101], 44100),
+        (44100.0, [1102, 1543, 1544], 1544),
+        (48000.0, [48000, 31111, 1199], 48000),
+        (48000.0, [1200], 1200),
+        (88200.0, [88200, 2206], 88200),
+        (96000.0, [96000, 50001, 2399, 2400], 96000),
+        (96000.0, [2400], 2400),
+    ],
+)
+def test_fbank_kernel_at_higher_sample_rates(dev, sample_rate, num_samples, S):
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+
+    a = fc.waveform_inputs(num_samples, S, seed=S + int(sample_rate), dev=dev, sample_rate=sample_rate)
+    errs = fc.check_fbank(a, sample_rate=sample_rate)
+    assert errs["log"] < fc.FBANK_LOG_TOL
+    fc.check_fbank(a, num_mel_bins=40, sample_rate=sample_rate)
+
+
 @pytest.mark.parametrize(
     "M,K,N,dtype",
     [
@@ -534,9 +662,14 @@ def test_front_kernels_reject_what_they_do_not_take(dev):
     wav = torch.zeros(2, 1000, device=dev)
     with pytest.raises(ValueError, match="num_samples"):
         fbank_fused(wav, torch.zeros(3, dtype=torch.int32, device=dev))
-    # 22.05 kHz: a 1024-point DFT (8 and 16 kHz are taken)
-    with pytest.raises(ValueError, match="1024- and 2048-point"):
-        fbank_fused(wav, torch.zeros(2, dtype=torch.int32, device=dev), sample_rate=22050.0)
+    # 22.05 kHz (a 1024-point DFT) is taken; a window past 4096 samples
+    # (200 kHz: 5000) is not
+    from espresso_tpu_torch.ops import front_kernel_checks as fc
+
+    a = fc.waveform_inputs([22050, 9000], 22050, seed=22, dev=dev, sample_rate=22050.0)
+    assert fc.check_fbank(a, sample_rate=22050.0)["log"] < fc.FBANK_LOG_TOL
+    with pytest.raises(ValueError, match="4096"):
+        fbank_fused(wav, torch.zeros(2, dtype=torch.int32, device=dev), sample_rate=200000.0)
     x = torch.zeros(4, 32, device=dev)
     w = torch.zeros(8, 32, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="transposed"):

@@ -50,6 +50,7 @@ NUM_SAMPLES = [S, 9000, 350]
 # rounding error is unbounded.
 FBANK_ATOL = 1e-4
 FBANK_ATOL_JAX = 2e-4
+FBANK_LOG_TOL = 5e-4  # ops/front_kernel_checks.py: the goldens' rule
 DB70 = 70 * np.log(10) / 10
 SPECAUG = {
     # the flagship's recipe (conformer_transducer_librispeech.yaml:35)
@@ -143,6 +144,43 @@ def test_fbank_8khz_matches_jax_fused():
         ok = _loud(ref[b, :n])
         assert ok.mean() > 0.9
         assert np.abs(got[b, :n] - ref[b, :n])[ok].max() <= FBANK_ATOL_JAX
+
+
+@pytest.mark.parametrize("sample_rate", [22050.0, 44100.0, 48000.0, 96000.0])
+def test_fbank_higher_rates_match_jax_fused(sample_rate):
+    """22.05 to 96 kHz (1024-, 2048- and 4096-point DFTs; 44.1 kHz with an
+    odd shift of 441 samples): the port's plain version against JAX
+    ``fbank_fused`` on the CPU, 0.3 s of audio and a ragged second
+    utterance of four frames. Both sum a 551- to 2400-sample frame's fp32
+    DFT products in other orders; that rounding floor is a share of the
+    frame's peak and grows with the frame, so bins near 70 dB down read
+    up to ~2.1e-4 apart (22.05 kHz): the goldens' rule, 5e-4 in log on the
+    bins within 70 dB of the peak (FBANK_LOG_TOL), bounds them."""
+    S = int(0.3 * sample_rate)
+    window, shift = round(sample_rate * 0.025), round(sample_rate * 0.01)
+    rng = np.random.default_rng(int(sample_rate))
+    t = np.arange(S) / sample_rate
+    wav = rng.standard_normal((2, S)) * 2000.0
+    for b in range(2):
+        f1, f2 = rng.uniform(100, sample_rate / 2 - 100, 2)
+        wav[b] += 8000 * np.sin(2 * np.pi * f1 * t) + 3000 * np.sin(2 * np.pi * f2 * t)
+    ns = np.array([S, window + 3 * shift + 1], np.int32)
+    wav[np.arange(S)[None, :] >= ns[:, None]] = 0.0
+    wav = wav.astype(np.float32)
+    ref, ref_len = (
+        np.asarray(a) for a in jax_fbank_fused(jnp.asarray(wav), jnp.asarray(ns), sample_rate)
+    )
+    got, lengths = fbank_fused(torch.from_numpy(wav), torch.from_numpy(ns), sample_rate)
+    got, lengths = got.numpy(), lengths.numpy()
+    np.testing.assert_array_equal(lengths, ref_len)
+    np.testing.assert_array_equal(lengths, [1 + (S - window) // shift, 4])
+    assert got.shape == ref.shape == (2, 1 + (S - window) // shift, 80)
+    for b, n in enumerate(lengths):
+        assert not got[b, n:].any()
+        ok = _loud(ref[b, :n])
+        assert ok.mean() > 0.9
+        assert np.abs(got[b, :n] - ref[b, :n])[ok].max() <= FBANK_LOG_TOL
+
 
 @pytest.mark.parametrize("bins", [80, 40])
 def test_fbank_matches_kaldi_goldens(bins):

@@ -540,14 +540,15 @@ def _fft_power_model(y: np.ndarray, late=np.complex128) -> np.ndarray:
     return P
 
 
-def _windowed_frames(wave: np.ndarray, n_frames: int, W: int = 400, shift: int = 160) -> np.ndarray:
+def _windowed_frames(wave: np.ndarray, n_frames: int, W: int = 400, shift: int = 160,
+                     nfft: int = fk.FFT_SIZE) -> np.ndarray:
     """The plain version's frames before the DFT: DC removed, pre-emphasis,
-    the povey window, zero-padded to 512 (f32)."""
+    the povey window, zero-padded to nfft (f32)."""
     x = np.stack([wave[t * shift : t * shift + W] for t in range(n_frames)]).astype(np.float32)
     x = x - x.mean(1, keepdims=True)
     prev = np.concatenate([x[:, :1], x[:, :-1]], 1)
     y = (x - np.float32(fk.PREEMPHASIS) * prev) * fk.povey_window(W)
-    return np.pad(y, ((0, 0), (0, fk.FFT_SIZE - W))).astype(np.float32)
+    return np.pad(y, ((0, 0), (0, nfft - W))).astype(np.float32)
 
 
 def _mel_schedule_model(P, weights, meta, lens, M):
@@ -728,6 +729,189 @@ def test_fbank_twiddles_are_the_roots_of_unity():
     np.testing.assert_array_equal(tw1[:, 1], exact1.imag.astype(np.float32))
     np.testing.assert_array_equal(tw23[:, 0], exact23.real)
     np.testing.assert_array_equal(tw23[:, 1], exact23.imag)
+
+
+def _fft256_model(u, tw):
+    """fbank.cu's fft256_f64: the 8 x 8 x 4 schedule on u[j][:, lane] =
+    a[lane + 32 j] with the larger instances' f64 table; returns zi with
+    zi[i][:, lane] = Z[lane + 32 i]."""
+    k1s, l1s = LANES >> 2, LANES & 3
+    scr = np.zeros((u[0].shape[0], 8 * ROW), u[0].dtype)
+    a = _dft8(u)
+    for k1 in range(8):
+        scr[:, k1 * ROW + LANES] = a[k1] * tw[32 * k1 + LANES] if k1 else a[0]
+    a = _dft8([scr[:, k1s * ROW + l1s + 4 * l2] for l2 in range(8)])
+    for k2a in range(8):
+        scr[:, _swz(k1s, l1s, k2a)] = a[k2a] * tw[fk.TWL_32 + 4 * k2a + l1s] if k2a else a[0]
+    zi = [None] * 8
+    for r in range(2):
+        e = _dft4(*[scr[:, _swz(LANES & 7, l1, (LANES >> 3) + 4 * r)] for l1 in range(4)])
+        for k2b in range(4):
+            zi[r + 2 * k2b] = e[k2b]
+    return zi
+
+
+def _fft_power_model_large(y: np.ndarray, nfft: int, late=np.complex128) -> np.ndarray:
+    """|X[k]|^2 for k < nfft / 2 of the real frames y [F, nfft] as fbank.cu's
+    larger instances compute it (nfft = 512 R): stage 1 in complex64, for
+    each pair of q ({0, R/2}, {q, R - q}) a_q[m] = w_NZ^(m q) sum_r z[m + 256
+    r] w_R^(r q) on lane m % 32; two 256-point FFTs in ``late`` (complex128:
+    f64); the split pairing Z[R k + q] with the pair's mirror on lane (32 -
+    lane) % 32 (q = 0) or 31 - lane; |X|^2 rounded to f32. Every bin is
+    written once (a bin left NaN fails the tests)."""
+    R, NZ = nfft // fk.FFT_SIZE, nfft // 2
+    twa, twd = fk.fft_twiddles(nfft)
+    wa = (twa[:, 0] + 1j * twa[:, 1]).astype(np.complex64)
+    wd = (twd[:, 0] + 1j * twd[:, 1]).astype(late)
+    F = y.shape[0]
+    z = (y[:, 0::2] + 1j * y[:, 1::2]).astype(np.complex64)
+    P = np.full((F, NZ), np.nan, np.float32)
+    quarter = np.float32(0.25)
+
+    def split(k, za, zb):
+        e2 = (za.real + zb.real) + 1j * (za.imag - zb.imag)  # 2E
+        o2 = (za.imag + zb.imag) + 1j * (zb.real - za.real)  # 2O
+        t = o2 * wd[fk.TWL_SPLIT + k]
+        P[:, k] = quarter * (np.abs(e2 + t) ** 2).astype(np.float32)
+        m = k != 0
+        P[:, (NZ - k)[m]] = quarter * (np.abs(e2 - t) ** 2).astype(np.float32)[:, m]
+
+    for g in range(R // 2):
+        q0, q1 = g, R // 2 if g == 0 else R - g
+        s0, s1 = [], []
+        for j in range(8):
+            a0 = a1 = np.zeros((F, 32), np.complex64)
+            for r in range(R):
+                zz = z[:, LANES + 32 * j + 256 * r]
+                a0 = a0 + zz * wa[256 * R + (r * q0) % R]
+                a1 = a1 + zz * wa[256 * R + (r * q1) % R]
+            s0.append((a0 * wa[256 * q0 + LANES + 32 * j]).astype(late))
+            s1.append((a1 * wa[256 * q1 + LANES + 32 * j]).astype(late))
+        za, zb = _fft256_model(s0, wd), _fft256_model(s1, wd)
+        if g == 0:
+            partner = (32 - LANES) % 32
+            for i in range(4):
+                zo = za[7 - i][:, partner]
+                zo[:, 0] = za[(8 - i) % 8][:, 0] if i else za[0][:, 0]
+                split(R * (LANES + 32 * i), za[i], zo)
+            P[:, NZ // 2] = np.abs(za[4][:, 0]) ** 2  # X[NZ/2] = Z*[NZ/2], on lane 0
+            for i in range(4):
+                split(R * (LANES + 32 * i) + R // 2, zb[i], zb[7 - i][:, 31 - LANES])
+        else:
+            for i in range(8):
+                split(R * (LANES + 32 * i) + q0, za[i], zb[7 - i][:, 31 - LANES])
+    return P
+
+
+# fbank.cu's instances (Geom<R>): frames a tile and warps a block, by FFT size
+FBANK_TILES = {512: (32, 8), 1024: (16, 8), 2048: (16, 8), 4096: (8, 4)}
+
+
+def _fbank_smem_bytes(nfft: int, shift: int, M: int, mel_steps: int) -> int:
+    """The dynamic shared memory of a block of fbank.cu's ``nfft``-point
+    instance (its launch computes the same): the waveform span of a tile,
+    then at 512 points the window, the twiddles, the mel schedule and a
+    4 KB buffer a warp; above it a warp's transposes' buffer (8 rows of 36
+    f64 points) and power spectrum (nfft / 2 f32)."""
+    tile, warps = FBANK_TILES[nfft]
+    span = -(-((tile - 1) * shift + nfft) // 4) * 4
+    if nfft == fk.FFT_SIZE:
+        rounds = -(-M // 32)
+        return 4 * (span + nfft + 4 * 162 + 2 * 256 + 32 * mel_steps + 32 * rounds
+                    + -(-rounds // 4) * 4 + warps * 4 * fk.FFT_POINTS)
+    return 4 * span + warps * (8 * 36 * 16 + nfft // 2 * 4)
+
+
+# (sample rate, window, shift, DFT size) of the larger instances
+HIGH_RATES = [(22050.0, 551, 220, 1024), (32000.0, 800, 320, 1024), (44100.0, 1102, 441, 2048),
+              (48000.0, 1200, 480, 2048), (96000.0, 2400, 960, 4096)]
+
+
+@pytest.mark.parametrize("sr,W,shift,nfft", HIGH_RATES)
+def test_fbank_larger_fft_schedules_reproduce_the_real_dft(sr, W, shift, nfft):
+    """The 1024-, 2048- and 4096-point schedules give the real DFT's power
+    with the 512-point error floor (under 2e-7 of the frame's peak energy
+    in every bin, bins 60 dB and more down included); an impulse and a
+    tone at a bin give their exact spectra."""
+    assert fk._geometry(40000, sr)[:3] == (W, shift, nfft)
+    n = int(sr) + W
+    wave = fc.waveform_inputs([n], n, seed=nfft, dev="cpu", sample_rate=sr)["waveforms"][0].numpy()
+    y = _windowed_frames(wave, 40, W=W, shift=shift, nfft=nfft)
+    P = _fft_power_model_large(y, nfft).astype(np.float64)
+    ref = np.abs(np.fft.rfft(y.astype(np.float64), axis=1)[:, : nfft // 2]) ** 2
+    assert (ref.min(1) < 1e-6 * ref.max(1)).any()
+    err = np.abs(P - ref) / ref.max(1, keepdims=True)
+    assert err.max() < 2e-7, err.max()
+    imp = np.zeros((1, nfft), np.float32)
+    imp[0, 5] = 1.0
+    np.testing.assert_allclose(_fft_power_model_large(imp, nfft)[0], np.ones(nfft // 2), rtol=1e-6)
+    k = nfft // 2 - 37
+    tone = np.cos(2 * np.pi * k * np.arange(nfft) / nfft).astype(np.float32)[None]
+    p = _fft_power_model_large(tone, nfft)[0]
+    assert abs(p[k] / (nfft / 2) ** 2 - 1) < 1e-6 and np.delete(p, k).max() < 1e-6 * (nfft / 2) ** 2
+
+
+@pytest.mark.parametrize("sr,W,shift,nfft", HIGH_RATES)
+def test_fbank_larger_ffts_through_the_mel_banks_match_the_plain_version(sr, W, shift, nfft):
+    """The kernel's tables at 22.05 to 96 kHz (the window zero past W, the
+    mel schedule over nfft / 2 bins): the model's spectrum through them
+    against fbank_plain by the goldens' rule; each instance's shared memory
+    keeps two blocks an SM (228 KB, 1 KB reserved a block)."""
+    S = int(0.25 * sr) + W
+    a = fc.waveform_inputs([S], S, seed=W, dev="cpu", sample_rate=sr)
+    ref, lengths = fk.fbank_plain(a["waveforms"], a["num_samples"], sr)
+    n = int(lengths[0])
+    tab = fk._kernel_tables(torch.device("cpu"), W, 80, sr)
+    assert tab["nfft"] == nfft and tab["window"].shape == (nfft,) and not tab["window"][W:].any()
+    P = _fft_power_model_large(_windowed_frames(a["waveforms"][0].numpy(), n, W, shift, nfft), nfft)
+    mel = _mel_schedule_model(P, tab["mel_w"].numpy(), tab["mel_meta"].numpy(),
+                              tab["mel_len"].numpy(), 80)
+    got = np.log(np.maximum(mel, np.float32(1.1920928955078125e-07))).astype(np.float64)
+    want = ref[0, :n].double().numpy()
+    loud = want - want.max(1, keepdims=True) >= -fc.DB70
+    assert np.abs(got - want)[loud].max() < fc.FBANK_LOG_TOL
+    lin = np.abs(np.exp(got) - np.exp(want)) / np.exp(want).max(1, keepdims=True)
+    assert lin.max() < fc.FBANK_LIN_TOL
+    assert 2 * (_fbank_smem_bytes(nfft, shift, 80, tab["mel_steps"]) + 1024) <= 228 * 1024
+
+
+def test_fbank_larger_fft_in_f64_after_stage_1_keeps_the_quiet_bins():
+    """At 96 kHz (4096 points) as at 16 kHz: with only the first (radix-8)
+    stage in f32 the worst log error of the mel bins within 70 dB of their
+    frame's peak against float64 is 1.9e-5 on these inputs; an FFT in f32
+    throughout loses 8.4e-5, over four times as much."""
+    W, shift, nfft = 2400, 960, 4096
+    banks = fk._dft_mel_matrices(W, nfft, 80, 96000.0)[2][: nfft // 2].astype(np.float64)
+    worst = {np.complex64: 0.0, np.complex128: 0.0}
+    for b in range(4):
+        wav = fc.waveform_inputs([98000], 98000, seed=b, dev="cpu", sample_rate=96000.0)
+        y = _windowed_frames(wav["waveforms"][0].numpy(), 40, W, shift, nfft)
+        exact = np.abs(np.fft.rfft(y.astype(np.float64), axis=1)[:, : nfft // 2]) ** 2
+        want = np.log(np.maximum(exact @ banks, 1.1920928955078125e-07))
+        loud = want - want.max(1, keepdims=True) >= -fc.DB70
+        for late in worst:
+            got = np.log(np.maximum(
+                _fft_power_model_large(y, nfft, late).astype(np.float64) @ banks, 1.1920928955078125e-07))
+            worst[late] = max(worst[late], float(np.abs(got - want)[loud].max()))
+    assert worst[np.complex128] < 1.2e-4 and worst[np.complex64] > 2 * worst[np.complex128], worst
+
+
+@pytest.mark.parametrize("nfft", [1024, 2048, 4096])
+def test_fbank_larger_twiddles_are_the_roots_of_unity(nfft):
+    R, NZ = nfft // 512, nfft // 2
+    twa, twd = fk.fft_twiddles(nfft)
+    assert twa.shape == (257 * R, 2) and twa.dtype == np.float32
+    assert twd.shape == (fk.TWL_SPLIT + NZ, 2) and twd.dtype == np.float64
+    q, m = np.divmod(np.arange(256 * R), 256)
+    exact_a = np.concatenate([np.exp(-2j * np.pi * q * m / NZ), np.exp(-2j * np.pi * np.arange(R) / R)])
+    k1, lane = np.divmod(np.arange(256), 32)
+    k2a, l1 = np.divmod(np.arange(32), 4)
+    exact_d = np.concatenate([np.exp(-2j * np.pi * k1 * lane / 256), np.exp(-2j * np.pi * k2a * l1 / 32),
+                              np.exp(-2j * np.pi * np.arange(NZ) / nfft)])
+    np.testing.assert_array_equal(twa[:, 0], exact_a.real.astype(np.float32))
+    np.testing.assert_array_equal(twa[:, 1], exact_a.imag.astype(np.float32))
+    np.testing.assert_array_equal(twd[:, 0], exact_d.real)
+    np.testing.assert_array_equal(twd[:, 1], exact_d.imag)
 
 
 @pytest.mark.parametrize("M", [80, 40, 23])

@@ -247,7 +247,8 @@ def test_port_imports_no_jax():
         "       'espresso_tpu_torch.features.fbank', 'espresso_tpu_torch.features.fbank_kernels',\n"
         "       'espresso_tpu_torch.features.cmvn', 'espresso_tpu_torch.features.transforms',\n"
         "       'espresso_tpu_torch.features.specaugment', 'espresso_tpu_torch.ops.quantization',\n"
-        "       'espresso_tpu_torch.ops.front_kernel_checks'}\n"
+        "       'espresso_tpu_torch.ops.front_kernel_checks', 'espresso_tpu_torch.models.lstm_lm',\n"
+        "       'espresso_tpu_torch.models.speech_lstm'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = [m for m in ('jax', 'flax', 'espresso_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"

@@ -217,13 +217,16 @@ def test_rolling_hash_wraps_like_jax_int32():
 
 
 def test_unported_options_raise(setup):
+    """``max_num_expansions_per_step=0`` and an LM without an adapter raise;
+    LM fusion (tests/test_torch_lm_fusion.py) and a prediction net whose
+    embedding width is not its hidden width (gate-padded) are taken."""
     _, _, model, _ = setup
     _, pd = _dictionaries()
-    with pytest.raises(NotImplementedError, match="LM"):
-        TransducerBeamSearchDecoder(model, pd, lm=object())
+    with pytest.raises(TypeError, match="adapter"):
+        TransducerBeamSearchDecoder(model, pd, lm=object(), lm_weight=0.5)
     with pytest.raises(NotImplementedError, match="expansions"):
         TransducerBeamSearchDecoder(model, pd, max_num_expansions_per_step=0)
     _, pcfg = _configs()
     pcfg.pred_embed_dim = 32
-    with pytest.raises(NotImplementedError, match="embedding width"):
-        TransducerBeamSearchDecoder(TransducerModel(pcfg), pd)
+    pw = TransducerBeamSearchDecoder(TransducerModel(pcfg), pd).pred_w
+    assert (pw["H"], pw["Hp"]) == (PRED, PRED) and pw["embed"].shape == (V, PRED)
