@@ -33,8 +33,8 @@ eleven Hopper kernels:
    ``int8_matmul`` at the flagship FFN shapes over a serving batch's frames
    and a ragged one, bit for bit; ``lstm_step_reorder`` also at the
    ``beam_lm`` point's LM, embed 512 gate-padded to H=1024, L=3, at BK=2560
-   and 12; ``fbank`` also at 22.05, 44.1 (an odd shift), 48 and 96 kHz, the
-   1024-, 2048- and 4096-point instances, at edge counts and at a batch of
+   and 12; ``fbank`` also at 22.05, 44.1 (an odd shift), 48, 96, 176.4 and
+   192 kHz, the 1024- to 8192-point instances, at edge counts and at a batch of
    the serving batch's audio seconds), and times kernel and plain version at
    the flagship shape (and, beside B5, B6 and B7, their products alone
    through cuBLAS as a yardstick, beside B1 the forward of
@@ -84,7 +84,22 @@ eleven Hopper kernels:
    a warm-up step and 3 steps, one ``fbank`` launch a step, no host sync in
    the front and the SpecAugment draws, and two steps with quant noise
    p=0.1 (~0.1 of the noised leaves' 8-blocks zeroed, the fp32 masters
-   never noised).
+   never noised);
+7. trains the recipe from a WAV manifest (``run_recipe_data_path``): a
+   seeded corpus of 128 train and 32 valid 16 kHz utterances at
+   LibriSpeech train-clean's lengths with a 5,000-unit vocabulary, global
+   CMVN from its train split; ``conformer_transducer_librispeech.yaml``
+   (``RECIPE``) through ``load_config_dict`` with two spawn-process
+   collate workers; ``setup_task`` -> ``build_model`` (16 layers) ->
+   ``get_batch_iterator`` (T x U buckets, max_tokens 590000) ->
+   ``put_batch`` -> ``make_train_step`` for one epoch (launch counts,
+   finite losses, no skipped update, no host sync in a step), a valid pass
+   through ``make_valid_step`` (B10, B1, B4 only; one batch against the
+   plain versions), and the spawn workers' first batches against an
+   in-process iterator's, bit for bit; prints the loader's wait share,
+   collate, copy, step and valid times;
+8. encodes and trains 2 layers of the flagship on utterances past its
+   relative table (T' = 1500).
 
 Any failure raises (nonzero exit) before the result lines. Prints the
 serving and ``{"train": ...}`` JSON lines, then, as its last three lines,
@@ -219,6 +234,31 @@ TRAIN_ZERO_GRAD = re.compile(r"(conv\.convs\.\d+|depthwise_conv|self_attn\.k_pro
 # (conformer_transducer_librispeech.yaml:35) and the train point's waveform
 # length, (1024 - 1) * 160 + 400 samples, as the JAX collator pads it
 SPECAUGMENT = "{'W': 80, 'F': 27, 'T': 100, 'num_freq_masks': 2, 'num_time_masks': 2, 'p': 1.0}"
+# the recipe data path's corpus: utterance lengths of LibriSpeech
+# train-clean (a normal around 12.5 s, sd 3.5 s, clipped to 1.5-24.5 s),
+# 16 kHz 16-bit mono WAV, ~3.5 units a second (at least 1) from the
+# reference LibriSpeech recipe's 5,000-unit vocabulary
+CORPUS = dict(TRAIN=128, VALID=32, MEAN_S=12.5, SD_S=3.5, MIN_S=1.5, MAX_S=24.5,
+              UNITS_PER_S=3.5, UNITS=5000, RATE=16000)
+# the flagship recipe, examples/asr_librispeech/conformer_transducer_librispeech.yaml,
+# written out (the card machine is not known to have PyYAML;
+# tests/test_torch_data.py holds the two equal)
+RECIPE = {
+    "common": {"dtype": "bfloat16", "log_interval": 100},
+    "task": {"name": "speech_recognition_espresso"},
+    "criterion": {"name": "transducer_loss"},
+    "model": {"name": "conformer_transducer_librispeech"},
+    "dataset": {
+        "feat_dim": 80, "feature_type": "device_fbank", "max_tokens": 590000,
+        "batch_based_on_both_src_tgt": True, "num_batch_buckets": 10,
+        "required_batch_size_multiple": 8, "specaugment_config": SPECAUGMENT,
+    },
+    "optimizer": {"name": "adam", "adam_betas": [0.9, 0.98]},
+    "lr_scheduler": {"name": "noam", "warmup_updates": 12000, "model_size": 512},
+    "optimization": {"lr": [5.0], "clip_norm": 10.0, "max_epoch": 120, "update_freq": [1]},
+    "checkpoint": {"save_dir": "ckpts_conformer_transducer", "best_checkpoint_metric": "wer",
+                   "keep_last_epochs": 10},
+}
 SHIFT, WINDOW = 160, 400
 QUANT_NOISE_P = 0.1
 # B8's (B, K): the flagship, then one column, one beam, 16 beams (32
@@ -244,6 +284,8 @@ FBANK_RATES = [
     (44100.0, [([44100, 30001, 1101], 44100), ([1102, 1543], 1543)]),
     (48000.0, [([48000, 31111, 1199], 48000)]),
     (96000.0, [([96000, 50001, 2399], 96000), ([2400], 2400)]),
+    (176400.0, [([176400, 90001, 4409], 176400), ([4410, 6174], 6174)]),
+    (192000.0, [([192000, 100001, 4799], 192000), ([4800], 4800)]),
 ]
 # B11's shapes: the flagship FFN's two products over a serving batch's
 # encoder frames (256 x 156), and a ragged edge
@@ -1989,6 +2031,286 @@ def run_long_utterances(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the recipe's data path: manifest -> task -> iterator -> put_batch -> steps
+# ---------------------------------------------------------------------------
+
+
+def write_corpus(root: str, splits=None, units: int = CORPUS["UNITS"], seed: int = 0) -> dict:
+    """A seeded WAV corpus under ``root``: ``{split}.json`` manifests with
+    ``wave``, ``utt2num_frames`` and ``token_text`` for ``splits`` (split ->
+    utterance count; CORPUS's 128 train and 32 valid by default), CORPUS's
+    lengths and units a second, and a ``dict.txt`` of ``units`` units. The
+    audio is int16 noise under a syllable-rate envelope plus a voiced tone.
+    Returns per split the utterances, audio seconds and bytes written."""
+    import json
+    import os
+    import wave
+
+    splits = splits or {"train": CORPUS["TRAIN"], "valid": CORPUS["VALID"]}
+    rate = CORPUS["RATE"]
+    rng = np.random.default_rng(seed)
+    vocab = [f"u{i:04d}" for i in range(units)]
+    with open(os.path.join(root, "dict.txt"), "w") as f:
+        f.writelines(f"{u} {units - i}\n" for i, u in enumerate(vocab))
+    out = {}
+    for split, n in splits.items():
+        secs = np.clip(rng.normal(CORPUS["MEAN_S"], CORPUS["SD_S"], n), CORPUS["MIN_S"], CORPUS["MAX_S"])
+        manifest, n_bytes = {}, 0
+        for i, sec in enumerate(secs):
+            S = int(sec * rate)
+            t = np.arange(S) / rate
+            env = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(3.0, 5.0) * t)
+            pcm = env * (2500 * rng.standard_normal(S) + 3000 * np.sin(2 * np.pi * rng.uniform(90, 250) * t))
+            pcm = np.clip(pcm, -32768, 32767).astype("<i2")
+            utt = f"{split}_{i:04d}"
+            path = os.path.join(root, f"{utt}.wav")
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(rate)
+                w.writeframes(pcm.tobytes())
+            n_bytes += pcm.nbytes
+            n_units = max(1, round(CORPUS["UNITS_PER_S"] * sec))
+            manifest[utt] = {
+                "wave": path,
+                "utt2num_frames": str(1 + (S - WINDOW) // SHIFT),
+                "token_text": " ".join(vocab[j] for j in rng.integers(0, units, n_units)),
+            }
+        with open(os.path.join(root, f"{split}.json"), "w") as f:
+            json.dump(manifest, f)
+        out[split] = dict(utterances=n, audio_s=float(secs.sum()), bytes=n_bytes)
+    return out
+
+
+def write_global_cmvn(root: str, split: str = "train") -> str:
+    """Global CMVN stats of the split's host fbank, as run.sh stage 2
+    computes them: every utterance of the manifest read and framed on the
+    host (``fbank_numpy``), mean and std accumulated in float64."""
+    import os
+
+    from espresso_tpu_torch.data.audio import read_audio
+    from espresso_tpu_torch.data.manifest import load_manifest
+    from espresso_tpu_torch.features.cmvn import compute_global_cmvn_stats
+    from espresso_tpu_torch.features.fbank import fbank_numpy
+
+    def feats():
+        for e in load_manifest(root, split):
+            wav, sr = read_audio(e.audio, e.kind)
+            yield fbank_numpy(wav, sample_rate=sr)
+
+    path = os.path.join(root, "cmvn.npz")
+    np.savez(path, **compute_global_cmvn_stats(feats()))
+    return path
+
+
+def same_group(got: dict, want: dict) -> bool:
+    """Two collated groups equal bit for bit: keys, arrays (dtype, shape,
+    bytes) and the host entries."""
+    if got.keys() != want.keys():
+        return False
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, np.ndarray):
+            if not (isinstance(g, np.ndarray) and g.dtype == w.dtype and g.shape == w.shape
+                    and g.tobytes() == w.tobytes()):
+                return False
+        elif g != w:
+            return False
+    return True
+
+
+def group_shape(group: dict):
+    """(B, T frames, U) of a collated waveform group."""
+    S = group["src_waveforms"].shape[-1]
+    return group["weight"].shape[-1], 1 + (S - WINDOW) // SHIFT, group["target"].shape[-1]
+
+
+def run_recipe_data_path(dev, tmpdir: str, card: str) -> dict:
+    """The flagship recipe from a WAV manifest, as a user drives it: a
+    seeded corpus (write_corpus) with global CMVN from its train split; the
+    recipe (RECIPE) through load_config_dict with the corpus, the stats and
+    two spawn-process collate workers; setup_task, the 16-layer model on the
+    card, the criterion, both splits. One epoch of the train split through
+    task.get_batch_iterator (T x U buckets at max_tokens 590000) ->
+    put_batch -> make_train_step: B10 once, B2 and B3 once a layer, B4 and
+    B5 once a step, finite losses, no skipped update, no host sync in a
+    step. A valid pass through make_valid_step, collated in process: B10,
+    B1 once a layer and B4 a batch and no train kernel; one valid batch against the plain versions
+    (TRAIN_LOSS_RTOL). The first two train groups of the spawn workers
+    equal, bit for bit, those of an in-process iterator. Times the loader's
+    wait, the collate, the host-to-card copies, the steps by bucket and the
+    valid batches."""
+    import os
+    import pickle
+
+    from espresso_tpu_torch.cli.train import put_batch
+    from espresso_tpu_torch.config import load_config_dict
+    from espresso_tpu_torch.features.fbank_kernels import fbank_fused, fbank_plain
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import rnnt_kernels as rk
+    from espresso_tpu_torch.tasks import setup_task
+    from espresso_tpu_torch.train import trainer as tr
+
+    root = os.path.join(tmpdir, "recipe")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    corpus = write_corpus(root)
+    cmvn = write_global_cmvn(root)
+    log(f"recipe corpus {corpus}, CMVN stats from the train split: {time.perf_counter() - t0:.1f} s")
+
+    cfg = load_config_dict(copy.deepcopy(RECIPE))
+    cfg.dataset.data, cfg.dataset.global_cmvn_stats_path = root, cmvn
+    cfg.dataset.num_workers, cfg.dataset.worker_backend = 2, "process"
+    task = setup_task(cfg)
+    torch.manual_seed(0)
+    model = task.build_model(device=dev)
+    criterion = task.build_criterion()
+    train_ds, valid_ds = task.load_dataset("train"), task.load_dataset("valid")
+    n_layers, V = len(model.encoder.layers), len(task.dictionary)
+    optimizer, _ = tr.build_optimizer(cfg)
+    state = tr.create_train_state(model, optimizer, cfg)
+    step = tr.make_train_step(model, criterion, optimizer, cfg)
+    valid = tr.make_valid_step(model, criterion, cfg)
+    gen = torch.Generator(device=dev).manual_seed(cfg.common.seed)
+    # the spawn pool takes the collater only if it pickles (else the
+    # iterator would fall back to threads)
+    pickle.dumps(train_ds.collate_group)
+
+    def iterator(ds, **kw):
+        return task.get_batch_iterator(ds, max_tokens=cfg.dataset.max_tokens,
+                                       max_sentences=cfg.dataset.batch_size, seed=cfg.common.seed, **kw)
+
+    kernels = {**train_kernels(), "fbank": fbank_fused, "rel_attention": ak.rel_attention}
+    for f in kernels.values():
+        f.launches = 0
+    itr = iterator(train_ds, update_freq=cfg.optimization.update_freq[0])
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    steps, first, waits = [], [], []
+    torch.cuda.synchronize()
+    t_epoch = time.perf_counter()
+    epoch = itr.next_epoch_itr()
+    while True:
+        t = time.perf_counter()
+        group = next(epoch, None)
+        waits.append(time.perf_counter() - t)
+        if group is None:
+            break
+        if len(first) < 2:
+            first.append(group)
+        e = [ev() for _ in range(3)]
+        e[0].record()
+        batch = put_batch(group, dev)
+        e[1].record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = step(state, batch, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        e[2].record()
+        real = group["weight"] > 0
+        steps.append((group_shape(group), e, m, int(real.sum()),
+                      float(group["num_samples"][real].sum()) / CORPUS["RATE"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_epoch
+    wait = sum(waits)
+    n = len(steps)
+    counts = {name: f.launches for name, f in kernels.items()}
+    want = {"rel_attention_train_fwd": n_layers * n, "rel_attention_train_bwd": n_layers * n,
+            "rnnt_joint_lp": n, "rnnt_joint_bwd": n, "fbank": n, "rel_attention": 0}
+    if counts != want:
+        raise AssertionError(f"recipe train epoch launches {counts}, want {want}")
+    losses = torch.stack([m["loss"] for _, _, m, _, _ in steps]).tolist()
+    overflow = torch.stack([m["overflow"] for _, _, m, _, _ in steps]).sum().item()
+    if not all(math.isfinite(x) for x in losses) or overflow:
+        raise AssertionError(f"recipe train losses {losses}, overflow {overflow}")
+    by_bucket = {}
+    for shape, e, _, utts, secs in steps:
+        b = by_bucket.setdefault("x".join(map(str, shape)), dict(steps=0, step_ms=[], utterances=0))
+        b["steps"] += 1
+        b["step_ms"].append(e[1].elapsed_time(e[2]))
+        b["utterances"] += utts
+    copy_ms = [e[0].elapsed_time(e[1]) for _, e, _, _, _ in steps]
+    train = dict(
+        steps=n, utterances=sum(s[3] for s in steps), audio_s=sum(s[4] for s in steps),
+        wall_s=wall, ms_per_step=wall / n * 1e3, loader_wait_s=wait, loader_wait_share=wait / wall,
+        first_batch_wait_s=waits[0], later_wait_s=sum(waits[1:]), max_later_wait_s=max(waits[1:]),
+        copy_ms_mean=statistics.mean(copy_ms), losses=losses, launches=counts, by_bucket=by_bucket,
+    )
+    log(f"recipe train epoch on {card}: {n} steps, {train['utterances']} utterances, "
+        f"{train['audio_s']:.1f} s of audio in {wall:.2f} s ({train['ms_per_step']:.1f} ms a step); "
+        f"the loader's wait {wait:.3f} s ({train['loader_wait_share']:.2%} of the epoch: "
+        f"{waits[0]:.3f} s before the first batch, the two spawn workers' start included, "
+        f"{sum(waits[1:]):.3f} s after it, at most {max(waits[1:]):.3f} s at once); "
+        f"host-to-card copy {train['copy_ms_mean']:.3f} ms a batch; no host sync in a step; "
+        f"launches {counts}; losses {losses}")
+    for shape, b in sorted(by_bucket.items()):
+        log(f"  bucket B x T x U = {shape}: {b['steps']} steps, {b['utterances']} utterances, "
+            f"step ms {[round(x, 1) for x in b['step_ms']]}")
+
+    # the valid pass, collated in process (the spawn pool is the train side's)
+    for f in kernels.values():
+        f.launches = 0
+    cfg.dataset.num_workers = 0
+    vitr = iterator(valid_ds, shuffle=False)
+    vout, first_valid = [], None
+    for group in vitr.next_epoch_itr():
+        batch = put_batch(group, dev)
+        for i in range(batch["weight"].shape[0]):
+            mb = {k: v[i] for k, v in batch.items()}
+            if first_valid is None:
+                first_valid = mb
+            e = [ev(), ev()]
+            e[0].record()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = valid(state, mb)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            e[1].record()
+            vout.append((group_shape(group), e, out))
+    torch.cuda.synchronize()
+    nv = len(vout)
+    counts = {name: f.launches for name, f in kernels.items()}
+    want = {"rel_attention_train_fwd": 0, "rel_attention_train_bwd": 0, "rnnt_joint_lp": nv,
+            "rnnt_joint_bwd": 0, "fbank": nv, "rel_attention": n_layers * nv}
+    if counts != want:
+        raise AssertionError(f"recipe valid launches {counts}, want {want}")
+    v_loss = sum(o["loss"].item() for _, _, o in vout) / sum(o["sample_size"].item() for _, _, o in vout)
+    valid_ms = [e[0].elapsed_time(e[1]) for _, e, _ in vout]
+    # one valid batch through the plain versions
+    k_loss = valid(state, first_valid)["loss"].item()
+    plain = [(rk, "rnnt_joint_lp", rk.rnnt_joint_lp_reference), (tr, "fbank_fused", fbank_plain)]
+    with plain_versions(), swapped(plain):
+        p_loss = valid(state, first_valid)["loss"].item()
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    if not (math.isfinite(v_loss) and rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"recipe valid loss {v_loss}; a batch kernels {k_loss} vs plain {p_loss}")
+    val = dict(batches=nv, shapes=[v[0] for v in vout], loss_per_sentence=v_loss, ms=valid_ms,
+               launches=counts, sub_batch=dict(loss=k_loss, plain_loss=p_loss, rel_diff=rel))
+    log(f"recipe valid pass on {card}: {nv} batches {val['shapes']}, valid ms {[round(x, 1) for x in valid_ms]}, "
+        f"loss a sentence {v_loss}; launches {counts}; a batch kernels {k_loss} vs plain {p_loss} "
+        f"({rel:.2e}, bound {TRAIN_LOSS_RTOL})")
+
+    # the spawn workers' first two groups against an in-process iterator's
+    itr0 = iterator(train_ds, update_freq=cfg.optimization.update_freq[0])
+    specs = itr0._sharded_batches(1)[:4]
+    t = time.perf_counter()
+    for spec in specs:
+        train_ds.collate_group(spec, 1)
+    collate_ms = (time.perf_counter() - t) / len(specs) * 1e3
+    epoch0 = itr0.next_epoch_itr()
+    inproc = [next(epoch0) for _ in range(2)]
+    if not all(same_group(a, b) for a, b in zip(first, inproc)):
+        raise AssertionError("the spawn workers' batches differ from the in-process iterator's")
+    log(f"recipe loader: the first two train groups equal bit for bit with 2 spawn workers and "
+        f"with none; host collate {collate_ms:.1f} ms a batch (in-process, 4 batches); batches "
+        f"planned by bucket_batches (numpy in both packages; the native batch_by_size serves "
+        f"num_batch_buckets=0 only, so the phase builds no clib library)")
+    return dict(corpus=corpus, vocab=V, layers=n_layers, train=train, valid=val,
+                collate_ms=collate_ms, spawn_equals_in_process=True, card=card)
+
+
 def compare_train_step(dev) -> dict:
     """One step of a 2-utterance sub-batch at dropout 0 from one init,
     through the kernels and through the plain versions: the loss and the
@@ -2100,12 +2422,15 @@ def main() -> int:
     train["sub_batch"] = compare_train_step(dev)
     torch.cuda.empty_cache()
     train_pcm = run_train_from_pcm(dev, tmp.name, train["ms_per_step"])
+    torch.cuda.empty_cache()
+    phase("recipe data path")
+    recipe = run_recipe_data_path(dev, tmp.name, card)
     tmp.cleanup()
     torch.cuda.empty_cache()
     phase("long utterances")
     long_utt = run_long_utterances(dev)
-    print(json.dumps({"train": train, "train_from_pcm": train_pcm, "long_utterances": long_utt,
-                      "card": card}))
+    print(json.dumps({"train": train, "train_from_pcm": train_pcm, "recipe_data_path": recipe,
+                      "long_utterances": long_utt, "card": card}))
 
     sources = {
         "rel_attention": ("rel_attention.cu", "espresso_tpu/ops/attention_kernels.py:185"),
@@ -2164,6 +2489,10 @@ def main() -> int:
                or k.startswith("khz")},
             **({"beam_lm_launches": beam_lm["launches"][name]}
                if name in beam_lm["launches"] else {}),
+            # the recipe data path's train epoch and valid pass
+            **({"recipe_train_launches": recipe["train"]["launches"][name],
+                "recipe_valid_launches": recipe["valid"]["launches"][name]}
+               if name in recipe["train"]["launches"] else {}),
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

@@ -13,9 +13,17 @@ layout and names so each module's counterpart is easy to find:
 - ``espresso_tpu_torch.decode``  : batched transducer greedy and beam decoding
 - ``espresso_tpu_torch.train``   : the train step (adam, clip, overflow skip,
   EMA) and the learning-rate schedules
-- ``espresso_tpu_torch.criterions``, ``espresso_tpu_torch.config``: the
-  transducer criterion and the config sections the train step reads
-- ``espresso_tpu_torch.data``    : the symbol dictionary (no JAX import)
+- ``espresso_tpu_torch.criterions``, ``espresso_tpu_torch.config``,
+  ``espresso_tpu_torch.registry``, ``espresso_tpu_torch.tasks``: the
+  transducer criterion, the recipe's config tree (yaml and dotted
+  overrides), the registries and presets, the speech recognition task
+- ``espresso_tpu_torch.data``    : the host data path in numpy: manifests,
+  Kaldi IO, WAV reading, tokenizers, the symbol dictionary, batch packing,
+  the dataset and its checkpointable iterators
+- ``espresso_tpu_torch.clib``    : host C++ (batch packing, edit counts),
+  built by g++ at first use
+- ``espresso_tpu_torch.cli``     : ``train.put_batch``, a collated group to
+  the card
 - ``espresso_tpu_torch.bridge``  : load a flax variable tree into a port model
 - ``csrc/``                      : CUDA C++ sources for ``sm_90a``, built at
   first use (``ops/cuda_build.py``)

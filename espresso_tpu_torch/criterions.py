@@ -3,8 +3,9 @@
 Counterpart of ``espresso_tpu/criterions.py``, reduced to the flagship's
 ``TransducerCriterion`` on its fused path (criterions.py:171-243): the
 model's ``forward_fused`` and the lattice-free RNNT loss
-(``ops/rnnt_fused.py``). The lattice path (``fused_transducer=False``) and
-the other criteria wait for later slices.
+(``ops/rnnt_fused.py``), registered as ``transducer_loss`` for
+``build_criterion`` (criterions.py:402). The lattice path
+(``fused_transducer=False``) and the other criteria wait for later slices.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ import torch
 
 from espresso_tpu_torch.config import CriterionSection
 from espresso_tpu_torch.ops.rnnt_fused import RnntLossFused
+from espresso_tpu_torch.registry import CRITERIONS
 
 
+@CRITERIONS.register("transducer_loss")
 class TransducerCriterion:
     """RNNT loss, summed over the batch with each utterance's weight.
 
@@ -56,3 +59,8 @@ class TransducerCriterion:
         loss = (losses * batch["weight"]).sum()
         nsentences = batch["weight"].sum().clamp(min=1)
         return loss, nsentences, {"loss": loss, "nsentences": nsentences}
+
+
+def build_criterion(cfg: CriterionSection, task):
+    """The criterion ``cfg.name`` names, on the task's dictionary."""
+    return CRITERIONS.build(cfg.name, cfg, task.dictionary)

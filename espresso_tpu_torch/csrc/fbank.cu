@@ -65,8 +65,8 @@
 // lanes and the tables' layout are those of 16 kHz. Any window of at most
 // 512 samples runs this instance.
 //
-// Longer windows (22.05 to 96 kHz: 1024, 2048 and 4096 points) run the
-// template's larger instances, NFFT = 512 R for R = 2, 4, 8, NZ = 256 R
+// Longer windows (22.05 to 192 kHz: 1024, 2048, 4096 and 8192 points) run
+// the template's larger instances, NFFT = 512 R for R = 2, 4, 8, 16, NZ = 256 R
 // packed points. A first radix-R stage in f32 (decimation in frequency: for
 // each q < R, a_q[m] = w_NZ^(m q) sum_r z[m + 256 r] w_R^(r q), m < 256)
 // leaves R 256-point transforms, Z[R k + q] = FFT256(a_q)[k]; each runs the
@@ -79,7 +79,8 @@
 // schedule) are read from global memory through the read-only cache; shared
 // memory holds the waveform span, and per warp the transposes' buffer (8
 // rows of ROW f64 points) and the power spectrum (NZ f32). Tiles of 16
-// frames (8 at 4096 points, with 4 warps) keep two blocks an SM.
+// frames (8 at 4096 points, with 4 warps; 4 at 8192 points, with 2 warps,
+// whose power spectrum is 16 KB a warp) keep two blocks an SM up to 192 kHz.
 //
 // An odd shift (44.1 kHz: 441 samples) puts every other frame's samples off
 // 8 bytes: the ODD instances load the sample pairs as two scalars.
@@ -111,8 +112,8 @@ constexpr int TWL_32 = 256, TWL_SPLIT = 288;
 
 // what each instance takes: frames a tile, warps, blocks an SM
 template <int R> struct Geom {
-  static constexpr int TILE = R == 1 ? 32 : R == 8 ? 8 : 16;
-  static constexpr int WARPS = R == 8 ? 4 : 8;
+  static constexpr int TILE = R == 1 ? 32 : R == 16 ? 4 : R == 8 ? 8 : 16;
+  static constexpr int WARPS = R == 16 ? 2 : R == 8 ? 4 : 8;
   static constexpr int MIN_BLOCKS = R == 1 ? 3 : 2;
   static constexpr int THREADS = WARPS * 32;
 };
@@ -603,7 +604,7 @@ extern "C" {
 // and tw23 [288 + 256 R, 2] f64); the mel schedule of
 // fbank_kernels.mel_schedule: mel_w [mel_steps, 32] f32, mel_meta
 // [ceil(M / 32), 32] int32, mel_len [ceil(M / 32)] int32; out [B, T, M]
-// f32, lengths [B] int32; all contiguous. nfft is 512, 1024, 2048 or 4096,
+// f32, lengths [B] int32; all contiguous. nfft is 512, 1024, 2048, 4096 or 8192,
 // W at most nfft (and past nfft / 2 above 512), shift at least 1. Launches
 // on `stream` of card `device`; returns the CUDA error code (0 on success).
 int fbank_f32(const void* wave, const void* num_samples, const void* win, const void* tw1,
@@ -627,6 +628,7 @@ int fbank_f32(const void* wave, const void* num_samples, const void* win, const 
     case 1024: FBANK_LAUNCH(2);
     case 2048: FBANK_LAUNCH(4);
     case 4096: FBANK_LAUNCH(8);
+    case 8192: FBANK_LAUNCH(16);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FBANK_LAUNCH

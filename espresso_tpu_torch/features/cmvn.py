@@ -21,9 +21,15 @@ class GlobalCMVN:
         self.std = torch.from_numpy(np.asarray(stats["std"], np.float32))
 
     def to(self, device) -> "GlobalCMVN":
-        """Move the stats to ``device`` (a host-to-device copy: do it once,
-        before the step)."""
-        self.mean, self.std = self.mean.to(device), self.std.to(device)
+        """Move the stats to ``device``; to the card from pinned memory with
+        non-blocking copies, so the first batch's step makes no host sync
+        either."""
+        if torch.device(device).type == "cuda":
+            self.mean, self.std = (
+                t.pin_memory().to(device, non_blocking=True) for t in (self.mean, self.std)
+            )
+        else:
+            self.mean, self.std = self.mean.to(device), self.std.to(device)
         return self
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -25,10 +25,10 @@ of rounds of 32 lanes (:func:`mel_schedule`). Windows of up to 256 samples
 (8 kHz: 200) run the same kernel on its tables: the frame is zero past the
 window, so a smaller DFT's bins are the 512-point FFT's bins at a stride,
 and the mel schedule reads those (:func:`kernel_mel_banks`). Windows of
-513 to 4096 samples (22.05 to 96 kHz) run the kernel's 1024-, 2048- and
-4096-point instances: a first radix-R stage in f32 (R = 2, 4, 8), then R
-256-point FFTs in f64. Any shift takes the kernel (44.1 kHz: 441 samples);
-a window past 4096 samples raises.
+513 to 8192 samples (22.05 to 192 kHz) run the kernel's 1024-, 2048-,
+4096- and 8192-point instances: a first radix-R stage in f32 (R = 2, 4, 8,
+16), then R 256-point FFTs in f64. Any shift takes the kernel (44.1 kHz:
+441 samples); a window past 8192 samples raises.
 
 ``fbank_plain`` is the torch composition of JAX ``fbank_fused``
 (chunk-concat framing, fp32 matmuls with the cos/sin DFT bases). On a CPU
@@ -64,11 +64,11 @@ def _dft_mel_matrices(window_size: int, padded: int, num_mel_bins: int, sample_r
     """Real-DFT cos/sin bases [window, padded//2+1] (the zero-padded rows
     dropped) and the mel banks transposed [padded//2+1, M], float64 tables
     rounded to f32 (pallas_fbank.py:47-64)."""
-    n = np.arange(padded)[:, None]
+    n = np.arange(window_size)[:, None]  # the zero-padded rows add nothing
     k = np.arange(padded // 2 + 1)[None, :]
     ang = 2.0 * math.pi * n * k / padded
-    cos = np.cos(ang)[:window_size]
-    sin = -np.sin(ang)[:window_size]
+    cos = np.cos(ang)
+    sin = -np.sin(ang)
     banks = get_mel_banks(num_mel_bins, padded, sample_rate)  # [M, padded//2+1]
     return (
         cos.astype(np.float32),
@@ -107,8 +107,8 @@ def _tables(
 FFT_SIZE = 512
 FFT_POINTS = FFT_SIZE // 2
 TW3 = 32  # where the split's twiddles start in fft_twiddles()[1]
-MAX_FFT_SIZE = 4096
-KERNEL_FFT_SIZES = (512, 1024, 2048, 4096)
+MAX_FFT_SIZE = 8192
+KERNEL_FFT_SIZES = (512, 1024, 2048, 4096, 8192)
 # the larger instances' f64 table: w256^(l k1) at 32 k1 + l, w32^(l1 k2a)
 # from TWL_32, w_N^k from TWL_SPLIT
 TWL_32, TWL_SPLIT = 256, 288
@@ -129,7 +129,7 @@ def fft_twiddles(nfft: int = FFT_SIZE) -> Tuple[np.ndarray, np.ndarray]:
       0..128 from TW3 on, for the split of the packed transform Z into
       the real one X.
 
-    At nfft = 512 R (R = 2, 4, 8), NZ = 256 R packed points:
+    At nfft = 512 R (R = 2, 4, 8, 16), NZ = 256 R packed points:
 
     * tw1 [257 R, 2] rounded to f32, the first (radix-R) stage's: w_NZ^(m
       q) at 256 q + m (q < R, m < 256), then w_R^j at 256 R + j;
@@ -291,11 +291,11 @@ def fbank_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, S] waveforms and [B] sample counts -> ([B, T, M] f32 log-mel
     frames, [B] int32 lengths). On the card any window of 1 to
-    MAX_FFT_SIZE (4096) samples and any shift of at least 1 (with the
+    MAX_FFT_SIZE (8192) samples and any shift of at least 1 (with the
     plain version's framing, window <= 3 * shift) take the kernel: up to
     512 points its 512-point instance (a smaller DFT's bins are its bins at
-    a stride: 8 kHz), above it the 1024-, 2048- and 4096-point instances
-    (22.05 to 96 kHz). A longer window raises."""
+    a stride: 8 kHz), above it the 1024-, 2048-, 4096- and 8192-point
+    instances (22.05 to 192 kHz). A longer window raises."""
     if waveforms.device.type == "cpu":
         return fbank_plain(waveforms, num_samples, sample_rate, num_mel_bins)
     if waveforms.device.type != "cuda":
@@ -317,7 +317,7 @@ def fbank_fused(
     if window > MAX_FFT_SIZE:
         raise ValueError(
             f"fbank_fused: a window of {window} samples ({sample_rate} Hz) is past the kernel's "
-            f"{MAX_FFT_SIZE}-sample limit (a {MAX_FFT_SIZE}-point DFT: up to 96 kHz)"
+            f"{MAX_FFT_SIZE}-sample limit (a {MAX_FFT_SIZE}-point DFT: up to ~327 kHz)"
         )
     tab = _kernel_tables(waveforms.device, window, num_mel_bins, float(sample_rate))
     x = waveforms.float().contiguous()

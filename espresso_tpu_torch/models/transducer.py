@@ -28,12 +28,14 @@ from espresso_tpu_torch.models.speech_transformer import (
 from espresso_tpu_torch.modules.conformer import LN_EPS
 from espresso_tpu_torch.modules.dropout import Dropout
 from espresso_tpu_torch.modules.lstm import lstm_gates
+from espresso_tpu_torch.registry import MODELS, register_architecture
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
 
 @dataclass
 class TransducerConfig:
+    name: str = "speech_transformer_transducer"
     feat_dim: int = 80
     vocab_size: int = 0
     encoder: SpeechTransformerConfig = field(
@@ -51,6 +53,7 @@ class TransducerConfig:
     pred_dropout: float = 0.1
     # joint
     joint_dim: int = 512
+    pad_index: int = 1  # set from the dictionary by the task; the model reads none
 
 
 class TransducerPredNet(nn.Module):
@@ -129,6 +132,7 @@ class JointNetwork(nn.Module):
         return self.fc_out(F.relu(enc_projected + self.dec_proj(dec)))
 
 
+@MODELS.register("speech_transformer_transducer", TransducerConfig)
 class TransducerModel(nn.Module):
     def __init__(self, cfg: TransducerConfig):
         super().__init__()
@@ -226,3 +230,19 @@ class TransducerModel(nn.Module):
             [m.bias for m in p.cells_ih], [m.weight.t() for m in p.cells_hh],
         )
         return joint, pred
+
+
+@register_architecture("speech_transformer_transducer", "conformer_transducer_librispeech")
+def _arch_conformer_transducer(cfg: TransducerConfig):
+    # the reference recipe's operating point (espresso_tpu/models/
+    # transducer.py:293-310, conformer_transducer_librispeech.yaml:28-92)
+    cfg.encoder.encoder_layer_type = "conformer"
+    cfg.encoder.encoder_pos_type = "relative"
+    cfg.encoder.encoder_embed_dim = 512
+    cfg.encoder.encoder_ffn_dim = 2048
+    cfg.encoder.encoder_layers = 16
+    cfg.encoder.encoder_heads = 8
+    cfg.encoder.depthwise_conv_kernel_size = 31
+    cfg.pred_layers = 2
+    cfg.pred_hidden_size = 512
+    cfg.joint_dim = 512

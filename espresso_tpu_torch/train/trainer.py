@@ -3,8 +3,8 @@ accumulation, clip, overflow skip, adam, EMA.
 
 Counterpart of ``espresso_tpu/train/trainer.py``: ``build_optimizer`` for
 ``adam`` (trainer.py:43-87), ``make_device_feature_fn`` (:135-180),
-``make_train_step`` (:192-399) and ``create_train_state`` (:435-461). One
-step:
+``make_train_step`` (:192-399), ``make_valid_step`` (:402-432) and
+``create_train_state`` (:435-461). One step:
 
 * per microbatch, in JAX's order (trainer.py:234-262): quant noise on the
   fp32 masters, cast to the compute copies (``optimization.quant_noise_pq >
@@ -35,8 +35,13 @@ gradient buffer, so the optimizer, the norm and the cast are a few passes
 over flat tensors. The host keeps the step count; the counts the optimizer
 depends on (applied updates, overflows) stay on the device.
 
+The valid step runs the model in eval mode (batch-norm running statistics,
+no dropout) on the compute weights, or with ``optimization.ema_validate``
+on a compute-dtype copy of the EMA weights, and returns the criterion's
+sums on the device.
+
 Not ported: scheduled sampling, the other optimizers and the composite
-optimizer, ``make_valid_step``.
+optimizer.
 """
 
 from __future__ import annotations
@@ -298,3 +303,36 @@ def make_train_step(model: nn.Module, criterion, optimizer: Adam, cfg: EspressoC
         return state, metrics
 
     return train_step
+
+
+def make_valid_step(model: nn.Module, criterion, cfg: EspressoConfig):
+    """Returns ``valid_step(state, batch) -> {"loss", "sample_size",
+    **logging}``, tensors on the device (no host sync). ``batch`` is one
+    microbatch (no leading axis), frames or waveforms. The model runs in
+    eval mode; its frames are cast to the compute dtype (trainer.py:
+    402-432). With ``optimization.ema_validate`` (and ``ema_decay > 0``) the
+    model's parameters point for the call at a compute-dtype copy of
+    ``state.ema_params`` and back at ``state.compute`` after it; the fp32
+    masters are never touched."""
+    compute_dtype = _DTYPES[cfg.common.dtype]
+    use_ema = cfg.optimization.ema_validate and cfg.optimization.ema_decay > 0.0
+    prepare_features = make_device_feature_fn(cfg)
+
+    @torch.no_grad()
+    def valid_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model.eval()
+        ema = use_ema and state.ema_params is not None
+        if ema:
+            # the EMA weights themselves in f32, a compute-dtype copy else
+            _flatten_into(model, state.ema_params.to(compute_dtype), state.grads)
+        try:
+            mb = prepare_features(dict(batch))
+            if "src_frames" in mb:
+                mb["src_frames"] = mb["src_frames"].to(compute_dtype)
+            loss, sample_size, logging = criterion(model, mb)
+        finally:
+            if ema:
+                _flatten_into(model, state.compute, state.grads)
+        return {"loss": loss, "sample_size": sample_size, **logging}
+
+    return valid_step

@@ -7,6 +7,7 @@ imports jax):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -602,7 +603,7 @@ def test_fbank_kernel_at_40_bins_at_edge_shapes(dev, num_samples, S):
     fc.check_fbank(fc.waveform_inputs(num_samples, S, seed=S + 40, dev=dev), num_mel_bins=40)
 
 
-# 22.05 to 96 kHz: the 1024-, 2048- and 4096-point instances, 44.1 kHz with
+# 22.05 to 192 kHz: the 1024- to 8192-point instances, 44.1 kHz with
 # its odd shift (441 samples); ragged lengths, one under a window, exactly
 # one window, one frame and one sample past it
 @pytest.mark.parametrize(
@@ -619,6 +620,12 @@ def test_fbank_kernel_at_40_bins_at_edge_shapes(dev, num_samples, S):
         (88200.0, [88200, 2206], 88200),
         (96000.0, [96000, 50001, 2399, 2400], 96000),
         (96000.0, [2400], 2400),
+        # the 8192-point instance: 176.4 and 192 kHz (windows of 4410 and
+        # 4800 samples)
+        (176400.0, [176400, 90001, 4409, 4410], 176400),
+        (176400.0, [4410, 6174], 6174),
+        (192000.0, [192000, 100001, 4799, 4800], 192000),
+        (192000.0, [4800], 4800),
     ],
 )
 def test_fbank_kernel_at_higher_sample_rates(dev, sample_rate, num_samples, S):
@@ -662,17 +669,119 @@ def test_front_kernels_reject_what_they_do_not_take(dev):
     wav = torch.zeros(2, 1000, device=dev)
     with pytest.raises(ValueError, match="num_samples"):
         fbank_fused(wav, torch.zeros(3, dtype=torch.int32, device=dev))
-    # 22.05 kHz (a 1024-point DFT) is taken; a window past 4096 samples
-    # (200 kHz: 5000) is not
+    # 22.05 kHz (a 1024-point DFT) is taken; a window past 8192 samples
+    # (400 kHz: 10000) is not
     from espresso_tpu_torch.ops import front_kernel_checks as fc
 
     a = fc.waveform_inputs([22050, 9000], 22050, seed=22, dev=dev, sample_rate=22050.0)
     assert fc.check_fbank(a, sample_rate=22050.0)["log"] < fc.FBANK_LOG_TOL
-    with pytest.raises(ValueError, match="4096"):
-        fbank_fused(wav, torch.zeros(2, dtype=torch.int32, device=dev), sample_rate=200000.0)
+    with pytest.raises(ValueError, match="8192"):
+        fbank_fused(wav, torch.zeros(2, dtype=torch.int32, device=dev), sample_rate=400000.0)
     x = torch.zeros(4, 32, device=dev)
     w = torch.zeros(8, 32, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="transposed"):
         int8_matmul(x, w.t().contiguous(), torch.ones(8, device=dev))
     with pytest.raises(ValueError, match="w_scale"):
         int8_matmul(x, w.t(), torch.ones(7, device=dev))
+
+
+# the recipe's data path on the card: a small WAV corpus (chip_smoke.
+# write_corpus: 8 train and 4 valid utterances at LibriSpeech's lengths, 40
+# units), the recipe's config with 2 encoder layers, the task's iterator
+def _recipe(root, dev, layers=2):
+    import copy
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.pop(0)
+    from espresso_tpu_torch.config import load_config_dict
+    from espresso_tpu_torch.tasks import setup_task
+    from espresso_tpu_torch.train import trainer as tr
+
+    cs.write_corpus(str(root), {"train": 8, "valid": 4}, units=40, seed=1)
+    cfg = load_config_dict(copy.deepcopy(cs.RECIPE))
+    cfg.model["encoder"] = {"encoder_layers": layers}
+    cfg.dataset.data, cfg.dataset.global_cmvn_stats_path = str(root), cs.write_global_cmvn(str(root))
+    task = setup_task(cfg)
+    torch.manual_seed(0)
+    model = task.build_model(device=dev)
+    criterion = task.build_criterion()
+    optimizer, _ = tr.build_optimizer(cfg)
+    state = tr.create_train_state(model, optimizer, cfg)
+
+    def groups(split):
+        itr = task.get_batch_iterator(task.load_dataset(split), max_tokens=cfg.dataset.max_tokens,
+                                      max_sentences=None, seed=1, shuffle=split == "train")
+        return list(itr.next_epoch_itr())
+
+    return cfg, model, criterion, optimizer, state, groups
+
+
+def test_put_batch_copies_pinned_and_the_step_makes_no_host_sync(dev, tmp_path, monkeypatch):
+    """put_batch stages every array in pinned memory and copies it with
+    non_blocking (utt_ids and the counts stay behind); after a warm-up
+    step (the front's tables reach the card once), a 2-layer train step on
+    the copied batch makes no host sync."""
+    from espresso_tpu_torch.cli.train import put_batch
+    from espresso_tpu_torch.train.trainer import make_train_step
+
+    cfg, model, criterion, optimizer, state, groups = _recipe(tmp_path, dev)
+    group = groups("train")[0]
+    copies = []
+    to = torch.Tensor.to
+
+    def spy(self, *args, **kwargs):
+        if self.device.type == "cpu":
+            copies.append((self.is_pinned(), kwargs.get("non_blocking", False)))
+        return to(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "to", spy)
+    batch = put_batch(group, dev)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    arrays = {k for k, v in group.items() if hasattr(v, "dtype")}
+    assert set(batch) == arrays and "utt_ids" not in batch and "ntokens" not in batch
+    assert copies == [(True, True)] * len(arrays)
+    for k in arrays:
+        assert batch[k].device.type == "cuda" and torch.equal(batch[k].cpu(), torch.from_numpy(group[k]))
+    step = make_train_step(model, criterion, optimizer, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, put_batch(group, dev), gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(m["loss"]).item() and m["overflow"].item() == 0.0
+
+
+def test_valid_step_launches_and_matches_plain_versions(dev, tmp_path, monkeypatch):
+    """A 2-layer valid step on a collated valid batch: one fbank, one
+    rel_attention a layer, one rnnt_joint_lp and no train kernel; its loss
+    through the plain versions (the attention, the joint, the front)
+    within 1 % (chip_smoke.TRAIN_LOSS_RTOL)."""
+    from espresso_tpu_torch.cli.train import put_batch
+    from espresso_tpu_torch.features import fbank_kernels as fk
+    from espresso_tpu_torch.modules import attention
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import rnnt_kernels as rk
+    from espresso_tpu_torch.train import trainer as tr
+
+    cfg, model, criterion, _, state, groups = _recipe(tmp_path, dev)
+    mb = {k: v[0] for k, v in put_batch(groups("valid")[0], dev).items()}
+    valid = tr.make_valid_step(model, criterion, cfg)
+    kernels = (fk.fbank_fused, ak.rel_attention, rk.rnnt_joint_lp, rk.rnnt_joint_bwd,
+               ak.rel_attention_train_fwd, ak.rel_attention_train_bwd)
+    before = [f.launches for f in kernels]
+    loss = valid(state, mb)["loss"].item()
+    counts = [f.launches - b for f, b in zip(kernels, before)]
+    assert counts == [1, 2, 1, 0, 0, 0], counts
+    monkeypatch.setattr(attention, "rel_attention", ak.rel_attention_reference)
+    monkeypatch.setattr(rk, "rnnt_joint_lp", rk.rnnt_joint_lp_reference)
+    monkeypatch.setattr(tr, "fbank_fused", fk.fbank_plain)
+    plain = valid(state, mb)["loss"].item()
+    assert np.isfinite(loss) and abs(loss - plain) <= 0.01 * abs(plain), (loss, plain)

@@ -146,16 +146,9 @@ def test_fbank_8khz_matches_jax_fused():
         assert np.abs(got[b, :n] - ref[b, :n])[ok].max() <= FBANK_ATOL_JAX
 
 
-@pytest.mark.parametrize("sample_rate", [22050.0, 44100.0, 48000.0, 96000.0])
-def test_fbank_higher_rates_match_jax_fused(sample_rate):
-    """22.05 to 96 kHz (1024-, 2048- and 4096-point DFTs; 44.1 kHz with an
-    odd shift of 441 samples): the port's plain version against JAX
-    ``fbank_fused`` on the CPU, 0.3 s of audio and a ragged second
-    utterance of four frames. Both sum a 551- to 2400-sample frame's fp32
-    DFT products in other orders; that rounding floor is a share of the
-    frame's peak and grows with the frame, so bins near 70 dB down read
-    up to ~2.1e-4 apart (22.05 kHz): the goldens' rule, 5e-4 in log on the
-    bins within 70 dB of the peak (FBANK_LOG_TOL), bounds them."""
+def _rate_inputs(sample_rate):
+    """0.3 s of audio and a ragged second utterance of four frames at
+    ``sample_rate``: (wav [2, S] f32, num_samples [2] int32, window, shift)."""
     S = int(0.3 * sample_rate)
     window, shift = round(sample_rate * 0.025), round(sample_rate * 0.01)
     rng = np.random.default_rng(int(sample_rate))
@@ -166,7 +159,14 @@ def test_fbank_higher_rates_match_jax_fused(sample_rate):
         wav[b] += 8000 * np.sin(2 * np.pi * f1 * t) + 3000 * np.sin(2 * np.pi * f2 * t)
     ns = np.array([S, window + 3 * shift + 1], np.int32)
     wav[np.arange(S)[None, :] >= ns[:, None]] = 0.0
-    wav = wav.astype(np.float32)
+    return wav.astype(np.float32), ns, window, shift
+
+
+def _rate_parity(sample_rate):
+    """``_rate_inputs`` through JAX ``fbank_fused`` and the port's plain
+    version on the CPU: (port, JAX, lengths), the lengths checked equal."""
+    wav, ns, window, shift = _rate_inputs(sample_rate)
+    S = wav.shape[1]
     ref, ref_len = (
         np.asarray(a) for a in jax_fbank_fused(jnp.asarray(wav), jnp.asarray(ns), sample_rate)
     )
@@ -177,9 +177,44 @@ def test_fbank_higher_rates_match_jax_fused(sample_rate):
     assert got.shape == ref.shape == (2, 1 + (S - window) // shift, 80)
     for b, n in enumerate(lengths):
         assert not got[b, n:].any()
+    return got, ref, lengths
+
+
+@pytest.mark.parametrize("sample_rate", [22050.0, 44100.0, 48000.0, 96000.0])
+def test_fbank_higher_rates_match_jax_fused(sample_rate):
+    """22.05 to 96 kHz (1024-, 2048- and 4096-point DFTs; 44.1 kHz with an
+    odd shift of 441 samples): the port's plain version against JAX
+    ``fbank_fused`` on the CPU, 0.3 s of audio and a ragged second
+    utterance of four frames. Both sum a 551- to 2400-sample frame's fp32
+    DFT products in other orders; that rounding floor is a share of the
+    frame's peak and grows with the frame, so bins near 70 dB down read
+    up to ~2.1e-4 apart (22.05 kHz): the goldens' rule, 5e-4 in log on the
+    bins within 70 dB of the peak (FBANK_LOG_TOL), bounds them."""
+    got, ref, lengths = _rate_parity(sample_rate)
+    for b, n in enumerate(lengths):
         ok = _loud(ref[b, :n])
         assert ok.mean() > 0.9
         assert np.abs(got[b, :n] - ref[b, :n])[ok].max() <= FBANK_LOG_TOL
+
+
+def test_fbank_8192_point_rate_matches_jax_oracle():
+    """176.4 kHz (a 4410-sample window: an 8192-point DFT, the kernel's
+    largest instance): the port's plain version on ``_rate_inputs`` against
+    the JAX package's host oracle ``fbank_numpy`` (numpy's FFT, utterance
+    by utterance; JAX's fused path builds and compiles [8192, 4097] DFT
+    bases), every bin held to FBANK_LOG_TOL: at this rate ~20 % of the
+    bins (the narrow low mel bins, quiet after pre-emphasis) lie more than
+    70 dB under their frame's peak, and they agree within the bound too."""
+    wav, ns, window, shift = _rate_inputs(176400.0)
+    got, lengths = fbank_fused(torch.from_numpy(wav), torch.from_numpy(ns), 176400.0)
+    got, lengths = got.numpy(), lengths.numpy()
+    np.testing.assert_array_equal(lengths, [1 + (wav.shape[1] - window) // shift, 4])
+    assert got.shape == (2, lengths[0], 80)
+    for b, n in enumerate(lengths):
+        assert not got[b, n:].any()
+        ref = fbank_numpy(wav[b, : ns[b]], sample_rate=176400.0)
+        assert ref.shape == (n, 80)
+        assert np.abs(got[b, :n] - ref).max() <= FBANK_LOG_TOL
 
 
 @pytest.mark.parametrize("bins", [80, 40])

@@ -804,7 +804,7 @@ def _fft_power_model_large(y: np.ndarray, nfft: int, late=np.complex128) -> np.n
 
 
 # fbank.cu's instances (Geom<R>): frames a tile and warps a block, by FFT size
-FBANK_TILES = {512: (32, 8), 1024: (16, 8), 2048: (16, 8), 4096: (8, 4)}
+FBANK_TILES = {512: (32, 8), 1024: (16, 8), 2048: (16, 8), 4096: (8, 4), 8192: (4, 2)}
 
 
 def _fbank_smem_bytes(nfft: int, shift: int, M: int, mel_steps: int) -> int:
@@ -824,12 +824,13 @@ def _fbank_smem_bytes(nfft: int, shift: int, M: int, mel_steps: int) -> int:
 
 # (sample rate, window, shift, DFT size) of the larger instances
 HIGH_RATES = [(22050.0, 551, 220, 1024), (32000.0, 800, 320, 1024), (44100.0, 1102, 441, 2048),
-              (48000.0, 1200, 480, 2048), (96000.0, 2400, 960, 4096)]
+              (48000.0, 1200, 480, 2048), (96000.0, 2400, 960, 4096),
+              (192000.0, 4800, 1920, 8192)]
 
 
 @pytest.mark.parametrize("sr,W,shift,nfft", HIGH_RATES)
 def test_fbank_larger_fft_schedules_reproduce_the_real_dft(sr, W, shift, nfft):
-    """The 1024-, 2048- and 4096-point schedules give the real DFT's power
+    """The 1024-, 2048-, 4096- and 8192-point schedules give the real DFT's power
     with the 512-point error floor (under 2e-7 of the frame's peak energy
     in every bin, bins 60 dB and more down included); an impulse and a
     tone at a bin give their exact spectra."""
@@ -853,7 +854,7 @@ def test_fbank_larger_fft_schedules_reproduce_the_real_dft(sr, W, shift, nfft):
 
 @pytest.mark.parametrize("sr,W,shift,nfft", HIGH_RATES)
 def test_fbank_larger_ffts_through_the_mel_banks_match_the_plain_version(sr, W, shift, nfft):
-    """The kernel's tables at 22.05 to 96 kHz (the window zero past W, the
+    """The kernel's tables at 22.05 to 192 kHz (the window zero past W, the
     mel schedule over nfft / 2 bins): the model's spectrum through them
     against fbank_plain by the goldens' rule; each instance's shared memory
     keeps two blocks an SM (228 KB, 1 KB reserved a block)."""
@@ -896,7 +897,7 @@ def test_fbank_larger_fft_in_f64_after_stage_1_keeps_the_quiet_bins():
     assert worst[np.complex128] < 1.2e-4 and worst[np.complex64] > 2 * worst[np.complex128], worst
 
 
-@pytest.mark.parametrize("nfft", [1024, 2048, 4096])
+@pytest.mark.parametrize("nfft", [1024, 2048, 4096, 8192])
 def test_fbank_larger_twiddles_are_the_roots_of_unity(nfft):
     R, NZ = nfft // 512, nfft // 2
     twa, twd = fk.fft_twiddles(nfft)

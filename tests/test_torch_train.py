@@ -8,6 +8,8 @@ positional biases are not trivial), carried into the port by
 jits its train step, whose fused RNNT loss takes the XLA chunked path there;
 the port's attention and joint wrappers run their plain versions. Each step
 accumulates two microbatches, so one compiled JAX step serves every case.
+The valid step is held to JAX ``make_valid_step`` on a waveform batch
+through the device front (one more JAX compile, of the valid step).
 """
 
 import numpy as np
@@ -39,6 +41,7 @@ from espresso_tpu_torch.train.trainer import (
     build_optimizer,
     create_train_state,
     make_train_step,
+    make_valid_step,
 )
 
 N_MICRO, B, T, F, U = 2, 2, 32, 80, 5
@@ -150,21 +153,25 @@ def _port_setup(variables, dropout=0.0):
     return model, state, step
 
 
+def _jax_model():
+    enc = JaxEncoderConfig(
+        feat_dim=F, vocab_size=V, encoder_layer_type="conformer", encoder_pos_type="relative",
+        encoder_embed_dim=D, encoder_ffn_dim=FFN, encoder_layers=2, encoder_heads=H,
+        depthwise_conv_kernel_size=K, dropout=0.0,
+    )
+    return JaxTransducerModel(JaxTransducerConfig(
+        feat_dim=F, vocab_size=V, encoder=enc, pred_embed_dim=PRED, pred_hidden_size=PRED,
+        pred_layers=2, pred_dropout=0.0, joint_dim=JOINT,
+    ))
+
+
 @pytest.fixture(scope="module")
 def jax_run():
     """JAX: the initial variables and the results of two steps, then of a
     step on a batch with a NaN frame."""
     rng = np.random.default_rng(0)
     batch = _batch(rng)
-    enc = JaxEncoderConfig(
-        feat_dim=F, vocab_size=V, encoder_layer_type="conformer", encoder_pos_type="relative",
-        encoder_embed_dim=D, encoder_ffn_dim=FFN, encoder_layers=2, encoder_heads=H,
-        depthwise_conv_kernel_size=K, dropout=0.0,
-    )
-    jmodel = JaxTransducerModel(JaxTransducerConfig(
-        feat_dim=F, vocab_size=V, encoder=enc, pred_embed_dim=PRED, pred_hidden_size=PRED,
-        pred_layers=2, pred_dropout=0.0, joint_dim=JOINT,
-    ))
+    jmodel = _jax_model()
     shapes = jax.eval_shape(
         jmodel.init, jax.random.PRNGKey(0), jnp.asarray(batch["src_frames"][0]),
         jnp.asarray(batch["src_lengths"][0]), jnp.asarray(batch["prev_output_tokens"][0]),
@@ -311,3 +318,142 @@ def test_train_step_runs_with_dropout(jax_run):
         attention_kernels.dropout_keep_mask(s, items, heads, 64, 64, 0.1) for s in seeds
     ]).float().mean().item()
     assert abs(kept - 0.9) < 0.01, kept
+
+
+# the valid step on waveforms through the device front: JAX's fbank_fused
+# and the port's plain fbank sum each frame's fp32 DFT products in other
+# orders, and the 2-layer model and the RNNT loss carry that into the loss
+# (9e-8 relative here); the train step's RTOL bounds it
+VALID_RTOL = RTOL
+
+
+def _wave_batch(rng):
+    """One microbatch (no leading axis) of int16-scale waveforms for T
+    frames, the second utterance 5 frames and 17 samples short."""
+    S = (T - 1) * 160 + 400
+    ns = np.array([S, S - 5 * 160 - 17], np.int32)
+    wav = rng.standard_normal((B, S)) * 2000.0
+    wav[np.arange(S)[None, :] >= ns[:, None]] = 0.0
+    return {
+        "src_waveforms": wav.astype(np.float32),
+        "num_samples": ns,
+        "prev_output_tokens": rng.integers(4, V, (B, U + 1)).astype(np.int32),
+        "target": rng.integers(4, V, (B, U)).astype(np.int32),
+        "tgt_lengths": np.array([U, 3], np.int32),
+        "weight": np.array([1.0, 1.0], np.float32),
+    }
+
+
+def _valid_configs(cmvn_path, ema_validate):
+    jcfg, pcfg = _configs()
+    for cfg in (jcfg, pcfg):
+        cfg.dataset.feature_type = "device_fbank"
+        cfg.dataset.global_cmvn_stats_path = cmvn_path
+        cfg.optimization.ema_validate = ema_validate
+    return jcfg, pcfg
+
+
+@pytest.fixture(scope="module")
+def jax_valid(jax_run, tmp_path_factory):
+    """JAX's valid step (one jit) on the state after two train steps, with
+    its params and with its EMA params in their place (what
+    ``ema_validate`` reads)."""
+    _, _, out = jax_run
+    rng = np.random.default_rng(3)
+    wbatch = _wave_batch(rng)
+    cmvn = str(tmp_path_factory.mktemp("cmvn") / "cmvn.npz")
+    np.savez(cmvn, mean=rng.standard_normal(F).astype(np.float32) + 10.0,
+             std=rng.uniform(1.0, 3.0, F).astype(np.float32))
+    jcfg, _ = _valid_configs(cmvn, False)
+    valid = jax.jit(jax_trainer.make_valid_step(_jax_model(), build_criterion(jcfg.criterion, _Task()), jcfg))
+    jstate = out[1][0]
+    jbatch = {k: jnp.asarray(v) for k, v in wbatch.items()}
+    metrics = {
+        False: jax.device_get(valid(jstate, jbatch)),
+        True: jax.device_get(valid(jstate.replace(params=jstate.ema_params), jbatch)),
+    }
+    return wbatch, cmvn, metrics
+
+
+@pytest.mark.parametrize("ema_validate", [False, True])
+def test_valid_step_matches_jax_and_leaves_the_state(jax_run, jax_valid, ema_validate):
+    """After two train steps: the valid loss, sample_size and logging equal
+    JAX's within VALID_RTOL, in eval mode (running batch statistics, no
+    dropout), with the EMA weights under ``ema_validate``; the train state,
+    the batch statistics and the model's views of the compute buffer are
+    as they were."""
+    variables, batch, _ = jax_run
+    wbatch, cmvn, jmetrics = jax_valid
+    model, state, step = _port_setup(variables)
+    tb = _torch_batch(batch)
+    for _ in range(2):
+        state, _ = step(state, tb)
+    _, pcfg = _valid_configs(cmvn, ema_validate)
+    valid = make_valid_step(model, TransducerCriterion(pcfg.criterion, _Dictionary()), pcfg)
+    before = {
+        "params": state.params.clone(), "ema": state.ema_params.clone(),
+        "mu": state.opt_state.mu.clone(), "nu": state.opt_state.nu.clone(),
+        **{k: v.clone() for k, v in model.state_dict().items()},
+    }
+    metrics = valid(state, _torch_batch(wbatch))
+    assert not model.training
+    want = jmetrics[ema_validate]
+    assert set(metrics) == {"loss", "sample_size", "nsentences"} == set(want)
+    for k in metrics:
+        np.testing.assert_allclose(metrics[k].item(), float(want[k]), rtol=VALID_RTOL, err_msg=k)
+    if ema_validate:  # the EMA weights differ from the params: the loss does too
+        assert abs(float(want["loss"]) - float(jmetrics[False]["loss"])) > 1e-3
+    after = {
+        "params": state.params, "ema": state.ema_params, "mu": state.opt_state.mu,
+        "nu": state.opt_state.nu, **model.state_dict(),
+    }
+    for k, v in before.items():
+        assert torch.equal(after[k], v), k
+    assert int(state.opt_state.count) == 2 and state.step == 2
+    lo = state.compute.data_ptr()
+    hi = lo + state.compute.numel() * state.compute.element_size()
+    assert all(lo <= p.data_ptr() < hi for p in model.parameters())
+
+
+def test_valid_step_on_bf16_compute_weights_normalises_in_f32(jax_run, jax_valid):
+    """The train state of a bf16 run keeps its batch statistics in f32
+    beside bf16 compute weights: in eval mode batch norm normalises such
+    inputs in f32 from the running statistics and casts back, as flax
+    promotes (torch's own batch norm refuses the mix). The bf16 valid loss
+    is the fp32 one's within bf16 rounding through two layers (2 %)."""
+    from espresso_tpu_torch.modules.batch_norm import BatchNorm
+
+    bn = BatchNorm(6).eval()
+    with torch.no_grad():
+        bn.running_mean.uniform_(-1, 1)
+        bn.running_var.uniform_(0.5, 2)
+        bn.weight.uniform_(0.5, 1.5)
+        bn.bias.uniform_(-1, 1)
+    x = torch.randn(3, 6, 5, generator=torch.Generator().manual_seed(0))
+    want = bn(x)  # all f32: torch's own eval batch norm
+    bn.weight.data, bn.bias.data = bn.weight.data.bfloat16(), bn.bias.data.bfloat16()
+    got = bn(x.bfloat16())
+    assert got.dtype == torch.bfloat16
+    ref = ((x.bfloat16().float() - bn.running_mean[:, None]) * torch.rsqrt(bn.running_var[:, None] + 1e-5)
+           * bn.weight.float()[:, None] + bn.bias.float()[:, None])
+    assert torch.equal(got, ref.bfloat16())
+    assert (got.float() - want).abs().max() < 0.05
+
+    variables, _, _ = jax_run
+    wbatch, cmvn, jmetrics = jax_valid
+    losses = {}
+    for dtype, ema in (("float32", False), ("bfloat16", False), ("bfloat16", True)):
+        _, pcfg = _valid_configs(cmvn, ema)
+        pcfg.common.dtype = dtype
+        model = load_jax_variables(_port_model(), variables)
+        optimizer, _ = build_optimizer(pcfg)
+        state = create_train_state(model, optimizer, pcfg)
+        valid = make_valid_step(model, TransducerCriterion(pcfg.criterion, _Dictionary()), pcfg)
+        losses[dtype, ema] = valid(state, _torch_batch(wbatch))["loss"].item()
+        lo = state.compute.data_ptr()
+        hi = lo + state.compute.numel() * state.compute.element_size()
+        assert all(lo <= p.data_ptr() < hi for p in model.parameters())  # restored after an EMA call
+    assert np.isfinite(losses["bfloat16", False])
+    np.testing.assert_allclose(losses["bfloat16", False], losses["float32", False], rtol=2e-2)
+    # a fresh state's EMA is a copy of its params: its bf16 copy gives the same loss
+    assert losses["bfloat16", True] == losses["bfloat16", False]

@@ -248,7 +248,12 @@ def test_port_imports_no_jax():
         "       'espresso_tpu_torch.features.cmvn', 'espresso_tpu_torch.features.transforms',\n"
         "       'espresso_tpu_torch.features.specaugment', 'espresso_tpu_torch.ops.quantization',\n"
         "       'espresso_tpu_torch.ops.front_kernel_checks', 'espresso_tpu_torch.models.lstm_lm',\n"
-        "       'espresso_tpu_torch.models.speech_lstm'}\n"
+        "       'espresso_tpu_torch.models.speech_lstm', 'espresso_tpu_torch.registry',\n"
+        "       'espresso_tpu_torch.tasks', 'espresso_tpu_torch.clib',\n"
+        "       'espresso_tpu_torch.data.manifest', 'espresso_tpu_torch.data.kaldi_io',\n"
+        "       'espresso_tpu_torch.data.audio', 'espresso_tpu_torch.data.encoders',\n"
+        "       'espresso_tpu_torch.data.batching', 'espresso_tpu_torch.data.dataset',\n"
+        "       'espresso_tpu_torch.data.iterators', 'espresso_tpu_torch.cli.train'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = [m for m in ('jax', 'flax', 'espresso_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
