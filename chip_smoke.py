@@ -33,9 +33,10 @@ eleven Hopper kernels:
    ``int8_matmul`` at the flagship FFN shapes over a serving batch's frames
    and a ragged one, bit for bit; ``lstm_step_reorder`` also at the
    ``beam_lm`` point's LM, embed 512 gate-padded to H=1024, L=3, at BK=2560
-   and 12; ``fbank`` also at 22.05, 44.1 (an odd shift), 48, 96, 176.4 and
-   192 kHz, the 1024- to 8192-point instances, at edge counts and at a batch of
-   the serving batch's audio seconds), and times kernel and plain version at
+   and 12; ``fbank`` also at 22.05, 44.1 (an odd shift), 48, 96, 176.4,
+   192, 352.8 and 384 kHz, the 1024- to 8192-point instances and the large
+   instance, at edge counts and at a batch of the serving batch's audio
+   seconds), and times kernel and plain version at
    the flagship shape (and, beside B5, B6 and B7, their products alone
    through cuBLAS as a yardstick, beside B1 the forward of
    ``scaled_dot_product_attention``, beside B2 its forward with dropout,
@@ -98,7 +99,18 @@ eleven Hopper kernels:
    plain versions), and the spawn workers' first batches against an
    in-process iterator's, bit for bit; prints the loader's wait share,
    collate, copy, step and valid times;
-8. encodes and trains 2 layers of the flagship on utterances past its
+8. runs the recipe through the port's entry points (``run_recipe_clis``,
+   run.sh's stages): ``prep asr_prep_json`` and ``text2vocabulary`` over a
+   seeded 48 + 16 utterance WAV corpus (V = 5,004), ``cli.train.main`` for
+   2 epochs at the flagship width with WER validation, SIGTERM raised
+   after the first update of epoch 2 and a second ``main`` resuming from
+   checkpoint_last (asynchronous checkpoint writes), ``average_checkpoints
+   --num-epoch-checkpoints 2``, ``speech_recognize`` from checkpoint_avg at
+   beam 10 and again fused with an LSTM LM written by the port's
+   checkpoint module, and the hub's ``transcribe`` against the CLI's
+   hypotheses; every kernel's launches per step, valid batch and decode
+   batch asserted; prints the ``recipe_cli`` JSON line;
+9. encodes and trains 2 layers of the flagship on utterances past its
    relative table (T' = 1500).
 
 Any failure raises (nonzero exit) before the result lines. Prints the
@@ -286,7 +298,14 @@ FBANK_RATES = [
     (96000.0, [([96000, 50001, 2399], 96000), ([2400], 2400)]),
     (176400.0, [([176400, 90001, 4409], 176400), ([4410, 6174], 6174)]),
     (192000.0, [([192000, 100001, 4799], 192000), ([4800], 4800)]),
+    # the large instance (16384 points): windows of 8820 and 9600 samples
+    (352800.0, [([352800, 180001, 8819], 352800), ([8820, 12348], 12348)]),
+    (384000.0, [([384000, 200001, 9599], 384000), ([9600], 9600)]),
 ]
+# the large instance's timing at the serving batch's audio seconds: ~90 ms
+# a kernel call and ~1 s a plain one (a 16384-point DFT by matmuls): (kernel
+# calls a trace, event samples of 10 calls, plain calls)
+FBANK_LARGE_TIMING = {352800.0: (5, 3, 2), 384000.0: (5, 3, 2)}
 # B11's shapes: the flagship FFN's two products over a serving batch's
 # encoder frames (256 x 156), and a ragged edge
 INT8_SHAPES = [(39936, 512, 2048), (39936, 2048, 512), (1000, 200, 300)]
@@ -449,14 +468,15 @@ def sdpa_bwd_ms(B: int, T: int, heads: int, d: int, rate: float, dev) -> float:
 
 
 def time_pair(name: str, kernel_fn, plain_fn, kernel: str, plain_calls: int = 10,
-              per_call=None) -> dict:
+              per_call=None, calls: int = 20, samples: int = 20) -> dict:
     """Kernel and plain version at one shape: device time from the profiler
-    (``ms``, ``plain_ms``) and, for the log, CUDA-event time of back-to-back
-    calls, which also counts the host's launch gaps. ``per_call``: the
-    kernels one call launches (see ``device_ms``)."""
-    row = dict(ms=device_ms(kernel_fn, kernel=kernel, per_call=per_call),
+    (``ms``, ``plain_ms``; ``calls`` and ``plain_calls`` calls a trace) and,
+    for the log, CUDA-event time of back-to-back calls (``samples`` of 10),
+    which also counts the host's launch gaps. ``per_call``: the kernels one
+    call launches (see ``device_ms``)."""
+    row = dict(ms=device_ms(kernel_fn, calls, kernel=kernel, per_call=per_call),
                plain_ms=device_ms(plain_fn, plain_calls))
-    row["ms_events"] = median_ms(kernel_fn)
+    row["ms_events"] = median_ms(kernel_fn, samples=samples)
     log(
         f"{name} flagship: kernel {row['ms']} ms device ({row['ms_events']} ms by events of "
         f"back-to-back calls), plain version {row['plain_ms']} ms device"
@@ -1028,16 +1048,18 @@ def check_front_kernels(dev) -> dict:
         Sr = (T - 1) * shift + window
         ar = rate_waveforms(((lengths - 1) * shift + window).tolist(), Sr, sr, seed=int(sr), dev=dev)
         errs.append(fc.check_fbank(ar, sample_rate=sr))
-        nnz = int(np.count_nonzero(fk._dft_mel_matrices(window, nfft, M, sr)[2]))
+        nnz = int(np.count_nonzero(fk._mel_matrix(nfft, M, sr)))
         flops = valid8 * (2.5 * nfft * math.log2(nfft) + 3 * (nfft // 2 + 1) + 2 * nnz + 5 * window + M)
         row[f"{tag}_bound_ms"] = bound(B * Sr * 4 + B * T * M * 4 + 8 * B, flops, PEAK_FP32)[0]
+        calls, samples, plain_calls = FBANK_LARGE_TIMING.get(sr, (20, 20, 10))
         r = time_pair(f"fbank {sr / 1000} kHz", lambda: fk.fbank_fused(ar["waveforms"], ar["num_samples"], sr),
                       lambda: fk.fbank_plain(ar["waveforms"], ar["num_samples"], sr), "fbank_kernel",
-                      per_call=1)
+                      plain_calls=plain_calls, per_call=1, calls=calls, samples=samples)
         row[f"{tag}_ms"], row[f"{tag}_plain_ms"] = r["ms"], r["plain_ms"]
         log(f"fbank {sr / 1000} kHz ({nfft} points, shift {shift}) serving seconds B={B} S={Sr}: "
             f"{r['ms']} ms, bound {row[f'{tag}_bound_ms']} ms; errors {errs[-2 * len(edges) - 1:]}")
         del ar
+        torch.cuda.empty_cache()
     rows["fbank"] = dict(row, max_abs_err=max(e["log"] for e in errs), valid_frames=valid,
                          linear_err=max(e["linear"] for e in errs))
     log(f"fbank serving-batch bound: {row['bound_ms']} ms ({row['bound_by']}, {valid} valid "
@@ -2311,6 +2333,342 @@ def run_recipe_data_path(dev, tmpdir: str, card: str) -> dict:
                 collate_ms=collate_ms, spawn_equals_in_process=True, card=card)
 
 
+# the recipe's entry points (run_recipe_clis): the corpus's train and valid
+# utterance counts, the epochs, the update of epoch 2 after which SIGTERM
+# is raised, and the LM of the beam_lm point over the recipe's units
+CLI_CORPUS = dict(train=32, valid=8)
+CLI_EPOCHS = 2
+CLI_SIGTERM_AFTER = 1
+
+
+def encoded_frames(T: int, enc_cfg) -> int:
+    """The encoder's output length for T input frames: each conv layer of
+    the frontend maps T to (T + (k - 1) // 2 + k // 2 - k) // stride + 1."""
+    for (kt, _), (st, _) in zip(enc_cfg.conv_kernel_sizes, enc_cfg.conv_strides):
+        T = (T + (kt - 1) // 2 + kt // 2 - kt) // st + 1
+    return T
+
+
+def run_recipe_clis(dev, tmpdir: str, card: str) -> dict:
+    """``recipe_clis`` with the CLIs' log lines (their handler writes to the
+    stdout of the moment) on stderr beside this script's log."""
+    with contextlib.redirect_stdout(sys.stderr):
+        return recipe_clis(dev, tmpdir, card)
+
+
+def recipe_clis(dev, tmpdir: str, card: str) -> dict:
+    """The recipe as run.sh runs it, through the port's entry points at the
+    flagship width (16 layers, d=512, V=5,004): stages 1-2 (``prep
+    asr_prep_json`` from wav.scp and token-text files, ``prep
+    text2vocabulary`` over the 5,000 units, global CMVN from the train
+    split); stage 4 (``cli.train.main`` on the card for CLI_EPOCHS epochs
+    with WER validation, SIGTERM raised after CLI_SIGTERM_AFTER updates of
+    epoch 2 and a second ``main`` resuming from checkpoint_last, with
+    asynchronous checkpoint writes); stage 5 (``average_checkpoints
+    --num-epoch-checkpoints 2``, then ``speech_recognize`` from
+    checkpoint_avg at beam 10, beta 2, gamma 2.3, and again fused with an
+    LSTM LM written by the port's checkpoint module at lm_weight 0.47); the
+    hub's ``transcribe`` on two WAVs against the CLI's hypotheses. Asserts
+    every kernel's launches per train step, per valid batch and per decode
+    batch, finite losses, the update count and iterator position after the
+    resume, V = 5,004 and the four result files. Returns the recipe_cli
+    numbers."""
+    import contextlib as cl
+    import io
+    import json
+    import logging
+    import os
+    import signal
+
+    from espresso_tpu_torch import hub
+    from espresso_tpu_torch.cli import average_checkpoints, prep, speech_recognize
+    from espresso_tpu_torch.cli import train as train_cli
+    from espresso_tpu_torch.config import config_to_dict
+    from espresso_tpu_torch.decode.transducer_beam import TransducerBeamSearchDecoder
+    from espresso_tpu_torch.features.fbank_kernels import fbank_fused
+    from espresso_tpu_torch.models.lstm_lm import LSTMLanguageModel, LSTMLMConfig
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import decode_kernels
+    from espresso_tpu_torch.train import checkpoint as ckpt
+
+    root = os.path.join(tmpdir, "recipe_cli")
+    data, save_dir = os.path.join(root, "data"), os.path.join(root, "ckpts")
+    os.makedirs(data)
+    secs = {}
+    t0 = time.perf_counter()
+    corpus = write_corpus(data, {"train": CLI_CORPUS["train"], "valid": CLI_CORPUS["valid"]})
+    # the Kaldi data directories run.sh starts from: wav.scp, the BPE token
+    # text, utt2num_frames, and the BPE model's unit inventory
+    units = os.path.join(root, "units.txt")
+    with open(units, "w") as f:
+        f.writelines(f"u{i:04d}\n" for i in range(CORPUS["UNITS"]))
+    for split in ("train", "valid"):
+        with open(os.path.join(data, f"{split}.json")) as f:
+            manifest = json.load(f)
+        kdir = os.path.join(root, split)
+        os.makedirs(kdir)
+        for name, key in (("wav.scp", "wave"), ("token_text", "token_text"), ("utt2num_frames", "utt2num_frames")):
+            with open(os.path.join(kdir, name), "w") as f:
+                f.writelines(f"{u} {e[key]}\n" for u, e in manifest.items())
+        os.remove(os.path.join(data, f"{split}.json"))
+    os.remove(os.path.join(data, "dict.txt"))
+    secs["corpus"] = time.perf_counter() - t0
+    # stages 1-2
+    t0 = time.perf_counter()
+    for split in ("train", "valid"):
+        kdir = os.path.join(root, split)
+        prep.main(["asr_prep_json", "--wave-files", f"{kdir}/wav.scp", "--token-text-files",
+                   f"{kdir}/token_text", "--utt2num-frames-files", f"{kdir}/utt2num_frames",
+                   "--output", os.path.join(data, f"{split}.json")])
+    with open(os.path.join(data, "test.json"), "w") as f, open(os.path.join(data, "valid.json")) as g:
+        f.write(g.read())  # the decode split: the valid utterances
+    out = io.StringIO()
+    with cl.redirect_stdout(out):
+        prep.main(["text2vocabulary", "--skip-ncols", "1", "--vocabsize", str(CORPUS["UNITS"]),
+                   "--vocab", units, os.path.join(root, "train", "token_text")])
+    with open(os.path.join(data, "dict.txt"), "w") as f:
+        f.write(out.getvalue())
+    cmvn = write_global_cmvn(data)
+    secs["prep"] = time.perf_counter() - t0
+    recipe = copy.deepcopy(RECIPE)
+    recipe["dataset"].update(data=data, global_cmvn_stats_path=cmvn)
+    recipe["checkpoint"]["save_dir"] = save_dir
+    recipe["optimization"]["max_epoch"] = CLI_EPOCHS
+    cfg_path = os.path.join(root, "recipe.json")
+    with open(cfg_path, "w") as f:
+        json.dump(recipe, f)
+    args = ["--config", cfg_path]
+    from espresso_tpu_torch.config import load_config_dict
+    from espresso_tpu_torch.tasks import setup_task
+
+    task = setup_task(load_config_dict(recipe))
+    V, enc_cfg = len(task.dictionary), task.build_model_config()[1].encoder
+    layers = enc_cfg.encoder_layers
+    if V != CORPUS["UNITS"] + 4:  # the units and <s> (blank), <pad>, </s>, <unk>
+        raise AssertionError(f"the prepared dictionary gives V = {V}")
+    del task
+    log(f"recipe CLIs: corpus {corpus}; prep {secs['prep']:.1f} s; V = {V}, {layers} layers")
+
+    # stage 4: train, SIGTERM in epoch 2, resume
+    train_k = {**train_kernels(), "fbank": fbank_fused, "rel_attention": ak.rel_attention}
+    for f in train_k.values():
+        f.launches = 0
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    rec = dict(steps=0, epoch_steps=[0], step_events=[], valid_batches=0, valid_s=[], saves=[],
+               copies=[], losses=[])
+    make_step, make_valid, validate = train_cli.make_train_step, train_cli.make_valid_step, train_cli.validate
+
+    def counted_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, gen):
+            e = [ev(), ev()]
+            e[0].record()
+            state, m = step(state, batch, gen)
+            e[1].record()
+            rec["steps"] += 1
+            rec["epoch_steps"][-1] += 1
+            rec["step_events"].append(e)
+            rec["losses"].append(m["loss"])
+            if len(rec["epoch_steps"]) == 2 and rec["epoch_steps"][-1] == CLI_SIGTERM_AFTER \
+                    and not rec.get("sigterm"):
+                rec["sigterm"] = True
+                signal.raise_signal(signal.SIGTERM)
+            return state, m
+        return run
+
+    def counted_valid(*a, **kw):
+        valid = make_valid(*a, **kw)
+
+        def run(state, mb):
+            rec["valid_batches"] += 1
+            return valid(state, mb)
+        return run
+
+    def timed_validate(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = validate(*a, **kw)
+        rec["valid_s"].append(time.perf_counter() - t)
+        rec["epoch_steps"].append(0)
+        rec["wer"] = stats.get("wer")
+        return stats
+
+    save, arrays = ckpt.save_checkpoint_state, ckpt.train_state_arrays
+
+    def timed_save(path, state, host_state, async_write=False):
+        t = time.perf_counter()
+        save(path, state, host_state, async_write)
+        rec["saves"].append((os.path.basename(path), async_write, time.perf_counter() - t))
+
+    def timed_arrays(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out_ = arrays(*a, **kw)
+        rec["copies"].append(time.perf_counter() - t)
+        return out_
+
+    patches = [(train_cli, "make_train_step", counted_step), (train_cli, "make_valid_step", counted_valid),
+               (train_cli, "validate", timed_validate), (ckpt, "save_checkpoint_state", timed_save),
+               (ckpt, "train_state_arrays", timed_arrays)]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        t0 = time.perf_counter()
+        train_cli.main(args, device=dev)
+        secs["train_until_sigterm"] = time.perf_counter() - t0
+        if not rec.get("sigterm"):
+            raise AssertionError("the train CLI ran no update of epoch 2")
+        tree, host = ckpt.load_checkpoint_state(os.path.join(save_dir, "checkpoint_last"))
+        n1 = rec["epoch_steps"][0]
+        want_it = {"epoch": 2, "iterations_in_epoch": CLI_SIGTERM_AFTER}
+        if int(tree["step"]) != n1 + CLI_SIGTERM_AFTER or any(host["iterator"][k] != v for k, v in want_it.items()):
+            raise AssertionError(f"SIGTERM checkpoint: step {int(tree['step'])}, iterator {host['iterator']}; "
+                                 f"want {n1 + CLI_SIGTERM_AFTER} and {want_it}")
+        sigterm_state = dict(step=int(tree["step"]), host_state=host)
+        del tree
+        t0 = time.perf_counter()
+        stats = train_cli.main(args + ["checkpoint.write_checkpoints_asynchronously=true"], device=dev)
+        secs["train_resumed"] = time.perf_counter() - t0
+    finally:
+        for mod, name, _ in patches:
+            setattr(mod, name, {"make_train_step": make_step, "make_valid_step": make_valid,
+                                "validate": validate, "save_checkpoint_state": save,
+                                "train_state_arrays": arrays}[name])
+    torch.cuda.synchronize()
+    n, nv = rec["steps"], rec["valid_batches"]
+    # a step: B10, B2 and B3 a layer, B4, B5; a valid batch: the valid step
+    # (B10, B1 a layer, B4) and the greedy WER decode (B10, B1 a layer)
+    train_counts = {name: f.launches for name, f in train_k.items()}
+    want = {"rel_attention_train_fwd": layers * n, "rel_attention_train_bwd": layers * n,
+            "rnnt_joint_lp": n + nv, "rnnt_joint_bwd": n, "fbank": n + 2 * nv,
+            "rel_attention": 2 * layers * nv}
+    if train_counts != want:
+        raise AssertionError(f"recipe CLI train launches {train_counts}, want {want} ({n} steps, "
+                             f"{nv} valid batches)")
+    losses = torch.stack(rec["losses"]).tolist()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"recipe CLI train losses {losses}")
+    tree, host = ckpt.load_checkpoint_state(os.path.join(save_dir, "checkpoint_last"))
+    if int(tree["step"]) != n or host["iterator"]["epoch"] != CLI_EPOCHS + 1 \
+            or host["iterator"]["iterations_in_epoch"] != 0:
+        raise AssertionError(f"after the resume: step {int(tree['step'])} of {n}, iterator {host['iterator']}")
+    del tree
+    names = sorted(os.listdir(save_dir))
+    for name in ("checkpoint1", "checkpoint2", "checkpoint_best", "checkpoint_last", "model_cfg.json"):
+        if name not in names:
+            raise AssertionError(f"{name} missing from {names}")
+    step_ms = [e[0].elapsed_time(e[1]) for e in rec["step_events"]]
+    size = lambda name: sum(os.path.getsize(os.path.join(save_dir, name, f))
+                            for f in os.listdir(os.path.join(save_dir, name)))
+    log(f"recipe CLI train on {card}: {n} steps ({rec['epoch_steps']} by epoch and resume), "
+        f"{nv} valid batches, step ms {[round(x, 1) for x in step_ms]}, valid s {rec['valid_s']}, "
+        f"WER {rec.get('wer')}; SIGTERM checkpoint {sigterm_state}; launches {train_counts}; saves "
+        f"{[(a, b, round(c, 3)) for a, b, c in rec['saves']]}; device-to-host copies {rec['copies']} s; "
+        f"checkpoint {size('checkpoint_last')} bytes; {stats}")
+
+    # stage 5: average, decode with and without the LM, the hub
+    t0 = time.perf_counter()
+    average_checkpoints.main(["--inputs", save_dir, "--num-epoch-checkpoints", "2",
+                              "--output", os.path.join(save_dir, "checkpoint_avg")])
+    secs["average"] = time.perf_counter() - t0
+    lm_dir = os.path.join(root, "lm")
+    os.makedirs(lm_dir)
+    lm_cfg = LSTMLMConfig(**{**LM, "vocab_size": V - 1})
+    torch.manual_seed(1)
+    lm = LSTMLanguageModel(lm_cfg)
+    ckpt.save_checkpoint_state(os.path.join(lm_dir, "checkpoint_last"),
+                               ckpt.flatten_tree({"params": ckpt.flax_variables(lm)["params"]}), {})
+    with open(os.path.join(lm_dir, "model_cfg.json"), "w") as f:
+        json.dump({"model_name": "LSTMLanguageModel", "name": lm_cfg.name, "criterion": "cross_entropy",
+                   "config": config_to_dict(lm_cfg)}, f, indent=2)
+    del lm
+    dec_args = args + ["checkpoint.restore_file=checkpoint_avg", "generation.beam=10",
+                       "generation.expansion_beta=2", "generation.expansion_gamma=2.3",
+                       "dataset.gen_subset=test"]
+    decode_calls = []
+    run_async = TransducerBeamSearchDecoder.decode_async
+
+    def recorded(self, batch):
+        decode_calls.append(int(batch["src_frames"].shape[1]))
+        return run_async(self, batch)
+
+    class Elapsed(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("Recognized"):
+                rec["elapsed"] = record.args[1]
+
+    handler = Elapsed()
+    logging.getLogger("espresso_tpu_torch.recognize").addHandler(handler)
+    decodes = {}
+    R = BEAM["max_num_expansions_per_step"] + 1
+    audio_s = corpus["valid"]["audio_s"]
+    try:
+        TransducerBeamSearchDecoder.decode_async = recorded
+        for tag, extra in (("beam", []), ("beam_lm", [f"generation.lm_path={lm_dir}",
+                                                      f"generation.lm_weight={LM_WEIGHT}"])):
+            out_dir = os.path.join(root, f"decode_{tag}")
+            kernels = {**all_kernels(), "fbank": fbank_fused}
+            for f in kernels.values():
+                f.launches = 0
+            decode_calls.clear()
+            t0 = time.perf_counter()
+            res = speech_recognize.main(dec_args + extra + [f"generation.results_path={out_dir}"], device=dev)
+            torch.cuda.synchronize()
+            secs[f"decode_{tag}"] = time.perf_counter() - t0
+            counts = {name: f.launches for name, f in kernels.items()}
+            t_enc = sum(encoded_frames(T, enc_cfg) for T in decode_calls)
+            nb = len(decode_calls)
+            want = {"rel_attention": layers * nb, "fused_joint_topk": R * t_enc,
+                    "lstm_step_reorder": (2 if extra else 1) * (R - 1) * t_enc,
+                    "aes_merge": R * t_enc, "aes_backtrace": nb, "fbank": nb}
+            if counts != want:
+                raise AssertionError(f"recipe CLI {tag} decode launches {counts}, want {want}")
+            files = sorted(os.listdir(out_dir))
+            if files != ["aligned_results.txt", "cer", "decoded_results.txt", "wer"] \
+                    or res["num_utts"] != CLI_CORPUS["valid"]:
+                raise AssertionError(f"recipe CLI {tag} decode: files {files}, result {res}")
+            decodes[tag] = dict(result=res, batches=nb, launches=counts, elapsed_s=rec["elapsed"],
+                                rtfx=audio_s / rec["elapsed"],
+                                wer_file=open(os.path.join(out_dir, "wer")).read().strip())
+            log(f"recipe CLI {tag} decode on {card}: {res}, {nb} batches in {rec['elapsed']:.3f} s, "
+                f"RTFx {audio_s / rec['elapsed']:.1f}; launches {counts}; {decodes[tag]['wer_file']}")
+    finally:
+        TransducerBeamSearchDecoder.decode_async = run_async
+        logging.getLogger("espresso_tpu_torch.recognize").removeHandler(handler)
+
+    # the hub on two of the test WAVs against the CLI's beam hypotheses
+    t0 = time.perf_counter()
+    with open(os.path.join(data, "test.json")) as f:
+        test = json.load(f)
+    utts = sorted(test)[:2]
+    asr = hub.from_pretrained(save_dir, data_dir=data, beam=10, device=dev, **{
+        "checkpoint.restore_file": "checkpoint_avg", "dataset.feature_type": "device_fbank",
+        "dataset.global_cmvn_stats_path": cmvn, "generation.expansion_beta": 2,
+        "generation.expansion_gamma": 2.3})
+    got = asr.transcribe([test[u]["wave"] for u in utts])
+    secs["hub"] = time.perf_counter() - t0
+    cli = {}
+    with open(os.path.join(root, "decode_beam", "decoded_results.txt")) as f:
+        for line in f:
+            u, _, hyp = line.rstrip("\n").partition(" ")
+            cli[u] = hyp
+    if got != [cli[u] for u in utts]:
+        raise AssertionError(f"hub {got} != the CLI's {[cli[u] for u in utts]}")
+    log(f"recipe CLI hub: {utts} -> {got}, the CLI's hypotheses")
+    del asr
+    torch.cuda.empty_cache()
+    return dict(
+        corpus=corpus, vocab=V, layers=layers, stage_s=secs, steps=n, steps_by_epoch=rec["epoch_steps"],
+        train_ms_per_step=statistics.mean(step_ms), step_ms=step_ms, valid_batches=nv,
+        valid_ms_per_batch=sum(rec["valid_s"]) / nv * 1e3, valid_wer=rec.get("wer"), losses=losses,
+        sigterm=sigterm_state, train_launches=train_counts,
+        checkpoint_bytes=size("checkpoint_last"), device_to_host_s=rec["copies"],
+        saves=[dict(name=a, async_write=b, s=c) for a, b, c in rec["saves"]], decodes=decodes,
+        hub=dict(utts=utts, hyps=got), card=card,
+    )
+
+
 def compare_train_step(dev) -> dict:
     """One step of a 2-utterance sub-batch at dropout 0 from one init,
     through the kernels and through the plain versions: the loss and the
@@ -2427,6 +2785,11 @@ def main() -> int:
     recipe = run_recipe_data_path(dev, tmp.name, card)
     tmp.cleanup()
     torch.cuda.empty_cache()
+    phase("recipe CLIs")
+    with tempfile.TemporaryDirectory() as cli_tmp:
+        recipe_cli = run_recipe_clis(dev, cli_tmp, card)
+    print(json.dumps({"recipe_cli": recipe_cli}))
+    torch.cuda.empty_cache()
     phase("long utterances")
     long_utt = run_long_utterances(dev)
     print(json.dumps({"train": train, "train_from_pcm": train_pcm, "recipe_data_path": recipe,
@@ -2493,6 +2856,12 @@ def main() -> int:
             **({"recipe_train_launches": recipe["train"]["launches"][name],
                 "recipe_valid_launches": recipe["valid"]["launches"][name]}
                if name in recipe["train"]["launches"] else {}),
+            # the recipe CLIs: the train CLI's runs (steps and valid passes),
+            # the beam and beam_lm decodes through speech_recognize
+            **({"recipe_cli_train_launches": recipe_cli["train_launches"][name]}
+               if name in recipe_cli["train_launches"] else {}),
+            **{f"recipe_cli_{tag}_launches": d["launches"][name]
+               for tag, d in recipe_cli["decodes"].items() if name in d["launches"]},
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

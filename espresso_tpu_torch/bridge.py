@@ -17,7 +17,10 @@ It raises if a port tensor is left unfilled, a JAX leaf goes unused, or a
 shape disagrees. ``flax_leaves`` names the flax leaf of each port parameter
 and ``to_flax_layout`` / ``from_flax_layout`` move a tensor between the two
 layouts, for code that follows flax's leaf names and layouts (quant noise
-and weight quantization, ``ops/quantization.py``).
+and weight quantization, ``ops/quantization.py``); ``flax_paths`` gives
+each parameter's and batch-norm statistic's path in the flax tree (the
+inverse of ``port_key``), which the checkpoints key their arrays by
+(``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -111,6 +114,52 @@ def port_key(path: Tuple[str, ...]) -> str:
     leaf = path[-1]
     out.append("weight" if leaf == "kernel" else _LEAVES.get(leaf, leaf))
     return ".".join(out)
+
+
+# port submodule name -> flax name, by the flax name of the parent: the
+# inverse of _RENAMES (a port name may span two components, "layers.3")
+_INVERSE = {
+    parent: [
+        (re.compile(repl.replace(".", r"\.").replace(r"\1", r"(\d+)") + r"(?=\.|$)"),
+         pat.replace(r"(\d+)", r"\1"))
+        for pat, repl in table.items()
+    ]
+    for parent, table in _RENAMES.items()
+}
+_BUFFER_LEAVES = {"running_mean": "mean", "running_var": "var"}
+
+
+def flax_path(key: str, leaf: str) -> Tuple[str, ...]:
+    """The flax path (module names..., ``leaf``) of the port state_dict
+    ``key``: ``port_key(flax_path(key, leaf)) == key``."""
+    parts = key.split(".")[:-1]
+    out = []
+    i = 0
+    while i < len(parts):
+        rest = ".".join(parts[i:])
+        for rx, flax_name in _INVERSE.get(out[-1] if out else "", []):
+            m = rx.match(rest)
+            if m:
+                out.append(m.expand(flax_name))
+                i += m.group(0).count(".") + 1
+                break
+        else:
+            out.append(parts[i])
+            i += 1
+    return tuple(out) + (leaf,)
+
+
+def flax_paths(model: nn.Module) -> Tuple[Dict[str, Tuple[str, ...]], Dict[str, Tuple[str, ...]]]:
+    """(params, batch_stats): each parameter's flax path, in parameter
+    order, and each batch-norm statistic's (``running_mean`` / ``running_var``
+    as ``mean`` / ``var``), in buffer order."""
+    params = {name: flax_path(name, leaf) for name, leaf in flax_leaves(model).items()}
+    stats = {
+        name: flax_path(name, _BUFFER_LEAVES[name.rsplit(".", 1)[-1]])
+        for name, _ in model.named_buffers()
+        if name.rsplit(".", 1)[-1] in _BUFFER_LEAVES
+    }
+    return params, stats
 
 
 def jax_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:

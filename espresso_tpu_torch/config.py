@@ -3,15 +3,18 @@
 The port's own copy of the parts of ``espresso_tpu/config.py`` that the
 recipe path carries, with the same names and defaults: every section and
 field that ``examples/asr_librispeech/conformer_transducer_librispeech.yaml``
-names, ``DatasetConfig`` whole, the optimization, optimizer and noam
-schedule fields the train and valid steps read, ``CheckpointConfig`` (data
-until the checkpoint CLI reads it), the task and criterion names, and the
+names, ``DatasetConfig``, ``DistributedConfig`` and ``GenerationConfig``
+whole, the ``common`` fields the CLIs read (logging sinks, ``profile``),
+the optimization, optimizer and noam schedule fields the train and valid
+steps read, ``CheckpointConfig``, the task and criterion names, and the
 ``model`` section as a dict; ``load_config_dict``, ``parse_config``
-(``[--config file.yaml] key.path=value ...``; PyYAML is imported only when
-a file is given) and ``config_to_dict``. A key of the reference that the
-port does not carry (``distributed``, ``generation``, the other criteria's
-and schedules' fields) raises ``KeyError``: ``generation`` comes with the
-decode CLIs.
+(``[--config file.yaml] key.path=value ...``; PyYAML is imported only for
+a YAML file, a ``.json`` file is read without it; every key set is
+recorded in ``cfg._explicit_keys``),
+``apply_saved_model_cfg`` and ``config_to_dict``. A key of the reference
+that the port does not carry (the other criteria's and schedules' fields)
+raises ``KeyError``; a ``distributed`` setting that asks for more than one
+device raises ``NotImplementedError`` in ``check_single_device``.
 
 Usage:
     cfg = parse_config(argv)            # --config foo.yaml + dotted overrides
@@ -29,8 +32,53 @@ from typing import Any, Dict, List, Optional, Tuple
 class CommonConfig:
     seed: int = 1
     log_interval: int = 100
+    log_format: str = "simple"  # simple | json
+    tensorboard_logdir: Optional[str] = None
+    wandb_project: Optional[str] = None  # reference --wandb-project
+    aim_repo: Optional[str] = None  # reference --aim-repo
     # numeric precision of the compute path; params are kept fp32
     dtype: str = "bfloat16"  # float32 | bfloat16
+    profile: bool = False  # torch.profiler trace of the first training updates
+
+
+@dataclass
+class DistributedConfig:
+    """The reference's fields that choose the devices, with its defaults (the
+    port runs on one card: ``check_single_device``; the bmuf and slowmo
+    knobs are not carried), and the heartbeat."""
+
+    data_parallel_size: int = -1
+    model_parallel_size: int = 1
+    fsdp: bool = False
+    pipeline_parallel_size: int = 1
+    sequence_parallel: bool = False
+    ddp_backend: str = "ddp"  # ddp | bmuf | slowmo
+    # kill the job if no training progress for this many seconds (reference
+    # DistributedTimeoutWrapper / --heartbeat-timeout); <= 0 disables
+    heartbeat_timeout: int = -1
+    coordinator_address: Optional[str] = None
+    num_processes: int = 1
+
+
+def check_single_device(dcfg: DistributedConfig) -> None:
+    """Raise ``NotImplementedError`` where ``dcfg`` asks for more than one
+    device: meshes, FSDP, pipeline and sequence parallelism, bmuf/slowmo,
+    several processes (ROADMAP queue A item 6)."""
+    asks = [
+        (dcfg.data_parallel_size not in (-1, 1), f"data_parallel_size={dcfg.data_parallel_size}"),
+        (dcfg.model_parallel_size > 1, f"model_parallel_size={dcfg.model_parallel_size}"),
+        (dcfg.fsdp, "fsdp"),
+        (dcfg.pipeline_parallel_size > 1, f"pipeline_parallel_size={dcfg.pipeline_parallel_size}"),
+        (dcfg.sequence_parallel, "sequence_parallel"),
+        (dcfg.ddp_backend != "ddp", f"ddp_backend={dcfg.ddp_backend!r}"),
+        (dcfg.num_processes > 1 or dcfg.coordinator_address is not None, "several processes"),
+    ]
+    what = [w for bad, w in asks if bad]
+    if what:
+        raise NotImplementedError(
+            f"distributed {', '.join(what)}: the port runs on one card; meshes, bmuf/slowmo, "
+            "pipeline and sequence parallelism are not ported (ROADMAP queue A item 6)"
+        )
 
 
 @dataclass
@@ -90,6 +138,8 @@ class OptimizationConfig:
     ema_decay: float = 0.0
     ema_start_update: int = 0
     ema_update_freq: int = 1
+    # seed the EMA copy from a checkpoint (reference ema_seed_model)
+    ema_seed_model: Optional[str] = None
     # run validation with the EMA weights (train/trainer.py::make_valid_step)
     ema_validate: bool = False
     # quant-noise QAT (fairseq --quant-noise-pq / --quant-noise-pq-block-size)
@@ -119,6 +169,43 @@ class CheckpointConfig:
 
 
 @dataclass
+class GenerationConfig:
+    beam: int = 1
+    nbest: int = 1  # hypotheses to report per utterance (interactive CLI)
+    max_len_a: float = 0.0
+    max_len_b: int = 200
+    min_len: int = 1
+    lenpen: float = 1.0
+    temperature: float = 1.0
+    # espresso decode extras (speech_recognize.py)
+    eos_factor: Optional[float] = None
+    lm_weight: float = 0.0
+    lm_path: Optional[str] = None
+    word_lm_path: Optional[str] = None
+    subwordlm_weight: float = 0.8
+    oov_penalty: float = 1e-4
+    open_vocab: bool = True
+    # transducer beam search (adaptive expansion search)
+    expansion_beta: int = 0
+    expansion_gamma: Optional[float] = None
+    max_num_expansions_per_step: int = 2
+    prefix_alpha: Optional[int] = None
+    model_predicts_eos: bool = False
+    # output-length cap as a fraction of input frames (transducer decoders)
+    max_out_factor: float = 0.35
+    # fairseq sequence_generator extras
+    no_repeat_ngram_size: int = 0
+    sampling: bool = False
+    sampling_topk: int = -1
+    sampling_topp: float = -1.0
+    diverse_beam_groups: int = 1
+    diverse_beam_strength: float = 0.5
+    print_alignment: bool = False
+    results_path: Optional[str] = None
+    wer_output_filter: Optional[str] = None
+
+
+@dataclass
 class OptimizerConfig:
     name: str = "adam"
     adam_betas: Tuple[float, float] = (0.9, 0.999)
@@ -139,6 +226,9 @@ class LRSchedulerConfig:
 @dataclass
 class TaskSection:
     name: str = "speech_recognition_espresso"
+    # scheduled sampling is not ported (ROADMAP queue A item 4): the train
+    # CLI refuses it
+    scheduled_sampling: bool = False
 
 
 @dataclass
@@ -153,9 +243,11 @@ class EspressoConfig:
     """Root config (reference FairseqConfig analogue, configs.py:1194)."""
 
     common: CommonConfig = field(default_factory=CommonConfig)
+    distributed: DistributedConfig = field(default_factory=DistributedConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    generation: GenerationConfig = field(default_factory=GenerationConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     lr_scheduler: LRSchedulerConfig = field(default_factory=LRSchedulerConfig)
     task: TaskSection = field(default_factory=TaskSection)
@@ -242,31 +334,105 @@ def load_config_dict(data: Dict[str, Any]) -> EspressoConfig:
     return cfg
 
 
+def _flatten_keys(data: Dict[str, Any], prefix: str = "") -> List[str]:
+    keys = []
+    for k, v in data.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict) and v:
+            keys.extend(_flatten_keys(v, prefix=f"{path}."))
+        else:
+            keys.append(path)
+    return keys
+
+
 def parse_config(argv: List[str]) -> EspressoConfig:
     """Parse ``[--config file.yaml] key.path=value ...`` into an EspressoConfig;
-    a key the port does not carry raises ``KeyError``."""
+    a key the port does not carry raises ``KeyError``. Every key the user
+    set, in the file or in argv, is recorded in ``cfg._explicit_keys``, so
+    that ``apply_saved_model_cfg`` tells a deliberate value from a default."""
     cfg = EspressoConfig()
+    explicit: set = set()
     overrides: List[Tuple[str, Any]] = []
     i = 0
     while i < len(argv):
         arg = argv[i]
         if arg == "--config":
-            import yaml
-
             with open(argv[i + 1]) as f:
-                data = yaml.safe_load(f) or {}
+                if argv[i + 1].endswith(".json"):  # JSON is YAML; no PyYAML needed
+                    import json
+
+                    data = json.load(f)
+                else:
+                    import yaml
+
+                    data = yaml.safe_load(f) or {}
             _merge_dict_into(cfg, data)
+            explicit.update(_flatten_keys(data))
             i += 2
             continue
         if "=" in arg:
             key, _, value = arg.partition("=")
             key = key.lstrip("-").replace("-", "_")
             overrides.append((key, _coerce(value)))
+            explicit.add(key)
             i += 1
             continue
         raise ValueError(f"unrecognized argument {arg!r} (use key.path=value)")
     for key, value in overrides:
         _set_dotted(cfg, key, value)
+    cfg._explicit_keys = explicit
+    return cfg
+
+
+def apply_saved_model_cfg(cfg, argv: Optional[List[str]] = None):
+    """Decode-time model reconstruction (the reference's saved-cfg restore):
+    when ``checkpoint.save_dir`` holds a ``model_cfg.json`` written by the
+    train CLI, the resolved model section saved there becomes ``cfg.model``,
+    so a decode command need not repeat every ``model.*`` flag; the
+    ``model.*`` values the user set still win, and the saved criterion is
+    restored unless ``criterion.name`` was set."""
+    import json
+    import os
+
+    path = os.path.join(cfg.checkpoint.save_dir, "model_cfg.json")
+    if not os.path.exists(path):
+        return cfg
+    with open(path) as f:
+        blob = json.load(f)
+    if "name" not in blob:  # written before the section name was recorded
+        return cfg
+    saved_cfg: Dict[str, Any] = dict(blob.get("config") or {})
+    saved_cfg.pop("name", None)  # keep the recorded arch name authoritative
+    section: Dict[str, Any] = {"name": blob["name"], **saved_cfg}
+
+    # overlay every model override the user supplied (the file and argv
+    # both land in cfg.model); the default sentinel name is not an override
+    def overlay(dst: Dict[str, Any], src: Dict[str, Any]):
+        for k, v in src.items():
+            if isinstance(v, dict) and isinstance(dst.get(k), dict):
+                overlay(dst[k], v)
+            else:
+                dst[k] = v
+
+    def set_by_user(key: str) -> bool:
+        explicit = getattr(cfg, "_explicit_keys", None)
+        if explicit is not None:
+            return key in explicit
+        return any(  # a config built in code: scan argv
+            a.split("=", 1)[0].lstrip("-").replace("-", "_") == key
+            for a in (argv or [])
+            if "=" in a
+        )
+
+    user_model = dict(cfg.model)
+    if user_model.get("name") == "speech_lstm" and not set_by_user("model.name"):
+        user_model.pop("name", None)
+    overlay(section, user_model)
+    cfg.model = section
+    # the criterion the model was trained with selects the decoder
+    saved_crit = blob.get("criterion")
+    if saved_crit and not set_by_user("criterion.name"):
+        cfg.criterion.name = saved_crit
     return cfg
 
 

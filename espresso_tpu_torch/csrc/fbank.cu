@@ -85,8 +85,12 @@
 // An odd shift (44.1 kHz: 441 samples) puts every other frame's samples off
 // 8 bytes: the ODD instances load the sample pairs as two scalars.
 //
-// C entry: fbank_f32(...) returns the CUDA error of the launch; it launches
-// on the given stream and does not synchronise.
+// Windows past 8192 samples (352.8 kHz and up) run fbank_kernel_large (see
+// it below): a persistent grid, a block on one frame at a time.
+//
+// C entries: fbank_f32(...) (up to 8192 points) and fbank_large_f32(...)
+// (16384 points and up) return the CUDA error of the launch; they launch on
+// the given stream and do not synchronise.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -594,6 +598,134 @@ int launch_fbank(const void* wave, const void* num_samples, const void* win, con
   return (int)cudaGetLastError();
 }
 
+// The large instance: windows past 8192 samples (352.8 and 384 kHz: 8820
+// and 9600 samples, a 16384-point DFT; any larger power of two). A
+// persistent grid of one block an SM, 1024 threads, loops over the frames
+// (frame f = b T + t, blockIdx.x, blockIdx.x + gridDim.x, ...). Each frame's
+// NZ = NFFT / 2 packed points go through a radix-2 decimation-in-frequency
+// FFT, the whole block on one transform, a __syncthreads between stages: the
+// first stage in f32 (f32 twiddles w_NZ^p), formed straight from the
+// waveform (DC removal, pre-emphasis and window as packed_point rounds
+// them), the other log2(NZ) - 1 stages in f64 (f64 twiddles), which leave
+// Z[k] at bit-reversed k. The split pairs Z[k] with Z[NZ - k] in f64, as
+// the other instances do, into the power spectrum P [NZ] f32, and each
+// warp takes rounds of the mel schedule (lanes: a mel bin, its first DFT
+// bin and its steps). The transform's workspace (NZ f64 points, then P) is
+// shared memory where it fits (16384 points: 160 KB) and a slice a block
+// of a global buffer above it (it stays in L2), so memory does not grow
+// with the number of frames.
+constexpr int LTHREADS = 1024;
+constexpr int LWARPS = LTHREADS / 32;
+
+// sample i of the frame at x (zero at or past `avail`, the samples left in
+// the row)
+__device__ __forceinline__ float sample(const float* __restrict__ x, int i, int avail) {
+  return i < avail ? __ldg(x + i) : 0.f;
+}
+
+__global__ void __launch_bounds__(LTHREADS, 1)
+fbank_kernel_large(const float* __restrict__ wave, const int* __restrict__ num_samples,
+                   const float* __restrict__ win, const float2* __restrict__ tw1,
+                   const double2* __restrict__ tw, const float* __restrict__ mel_w,
+                   const int2* __restrict__ mel_mk, const int* __restrict__ mel_len,
+                   float* __restrict__ out, int* __restrict__ lengths, double2* work, int B, int S,
+                   int T, int W, int shift, int M, int NZ, int log_nz) {
+  extern __shared__ __align__(16) double2 lsm[];
+  __shared__ float red[LWARPS];
+  double2* Z = work != nullptr ? work + (size_t)blockIdx.x * (NZ + NZ / 4) : lsm;
+  float* P = reinterpret_cast<float*>(Z + NZ);
+  const double2* tws = tw + NZ / 2;  // w_NFFT^k, k <= NZ / 2, for the split
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int half = NZ / 2, rounds = (M + 31) / 32;
+  const long long frames = (long long)B * T;
+  for (long long f = blockIdx.x; f < frames; f += gridDim.x) {
+    const int b = (int)(f / T), t = (int)(f - (long long)b * T);
+    const int n = num_samples[b];
+    const int len = n >= W ? min(1 + (n - W) / shift, T) : 0;
+    if (t == 0 && tid == 0) lengths[b] = len;
+    float* orow = out + (size_t)f * M;
+    if (t >= len) {
+      for (int m = tid; m < M; m += LTHREADS) orow[m] = 0.f;
+      continue;
+    }
+    const float* x = wave + (size_t)b * S + (size_t)t * shift;
+    const int avail = S - t * shift;
+    float sum = 0.f;
+    for (int i = tid; i < W; i += LTHREADS) sum += sample(x, i, avail);
+#pragma unroll
+    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) red[warp] = sum;
+    __syncthreads();
+    sum = lane < LWARPS ? red[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mean = sum / (float)W;
+
+    // stage 1 (f32): Z[p] = z[p] + z[p + NZ/2], Z[p + NZ/2] = (z[p] - z[p +
+    // NZ/2]) w_NZ^p, from the packed points z[n] = y[2n] + i y[2n+1]
+    for (int p = tid; p < half; p += LTHREADS) {
+      float2 zz[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i0 = 2 * (p + h * half);
+        if (i0 >= W) {
+          zz[h] = make_float2(0.f, 0.f);
+          continue;
+        }
+        const float2 w = __ldg(reinterpret_cast<const float2*>(win) + p + h * half);
+        const float y0 = __fsub_rn(sample(x, i0, avail), mean);
+        const float y1 = __fsub_rn(i0 + 1 < W ? sample(x, i0 + 1, avail) : 0.f, mean);
+        const float yp = i0 > 0 ? __fsub_rn(sample(x, i0 - 1, avail), mean) : y0;
+        zz[h] = make_float2(__fmul_rn(__fsub_rn(y0, __fmul_rn(kPreemph, yp)), w.x),
+                            __fmul_rn(__fsub_rn(y1, __fmul_rn(kPreemph, y0)), w.y));
+      }
+      const float2 s0 = cadd(zz[0], zz[1]), s1 = cmul(csub(zz[0], zz[1]), __ldg(tw1 + p));
+      Z[p] = make_double2(s0.x, s0.y);
+      Z[p + half] = make_double2(s1.x, s1.y);
+    }
+    __syncthreads();
+    // stages 2 .. log2(NZ) (f64): blocks of 2h points, h = NZ >> (s + 1);
+    // butterfly (i0, i0 + h) with twiddle w_NZ^(j 2^s), j = i0 mod h
+    for (int s = 1; s < log_nz; ++s) {
+      const int lh = log_nz - 1 - s, h = 1 << lh;
+      for (int p = tid; p < half; p += LTHREADS) {
+        const int j = p & (h - 1), i0 = ((p >> lh) << (lh + 1)) | j;
+        const double2 a = Z[i0], c = Z[i0 + h];
+        Z[i0] = cadd(a, c);
+        Z[i0 + h] = j == 0 ? csub(a, c) : cmul(csub(a, c), __ldg(tw + (j << s)));
+      }
+      __syncthreads();
+    }
+    // the split: Z[k] at bitrev(k); P[k], P[NZ - k] for k < NZ / 2, and
+    // P[NZ / 2] = |Z[NZ / 2]|^2 (X[NFFT / 4] = Z*[NZ / 2])
+    const int rs = 32 - log_nz;
+    for (int k = tid; k <= half; k += LTHREADS) {
+      const double2 za = Z[__brev(k) >> rs];
+      if (k == half) {
+        P[k] = (float)fma(za.x, za.x, za.y * za.y);
+      } else {
+        const double2 zb = Z[__brev((NZ - k) & (NZ - 1)) >> rs];
+        split_pair(P, NZ, k, za, zb, __ldg(tws + k));
+      }
+    }
+    __syncthreads();
+    // the mel product, a round of the schedule a warp
+    for (int r = warp; r < rounds; r += LWARPS) {
+      int row = 0;
+      for (int q = 0; q < r; ++q) row += __ldg(mel_len + q);
+      const int L = __ldg(mel_len + r);
+      const int2 mk = __ldg(mel_mk + 32 * r + lane);
+      const float* pk = P + mk.y;
+      const float* wr = mel_w + (size_t)row * 32 + lane;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int i = 0; i < L; ++i) acc = fmaf(pk[i], __ldg(wr + 32 * i), acc);
+      if (mk.x >= 0) orow[mk.x] = logf(fmaxf(acc, kEps));
+    }
+    __syncthreads();  // the next frame overwrites Z and P
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -632,6 +764,40 @@ int fbank_f32(const void* wave, const void* num_samples, const void* win, const 
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FBANK_LAUNCH
+}
+
+// The large instance (nfft = 2 NZ >= 16384, a power of two; W past nfft /
+// 2): win [nfft] f32, tw1 [NZ / 2, 2] f32 (w_NZ^p), tw [NZ + 1, 2] f64
+// (w_NZ^k for k < NZ / 2, then w_nfft^k for k <= NZ / 2), the mel schedule
+// with its lanes as pairs: mel_w [mel_steps, 32] f32, mel_mk [ceil(M / 32),
+// 32, 2] int32 (mel bin or -1, first DFT bin), mel_len [ceil(M / 32)]
+// int32; work: null where the workspace fits in shared memory, else
+// grid * NZ * 20 bytes of device memory. grid: the number of blocks (at most
+// B * T). Launches on `stream` of card `device`; returns the CUDA error.
+int fbank_large_f32(const void* wave, const void* num_samples, const void* win, const void* tw1,
+                    const void* tw, const void* mel_w, const void* mel_mk, const void* mel_len,
+                    void* out, void* lengths, void* work, int B, int S, int T, int W, int shift,
+                    int M, int nfft, int grid, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B == 0 || T == 0) return 0;
+  if (nfft < 16384 || (nfft & (nfft - 1)) != 0 || W > nfft || 2 * W <= nfft || shift < 1 ||
+      grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const int NZ = nfft / 2;
+  int log_nz = 0;
+  while ((1 << log_nz) < NZ) ++log_nz;
+  const size_t smem = work != nullptr ? 0 : (size_t)NZ * 20;
+  err = cudaFuncSetAttribute(fbank_kernel_large, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fbank_kernel_large<<<grid, LTHREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(wave), static_cast<const int*>(num_samples),
+      static_cast<const float*>(win), static_cast<const float2*>(tw1),
+      static_cast<const double2*>(tw), static_cast<const float*>(mel_w),
+      static_cast<const int2*>(mel_mk), static_cast<const int*>(mel_len), static_cast<float*>(out),
+      static_cast<int*>(lengths), static_cast<double2*>(work), B, S, T, W, shift, M, NZ, log_nz);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

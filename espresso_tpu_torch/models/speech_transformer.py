@@ -31,7 +31,13 @@ from espresso_tpu_torch.ops.masking import sequence_mask
 
 @dataclass
 class SpeechTransformerConfig:
+    """JAX's fields in JAX's order (so a ``model_cfg.json`` of either package
+    loads in the other); the decoder and BASE-layer fields belong to JAX's
+    attention model and are carried as data."""
+
+    name: str = "speech_transformer"
     feat_dim: int = 80
+    vocab_size: int = 0
     # conv front-end
     conv_channels: Tuple[int, ...] = (64, 64, 128, 128)
     conv_kernel_sizes: Tuple[Tuple[int, int], ...] = ((3, 3),) * 4
@@ -50,11 +56,28 @@ class SpeechTransformerConfig:
     conformer_norm_type: str = "batch"
     # streaming / limited context
     chunk_size: int = 0
+    chunk_left_window: int = 0
+    chunk_right_window: int = 0
     context_left: int = -1  # -1 = unlimited
     context_right: int = -1
-    dropout: float = 0.1
+    remat: bool = False
     encoder_layerdrop: float = 0.0
+    decoder_layerdrop: float = 0.0
+    decoder_embed_dim: int = 256
+    decoder_ffn_dim: int = 1024
+    decoder_layers: int = 6
+    decoder_heads: int = 4
+    decoder_learned_pos: bool = False
+    share_decoder_input_output_embed: bool = True
+    max_target_positions: int = 1024
+    base_layers: int = 0
+    base_experts: int = 4
+    base_sublayers: int = 1
+    base_shuffle: bool = True
+    dropout: float = 0.1
+    pad_index: int = 1
     pipeline_stages: int = 1
+    pipeline_microbatches: int = 4
     sequence_parallel: bool = False
 
 
@@ -65,7 +88,10 @@ def _unsupported(cfg: SpeechTransformerConfig):
         (cfg.encoder_learned_pos, "learned relative positions"),
         (cfg.conv_norm_type != "batch", f"frontend norm {cfg.conv_norm_type!r}"),
         (cfg.conformer_norm_type != "batch", f"conv module norm {cfg.conformer_norm_type!r}"),
-        (cfg.chunk_size > 0, "chunk-streaming masks"),
+        (cfg.chunk_size > 0 or cfg.chunk_left_window or cfg.chunk_right_window,
+         "chunk-streaming masks"),
+        (cfg.remat, "rematerialisation"),
+        (cfg.base_layers > 0, "BASE layers"),
         (cfg.context_left >= 0 or cfg.context_right >= 0, "limited-context masks"),
         (cfg.encoder_layerdrop > 0.0, "LayerDrop"),
         (cfg.pipeline_stages > 1, "pipeline stages"),

@@ -6,9 +6,11 @@ bos for CTC and transducer criteria), datasets from JSON manifests, the
 bucketed epoch batch iterator, the model from the named architecture with
 the ``model`` section merged over its preset, and the criterion. The model
 is built on ``device`` (the card unless the caller asks for the CPU), in
-fp32: the train state makes its compute copies. The validation decoder and
-the generator (``build_valid_decoder``, ``build_generator``) come with the
-CLIs; the hybrid and LM tasks are not ported.
+fp32: the train state makes its compute copies. ``build_valid_decoder``
+(tasks.py:214-230) and ``build_generator`` (:232-265) choose the
+transducer's greedy decoder (the valid pass's WER, a beam of at most 1) or
+its AES beam search, fused with an LSTM LM through ``lm=`` / ``lm_weight=``;
+the CTC and attention decoders and the hybrid and LM tasks are not ported.
 """
 
 from __future__ import annotations
@@ -192,6 +194,53 @@ class SpeechRecognitionEspressoTask:
         from espresso_tpu_torch.criterions import build_criterion
 
         return build_criterion(self.cfg.criterion, self)
+
+    # -- decoding hooks (per-criterion decoders, reference :479-596) --------
+    def _transducer_only(self, what: str) -> None:
+        crit = self.cfg.criterion.name
+        if crit != "transducer_loss":
+            raise NotImplementedError(
+                f"{what} for criterion {crit!r}: only the transducer's decoders are ported; the "
+                "CTC and attention decoders are ROADMAP queue A item 5"
+            )
+
+    def build_valid_decoder(self, model):
+        """The transducer's greedy decoder for the valid pass's WER."""
+        self._transducer_only("the valid decoder")
+        from espresso_tpu_torch.decode.transducer_greedy import TransducerGreedyDecoder
+
+        return TransducerGreedyDecoder(model, self.dictionary)
+
+    def build_generator(self, model, gen_cfg=None, lm=None, lm_weight=0.0):
+        """The inference decoder: greedy at a beam of at most 1, else the AES
+        beam search (with ``lm`` fused at ``lm_weight``)."""
+        gen_cfg = gen_cfg or self.cfg.generation
+        self._transducer_only("the generator")
+        if gen_cfg.beam <= 1:
+            from espresso_tpu_torch.decode.transducer_greedy import TransducerGreedyDecoder
+
+            return TransducerGreedyDecoder(
+                model,
+                self.dictionary,
+                max_num_expansions_per_step=gen_cfg.max_num_expansions_per_step,
+                model_predicts_eos=gen_cfg.model_predicts_eos,
+                max_out_factor=gen_cfg.max_out_factor,
+            )
+        from espresso_tpu_torch.decode.transducer_beam import TransducerBeamSearchDecoder
+
+        return TransducerBeamSearchDecoder(
+            model,
+            self.dictionary,
+            beam_size=gen_cfg.beam,
+            expansion_beta=gen_cfg.expansion_beta,
+            expansion_gamma=gen_cfg.expansion_gamma,
+            max_num_expansions_per_step=gen_cfg.max_num_expansions_per_step,
+            lm=lm,
+            lm_weight=lm_weight,
+            model_predicts_eos=gen_cfg.model_predicts_eos,
+            prefix_alpha=gen_cfg.prefix_alpha,
+            max_out_factor=gen_cfg.max_out_factor,
+        )
 
 
 def setup_task(cfg: EspressoConfig):

@@ -25,6 +25,16 @@ from espresso_tpu_torch.ops.attention_kernels import (
     rel_attention_reference,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes at once; torch's own thread
+    pool in each would oversubscribe the cores (these ops are small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 B, T, H, D = 3, 12, 2, 128  # d = 64: the JAX kernel gate and the CUDA kernel's width
 LENS = np.array([12, 9, 5])
 

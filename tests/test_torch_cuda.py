@@ -626,6 +626,14 @@ def test_fbank_kernel_at_40_bins_at_edge_shapes(dev, num_samples, S):
         (176400.0, [4410, 6174], 6174),
         (192000.0, [192000, 100001, 4799, 4800], 192000),
         (192000.0, [4800], 4800),
+        # the large instance: 352.8 and 384 kHz (windows of 8820 and 9600
+        # samples, 16384 points, its workspace in shared memory) and 768 kHz
+        # (19200, 32768 points, a global workspace slice a block)
+        (352800.0, [352800, 180001, 8819, 8820], 352800),
+        (352800.0, [8820, 12348], 12348),
+        (384000.0, [384000, 200001, 9599, 9600], 384000),
+        (384000.0, [9600], 9600),
+        (768000.0, [768000, 19200, 26880], 768000),
     ],
 )
 def test_fbank_kernel_at_higher_sample_rates(dev, sample_rate, num_samples, S):
@@ -669,14 +677,17 @@ def test_front_kernels_reject_what_they_do_not_take(dev):
     wav = torch.zeros(2, 1000, device=dev)
     with pytest.raises(ValueError, match="num_samples"):
         fbank_fused(wav, torch.zeros(3, dtype=torch.int32, device=dev))
-    # 22.05 kHz (a 1024-point DFT) is taken; a window past 8192 samples
-    # (400 kHz: 10000) is not
+    # 22.05 kHz (a 1024-point DFT) and a window past 8192 samples (400 kHz:
+    # 10000) are taken; only a framing the plain version refuses raises (40
+    # Hz: a shift of 0 samples)
     from espresso_tpu_torch.ops import front_kernel_checks as fc
 
     a = fc.waveform_inputs([22050, 9000], 22050, seed=22, dev=dev, sample_rate=22050.0)
     assert fc.check_fbank(a, sample_rate=22050.0)["log"] < fc.FBANK_LOG_TOL
-    with pytest.raises(ValueError, match="8192"):
-        fbank_fused(wav, torch.zeros(2, dtype=torch.int32, device=dev), sample_rate=400000.0)
+    a = fc.waveform_inputs([40000, 12000], 40000, seed=40, dev=dev, sample_rate=400000.0)
+    assert fc.check_fbank(a, sample_rate=400000.0)["log"] < fc.FBANK_LOG_TOL
+    with pytest.raises(ValueError, match="framing"):
+        fbank_fused(wav, torch.zeros(2, dtype=torch.int32, device=dev), sample_rate=40.0)
     x = torch.zeros(4, 32, device=dev)
     w = torch.zeros(8, 32, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="transposed"):

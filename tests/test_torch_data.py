@@ -361,9 +361,10 @@ def test_dataset_pickles_for_spawn_workers(corpora):
 def test_recipe_config_matches_jax(corpora, monkeypatch):
     """The recipe yaml through both packages' parse_config gives equal
     values on every field the port carries, and every field of JAX's that
-    the port does not carry (whole sections such as ``distributed`` and
-    ``generation`` among them) is at JAX's default, so the recipe sets
-    nothing the port drops; such a key raises in the port.
+    the port does not carry is at JAX's default, so the recipe sets nothing
+    the port drops; such a key raises in the port, and a ``distributed``
+    setting that asks for more than one device raises where the CLIs check
+    it; ``generation`` is carried whole.
     ``chip_smoke.RECIPE`` (the yaml's values written out, for a card
     machine without PyYAML) gives the same tree; the task's model config
     at the recipe's arch equals JAX's field by field, and every field of
@@ -384,9 +385,12 @@ def test_recipe_config_matches_jax(corpora, monkeypatch):
             else:
                 assert value == jdefault[section][name], f"{section}.{name}"
     assert all(set(fields) <= set(want[section]) for section, fields in got.items() if section != "model")
-    for key in ("distributed.fsdp=true", "generation.beam=4", "criterion.label_smoothing=0.1"):
+    for key in ("criterion.label_smoothing=0.1", "common.prng_impl=rbg"):
         with pytest.raises(KeyError):
             port_config.parse_config([key])
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
+        port_config.check_single_device(port_config.parse_config(["distributed.fsdp=true"]).distributed)
+    assert port_config.parse_config(["generation.beam=4"]).generation.beam == 4
     sys.path.insert(0, ROOT)
     try:
         import chip_smoke

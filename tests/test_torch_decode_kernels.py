@@ -18,6 +18,16 @@ from espresso_tpu.modules.lstm import lstm_gates as jax_lstm_gates
 from espresso_tpu.ops import decode_kernels as jdk
 from espresso_tpu_torch.ops import decode_kernels as dk
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes at once; torch's own thread
+    pool in each would oversubscribe the cores (these ops are small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 NEG = -1.0e9
 TOL = 1e-5  # fp32 on the CPU, summed in another order by each framework
 

@@ -11,6 +11,16 @@ from espresso_tpu_torch.models.transducer import TransducerConfig, TransducerMod
 from espresso_tpu_torch.ops import decode_kernels as dk
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes at once; torch's own thread
+    pool in each would oversubscribe the cores (these ops are small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("H,L", [(64, 1), (128, 3)])
 def test_lstm_kernel_layout_is_an_invertible_permutation(H, L):
     torch.manual_seed(H + L)
@@ -913,6 +923,80 @@ def test_fbank_larger_twiddles_are_the_roots_of_unity(nfft):
     np.testing.assert_array_equal(twa[:, 1], exact_a.imag.astype(np.float32))
     np.testing.assert_array_equal(twd[:, 0], exact_d.real)
     np.testing.assert_array_equal(twd[:, 1], exact_d.imag)
+
+
+def _fft_power_model_radix2(y: np.ndarray, nfft: int) -> np.ndarray:
+    """fbank.cu's large instance on frames y [F, nfft] f32: the packed
+    points, a first radix-2 decimation-in-frequency stage in f32 (f32
+    twiddles), the other stages in f64, Z at bit-reversed positions, then
+    the split in f64; the power spectrum rounded to f32 [F, nfft / 2]."""
+    NZ = nfft // 2
+    tw1, tw = fk.fft_twiddles(nfft)
+    w1 = (tw1[:, 0] + 1j * tw1[:, 1]).astype(np.complex64)
+    wd = tw[:, 0] + 1j * tw[:, 1]
+    z = (y[:, 0::2] + 1j * y[:, 1::2]).astype(np.complex64)
+    a, b = z[:, : NZ // 2], z[:, NZ // 2 :]
+    Z = np.concatenate([a + b, (a - b) * w1], 1).astype(np.complex128)
+    log_nz = NZ.bit_length() - 1
+    for s in range(1, log_nz):
+        h = NZ >> (s + 1)
+        Zr = Z.reshape(Z.shape[0], -1, 2, h)
+        top, bot = Zr[:, :, 0].copy(), Zr[:, :, 1].copy()
+        Zr[:, :, 0] = top + bot
+        Zr[:, :, 1] = (top - bot) * wd[np.arange(h) << s]
+    k = np.arange(NZ)
+    rev = np.array([int(format(i, f"0{log_nz}b")[::-1], 2) for i in k])
+    Zk = Z[:, rev]
+    za, zb = Zk[:, : NZ // 2], Zk[:, (NZ - k[: NZ // 2]) % NZ]
+    e = (za.real + zb.real) + 1j * (za.imag - zb.imag)
+    od = (za.imag + zb.imag) + 1j * (zb.real - za.real)
+    t2 = od * wd[NZ // 2 :][: NZ // 2]
+    P = np.zeros((y.shape[0], NZ), np.float32)
+    P[:, : NZ // 2] = 0.25 * np.abs(e + t2) ** 2
+    P[:, NZ - k[1 : NZ // 2]] = 0.25 * np.abs(e - t2)[:, 1:] ** 2
+    P[:, NZ // 2] = np.abs(Zk[:, NZ // 2]) ** 2
+    return P
+
+
+@pytest.mark.parametrize("sr,W,shift", [(352800.0, 8820, 3528), (384000.0, 9600, 3840)])
+def test_fbank_large_instance_through_the_mel_banks_matches_float64(sr, W, shift):
+    """The large instance's radix-2 schedule (16384 points) and its tables
+    (the mel schedule as (bin, first DFT bin) pairs) against the float64
+    DFT through the same banks by the goldens' rule (the card's tests hold
+    the kernel to fbank_plain, whose DFT bases take seconds to build here),
+    and its power spectrum against float64's within the 512-point error
+    floor; its workspace is shared memory at 16384 points and a slice a
+    block above, whatever the number of frames."""
+    S = int(0.05 * sr) + W
+    a = fc.waveform_inputs([S], S, seed=W, dev="cpu", sample_rate=sr)
+    n = 1 + (S - W) // shift
+    tab = fk._kernel_tables(torch.device("cpu"), W, 80, sr)
+    nfft = tab["nfft"]
+    assert nfft == 16384 and tab["mel_meta"].shape == (3, 32, 2) and not tab["window"][W:].any()
+    y = _windowed_frames(a["waveforms"][0].numpy(), n, W, shift, nfft)
+    P = _fft_power_model_radix2(y, nfft)
+    exact = np.abs(np.fft.rfft(y.astype(np.float64), axis=1)[:, : nfft // 2]) ** 2
+    assert (np.abs(P - exact) / exact.max(1, keepdims=True)).max() < 2e-7
+    bins, k0s = tab["mel_meta"][..., 0].numpy(), tab["mel_meta"][..., 1].numpy()
+    w, lens = tab["mel_w"].numpy(), tab["mel_len"].numpy()
+    mel = np.full((n, 80), np.nan, np.float32)
+    row = 0
+    for r, L in enumerate(lens):  # the round's 32 lanes at once, each an f32 chain
+        acc = np.zeros((n, 32), np.float32)
+        for i in range(L):
+            acc = acc + P[:, k0s[r] + i] * w[row + i]
+        live = bins[r] >= 0
+        mel[:, bins[r][live]] = acc[:, live]
+        row += L
+    got = np.log(np.maximum(mel, np.float32(1.1920928955078125e-07))).astype(np.float64)
+    banks = fk.kernel_mel_banks(W, nfft, 80, sr).astype(np.float64)
+    want = np.log(np.maximum(exact @ banks, 1.1920928955078125e-07))
+    loud = want - want.max(1, keepdims=True) >= -fc.DB70
+    assert np.abs(got - want)[loud].max() < fc.FBANK_LOG_TOL
+    lin = np.abs(np.exp(got) - np.exp(want)) / np.exp(want).max(1, keepdims=True)
+    assert lin.max() < fc.FBANK_LIN_TOL
+    assert fk.large_workspace_bytes(16384, 132) == 0
+    assert fk.large_workspace_bytes(32768, 132) == 132 * 16384 * 20
 
 
 @pytest.mark.parametrize("M", [80, 40, 23])

@@ -48,6 +48,16 @@ from espresso_tpu_torch.modules.conformer import ConformerEncoderLayer
 from espresso_tpu_torch.modules.conv_frontend import ConvFrontend
 from espresso_tpu_torch.modules.positional import RelativePositionalEmbedding
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes at once; torch's own thread
+    pool in each would oversubscribe the cores (these ops are small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 B, T, F = 3, 48, 80
 LENS = np.array([48, 37, 20], np.int32)
 D, FFN, H, K, PRED, JOINT, V = 128, 256, 2, 31, 128, 128, 64
@@ -253,7 +263,12 @@ def test_port_imports_no_jax():
         "       'espresso_tpu_torch.data.manifest', 'espresso_tpu_torch.data.kaldi_io',\n"
         "       'espresso_tpu_torch.data.audio', 'espresso_tpu_torch.data.encoders',\n"
         "       'espresso_tpu_torch.data.batching', 'espresso_tpu_torch.data.dataset',\n"
-        "       'espresso_tpu_torch.data.iterators', 'espresso_tpu_torch.cli.train'}\n"
+        "       'espresso_tpu_torch.data.iterators', 'espresso_tpu_torch.cli.train',\n"
+        "       'espresso_tpu_torch.train.checkpoint', 'espresso_tpu_torch.train.metrics',\n"
+        "       'espresso_tpu_torch.train.heartbeat', 'espresso_tpu_torch.tools.wer',\n"
+        "       'espresso_tpu_torch.tools.scoring', 'espresso_tpu_torch.cli.speech_recognize',\n"
+        "       'espresso_tpu_torch.cli.average_checkpoints', 'espresso_tpu_torch.cli.prep',\n"
+        "       'espresso_tpu_torch.cli.logging_utils', 'espresso_tpu_torch.hub'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = [m for m in ('jax', 'flax', 'espresso_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"

@@ -41,6 +41,16 @@ from espresso_tpu_torch.ops import decode_kernels as dk
 from test_transducer_beam_oracle import oracle_aes
 from test_torch_transducer import _perturb
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes at once; torch's own thread
+    pool in each would oversubscribe the cores (these ops are small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 B, T, F = 3, 44, 80  # 10 encoder frames
 LENS = np.array([44, 33, 20], np.int32)
 D, FFN, H, CK, PRED, JOINT, V = 64, 128, 2, 15, 64, 64, 32
