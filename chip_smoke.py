@@ -32,8 +32,9 @@ eleven Hopper kernels:
    timed at the PCM-fed train point too;
    ``int8_matmul`` at the flagship FFN shapes over a serving batch's frames
    and a ragged one, bit for bit; ``lstm_step_reorder`` also at the
-   ``beam_lm`` point's LM, embed 512 gate-padded to H=1024, L=3, at BK=2560
-   and 12; ``fbank`` also at 22.05, 44.1 (an odd shift), 48, 96, 176.4,
+   ``beam_lm`` point's LM, embed 512 gate-padded to H=1024, L=3, and at
+   the recipe's LM, 4 x 800 gate-padded to Hp=832, at BK=2560 and 12, each
+   timed beside its bound; ``fbank`` also at 22.05, 44.1 (an odd shift), 48, 96, 176.4,
    192, 352.8 and 384 kHz, the 1024- to 8192-point instances and the large
    instance, at edge counts and at a batch of the serving batch's audio
    seconds), and times kernel and plain version at
@@ -99,18 +100,27 @@ eleven Hopper kernels:
    plain versions), and the spawn workers' first batches against an
    in-process iterator's, bit for bit; prints the loader's wait share,
    collate, copy, step and valid times;
-8. runs the recipe through the port's entry points (``run_recipe_clis``,
+8. runs the recipe's LM stage (``run_recipe_lm``, run.sh's stage 3):
+   ``prep text2vocabulary`` and ``prep binarize`` of a seeded 4,500 +
+   300 sentence corpus of the 5,000 units, ``cli.train.main`` of
+   ``lstm_lm_librispeech`` (4 x 800, V = 5,003) for one epoch from the
+   ``.bin`` stream with its valid pass, ``cli.eval_lm.main`` on the valid
+   split (within 0.5 % of the CLI's valid nll), two fp32 LM train steps
+   on the card against the CPU; no kernel launched; prints the
+   ``recipe_lm`` JSON line;
+9. runs the recipe through the port's entry points (``run_recipe_clis``,
    run.sh's stages): ``prep asr_prep_json`` and ``text2vocabulary`` over a
-   seeded 48 + 16 utterance WAV corpus (V = 5,004), ``cli.train.main`` for
+   seeded 32 + 8 utterance WAV corpus (V = 5,004), ``cli.train.main`` for
    2 epochs at the flagship width with WER validation, SIGTERM raised
    after the first update of epoch 2 and a second ``main`` resuming from
    checkpoint_last (asynchronous checkpoint writes), ``average_checkpoints
    --num-epoch-checkpoints 2``, ``speech_recognize`` from checkpoint_avg at
-   beam 10 and again fused with an LSTM LM written by the port's
-   checkpoint module, and the hub's ``transcribe`` against the CLI's
-   hypotheses; every kernel's launches per step, valid batch and decode
-   batch asserted; prints the ``recipe_cli`` JSON line;
-9. encodes and trains 2 layers of the flagship on utterances past its
+   beam 10 and again fused with the LM the LM stage trained (B7 on its
+   stack at Hp = 832, L = 4), and the hub's ``transcribe`` against
+   ``speech_recognize`` on the same inputs; every kernel's launches per
+   step, valid batch and decode batch asserted; prints the ``recipe_cli``
+   JSON line;
+10. encodes and trains 2 layers of the flagship on utterances past its
    relative table (T' = 1500).
 
 Any failure raises (nonzero exit) before the result lines. Prints the
@@ -175,6 +185,10 @@ JOINT_WIDE_TIMED = 2048
 LM = dict(vocab_size=1023, embed_dim=512, hidden_size=1024, out_embed_dim=512, num_layers=3,
           dropout=0.0)
 LM_WEIGHT = 0.47
+# the recipe's fusion LM (examples/asr_librispeech/run.sh:61-77): JAX's
+# lstm_lm_librispeech preset (models/lstm_lm.py:106-112), trained by the
+# "recipe LM stage" phase; B7 runs it at Hp = 832
+LM_RECIPE = dict(embed_dim=800, hidden_size=800, out_embed_dim=800, num_layers=4, dropout=0.0)
 # B7's: (B, K, H, L, share of live rows)
 LSTM_EDGES = [
     (1, 1, 512, 2, 0.8), (3, 4, 512, 3, 0.8), (1, 12, 512, 2, 0.8), (255, 10, 512, 2, 0.8),
@@ -603,6 +617,39 @@ def check_attention(dev) -> dict:
     return row
 
 
+def lstm_lm_instance(dev, B: int, K: int, E: int, H: int, L: int) -> dict:
+    """B7 on an LM's gate-padded stack at BK = B K, timed beside its plain
+    version, its bound and cuBLAS on its products. The bound counts the LM
+    step, not the padded stack: layer 0's products at width E + H, the
+    others' at 2H, the weights and the embedded tokens at their unpadded
+    sizes; the padded stack's products (layer 0 at 2 Hp, its zero columns
+    multiplied too) are reported beside it as padded_gflop."""
+    from espresso_tpu_torch.ops import decode_kernels as dk
+    from espresso_tpu_torch.ops import kernel_checks as kc
+
+    BK = B * K
+    s = kc.lstm_lm_inputs(B, K, E, H, L, seed=B + 7, dev=dev)
+    k_rows = (E + H) + (L - 1) * 2 * H  # the rows of the step's gate kernels
+    n_bytes = (BK * E + 2 * BK * 2 * L * H + k_rows * 4 * H) * 2 + L * 4 * H * 4 + BK * 9
+    flops = 2 * BK * k_rows * 4 * H
+    out = dict(zip(("bound_ms", "bound_by"), bound(n_bytes, flops, PEAK_BF16)))
+    Hp = s["w_ih"].shape[1]
+    out["Hp"] = Hp
+    out["padded_gflop"] = L * 2 * BK * 2 * Hp * 4 * Hp / 1e9
+    t = time_pair(
+        f"lstm_step_reorder LM instance H={H} L={L}", lambda: dk.lstm_step_reorder(**s, B=B, K=K),
+        lambda: dk.lstm_step_reorder_reference(**s, B=B, K=K), "", per_call=L,
+    )
+    out["ms"], out["plain_ms"] = t["ms"], t["plain_ms"]
+    xa = torch.cat([s["x"], s["S"][s["src"], :Hp]], 1)  # layer 0's padded input
+    wa = torch.cat([s["w_ih"][0], s["w_hh"][0]], 0).contiguous()
+    out["cublas_products_ms"] = device_ms(lambda: [xa @ wa for _ in range(L)])
+    log(f"lstm_step_reorder LM instance BK={BK} E={E} H={H} (Hp {Hp}) L={L}: {out['ms']} ms, bound "
+        f"{out['bound_ms']} ms ({out['bound_by']}, {flops / 1e9:.1f} GFLOP the step needs; the padded "
+        f"stack's products {out['padded_gflop']:.1f} GFLOP), cuBLAS products {out['cublas_products_ms']} ms")
+    return out
+
+
 def check_decode_kernels(dev) -> dict:
     """Each AES kernel at the flagship shape (B=256, K=10, n=12, J=H=512,
     V=1024, T'=156, 2 expansions) and at edge shapes; times kernel and plain
@@ -674,36 +721,17 @@ def check_decode_kernels(dev) -> dict:
     row["cublas_products_ms"] = device_ms(lambda: (xa @ wa, xa @ wa))
     # the beam_lm point's LM instance: embed 512 gate-padded to H = 1024,
     # L = 3 (prep_lstm_kernel_inputs), at BK = 2560 and 12, some rows dead;
-    # timed at BK = 2560 beside its bound and cuBLAS on its products (a
-    # layer's [BK, 2H] . [2H, 4H], L times). The bound counts the LM step,
-    # not the padded stack: layer 0's products at width E + H, the others'
-    # at 2H, the weights and the embedded tokens at their unpadded sizes;
-    # the padded stack's products (layer 0 at 2H, its zero columns
-    # multiplied too) are reported beside it as lm_padded_gflop
-    E_lm, H_lm, L_lm = LM["embed_dim"], LM["hidden_size"], LM["num_layers"]
-    errs += [kc.check_lstm(kc.lstm_lm_inputs(Bx, Kx, E_lm, H_lm, L_lm, seed=Bx + 7, dev=dev), Bx, Kx)
-             for Bx, Kx in ((B, K), (1, 12))]
-    log(f"lstm_step_reorder LM instance max_abs_err {errs[-2:]} (bound {kc.LSTM_TOL})")
-    s = kc.lstm_lm_inputs(B, K, E_lm, H_lm, L_lm, seed=B + 7, dev=dev)
-    k_rows = (E_lm + H_lm) + (L_lm - 1) * 2 * H_lm  # the rows of the step's gate kernels
-    n_bytes = ((BK * E_lm + 2 * BK * 2 * L_lm * H_lm + k_rows * 4 * H_lm) * 2
-               + L_lm * 4 * H_lm * 4 + BK * 9)
-    lm_flops = 2 * BK * k_rows * 4 * H_lm
-    row["lm_bound_ms"], row["lm_bound_by"] = bound(n_bytes, lm_flops, PEAK_BF16)
-    Hp_lm = s["w_ih"].shape[1]
-    row["lm_padded_gflop"] = L_lm * 2 * BK * 2 * Hp_lm * 4 * Hp_lm / 1e9
-    lm = time_pair(
-        "lstm_step_reorder LM instance", lambda: dk.lstm_step_reorder(**s, B=B, K=K),
-        lambda: dk.lstm_step_reorder_reference(**s, B=B, K=K), "", per_call=L_lm,
-    )
-    row["lm_ms"], row["lm_plain_ms"] = lm["ms"], lm["plain_ms"]
-    xa = torch.cat([s["x"], s["S"][s["src"], :H_lm]], 1)
-    wa = torch.cat([s["w_ih"][0], s["w_hh"][0]], 0).contiguous()
-    row["lm_cublas_products_ms"] = device_ms(lambda: [xa @ wa for _ in range(L_lm)])
-    log(f"lstm_step_reorder LM instance BK={BK} H={H_lm} L={L_lm}: {row['lm_ms']} ms, bound "
-        f"{row['lm_bound_ms']} ms ({row['lm_bound_by']}, {lm_flops / 1e9:.1f} GFLOP the step needs; "
-        f"the padded stack's products {row['lm_padded_gflop']:.1f} GFLOP), cuBLAS "
-        f"products {row['lm_cublas_products_ms']} ms")
+    # then the recipe's trained LM (lstm_lm_librispeech: 4 x 800, padded to
+    # Hp = 832, 13 column tiles of 64), which the recipe CLIs' beam_lm
+    # decode runs. Each is timed at BK = 2560 beside its bound and cuBLAS on
+    # its products (a layer's [BK, 2H] . [2H, 4H], L times)
+    for prefix, cfg in (("lm", LM), ("lm_recipe", LM_RECIPE)):
+        E_lm, H_lm, L_lm = cfg["embed_dim"], cfg["hidden_size"], cfg["num_layers"]
+        errs += [kc.check_lstm(kc.lstm_lm_inputs(Bx, Kx, E_lm, H_lm, L_lm, seed=Bx + 7, dev=dev), Bx, Kx)
+                 for Bx, Kx in ((B, K), (1, 12))]
+        log(f"lstm_step_reorder {prefix} instance (E {E_lm}, H {H_lm}, L {L_lm}) max_abs_err "
+            f"{errs[-2:]} (bound {kc.LSTM_TOL})")
+        row.update({f"{prefix}_{k}": v for k, v in lstm_lm_instance(dev, B, K, E_lm, H_lm, L_lm).items()})
     rows["lstm_step_reorder"] = dict(row, max_abs_err=max(errs))
     # B6 as the beam_lm point calls it: with a label bias, returning the
     # factor (its bytes add the bias read and the factor written)
@@ -2336,6 +2364,209 @@ def run_recipe_data_path(dev, tmpdir: str, card: str) -> dict:
 # the recipe's entry points (run_recipe_clis): the corpus's train and valid
 # utterance counts, the epochs, the update of epoch 2 after which SIGTERM
 # is raised, and the LM of the beam_lm point over the recipe's units
+# the recipe's LM stage (run.sh:61-77, with swbd's run.sh:42-70 binarize):
+# seeded sentences of 10-60 of the 5,000 units (LibriSpeech transcript
+# lengths: a normal around 35, sd 12), units drawn from a Zipf law (rank^-1,
+# ranks a seeded permutation of the units), binarized into 512-token blocks
+# (tokens_per_sample's default), 16 blocks a batch: ~20 updates in one epoch
+LM_CORPUS = dict(train=4500, valid=300, MEAN_U=35, SD_U=12, MIN_U=10, MAX_U=60, BATCH=16)
+# the card against the CPU: two fp32 steps of two 64-token rows (TF32 off)
+LM_CPU_ROWS, LM_CPU_TOKENS = 2, 64
+LM_CPU_LOSS_RTOL, LM_CPU_GNORM_RTOL = 1e-4, 1e-3
+# eval_lm's nll against the train CLI's valid nll for the same checkpoint:
+# the same tokens in other batches (other bf16 products)
+LM_EVAL_RTOL = 0.005
+
+
+def run_recipe_lm(dev, tmpdir: str, card: str) -> dict:
+    """``recipe_lm`` with the CLIs' log lines on stderr beside this
+    script's log."""
+    with contextlib.redirect_stdout(sys.stderr):
+        return recipe_lm(dev, tmpdir, card)
+
+
+def write_lm_corpus(root: str, units: int, seed: int = 3) -> dict:
+    """``lm_train.txt`` / ``lm_valid.txt`` (LM_CORPUS's sentences) and the
+    unit inventory ``units.txt`` under ``root``; returns the sentences and
+    tokens of each split."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"u{i:04d}" for i in range(units)])
+    with open(os.path.join(root, "units.txt"), "w") as f:
+        f.writelines(f"{u}\n" for u in vocab)
+    p = 1.0 / np.arange(1, units + 1)
+    p = (p / p.sum())[np.argsort(rng.permutation(units))]
+    out = {}
+    for split in ("train", "valid"):
+        n = LM_CORPUS[split]
+        lens = np.clip(np.rint(rng.normal(LM_CORPUS["MEAN_U"], LM_CORPUS["SD_U"], n)),
+                       LM_CORPUS["MIN_U"], LM_CORPUS["MAX_U"]).astype(int)
+        toks = vocab[rng.choice(units, size=int(lens.sum()), p=p)]
+        with open(os.path.join(root, f"lm_{split}.txt"), "w") as f:
+            for sent in np.split(toks, np.cumsum(lens)[:-1]):
+                f.write(" ".join(sent) + "\n")
+        out[split] = dict(sentences=n, tokens=int(lens.sum()))
+    return out
+
+
+def compare_lm_train_steps(dev, data: str, dict_path: str) -> dict:
+    """Two fp32 train steps of the recipe's LM (full width, seeded weights)
+    on the card and on the CPU, on LM_CPU_ROWS blocks of the binarized train
+    split cut to LM_CPU_TOKENS: the loss within LM_CPU_LOSS_RTOL and the
+    gradient norm within LM_CPU_GNORM_RTOL, relative, at each step."""
+    import os
+
+    from espresso_tpu_torch.config import EspressoConfig
+    from espresso_tpu_torch.criterions import CrossEntropyV2
+    from espresso_tpu_torch.data.dataset import BatchSpec
+    from espresso_tpu_torch.data.dictionary import AsrDictionary
+    from espresso_tpu_torch.data.indexed_dataset import LMBlockDataset
+    from espresso_tpu_torch.models.lstm_lm import LSTMLanguageModel, LSTMLMConfig
+    from espresso_tpu_torch.train.trainer import build_optimizer, create_train_state, make_train_step
+
+    dic = AsrDictionary.load(dict_path)
+    ds = LMBlockDataset(os.path.join(data, "lm_train"), dic)
+    spec = BatchSpec(indices=np.arange(LM_CPU_ROWS), num_real=LM_CPU_ROWS, src_bucket=LM_CPU_TOKENS,
+                     tgt_bucket=LM_CPU_TOKENS)
+    batch = {k: torch.from_numpy(v[None]) for k, v in ds.collate(spec).items() if isinstance(v, np.ndarray)}
+    cfg = EspressoConfig()
+    cfg.common.dtype, cfg.criterion.name = "float32", "cross_entropy_v2"
+    cfg.optimization.lr = [0.001]
+    torch.manual_seed(0)
+    ref = LSTMLanguageModel(LSTMLMConfig(vocab_size=len(dic), pad_index=dic.pad(), **LM_RECIPE))
+    out = []
+    for where in (dev, torch.device("cpu")):
+        model = copy.deepcopy(ref).to(where)
+        optimizer, _ = build_optimizer(cfg)
+        state = create_train_state(model, optimizer, cfg)
+        step = make_train_step(model, CrossEntropyV2(cfg.criterion, dic), optimizer, cfg)
+        b = {k: v.to(where) for k, v in batch.items()}
+        ms = [step(state, b, torch.Generator(device=where).manual_seed(0))[1] for _ in range(2)]
+        out.append([(m["loss"].item(), m["gnorm"].item()) for m in ms])
+    card, cpu = out
+    rel = [(abs(c[0] - g[0]) / abs(c[0]), abs(c[1] - g[1]) / abs(c[1])) for c, g in zip(cpu, card)]
+    res = dict(card=card, cpu=cpu, loss_rel_diff=max(r[0] for r in rel),
+               gnorm_rel_diff=max(r[1] for r in rel), rows=LM_CPU_ROWS, tokens=LM_CPU_TOKENS)
+    log(f"recipe LM two fp32 train steps, card vs CPU: {res} (bounds: loss {LM_CPU_LOSS_RTOL}, "
+        f"gnorm {LM_CPU_GNORM_RTOL})")
+    if not (res["loss_rel_diff"] <= LM_CPU_LOSS_RTOL and res["gnorm_rel_diff"] <= LM_CPU_GNORM_RTOL):
+        raise AssertionError(f"the LM train step on the card disagrees with the CPU: {res}")
+    return res
+
+
+def recipe_lm(dev, tmpdir: str, card: str) -> dict:
+    """The recipe's LM stage through the port's entry points at the full
+    width of lstm_lm_librispeech (4 x 800, V = 5,003: the recipe's 5,000
+    units with <pad>, </s>, <unk>), bf16 on fp32 masters, adam at lr 0.001
+    as run.sh:68-74 trains it: ``prep text2vocabulary`` and ``prep
+    binarize`` of a seeded corpus (LM_CORPUS), ``cli.train`` for one epoch
+    with its valid pass, ``cli.eval_lm`` on the valid split; two fp32
+    train steps on the card against the CPU. Asserts finite and falling
+    losses and eval_lm's nll within LM_EVAL_RTOL of the CLI's valid nll.
+    Returns the numbers and ``lm_dir``, the trained LM's directory."""
+    import contextlib as cl
+    import io
+    import os
+
+    from espresso_tpu_torch.cli import eval_lm, prep
+    from espresso_tpu_torch.cli import train as train_cli
+
+    root = os.path.join(tmpdir, "recipe_lm")
+    data, lm_dir = os.path.join(root, "data"), os.path.join(root, "lm")
+    os.makedirs(data)
+    secs = {}
+    t0 = time.perf_counter()
+    corpus = write_lm_corpus(root, CORPUS["UNITS"])
+    out = io.StringIO()
+    with cl.redirect_stdout(out):
+        prep.main(["text2vocabulary", "--vocabsize", str(CORPUS["UNITS"]), "--vocab",
+                   os.path.join(root, "units.txt"), os.path.join(root, "lm_train.txt")])
+    dict_path = os.path.join(data, "dict.txt")
+    with open(dict_path, "w") as f:
+        f.write(out.getvalue())
+    for split in ("train", "valid"):
+        prep.main(["binarize", "--text", os.path.join(root, f"lm_{split}.txt"), "--dict", dict_path,
+                   "--output-prefix", os.path.join(data, f"lm_{split}")])
+    secs["prep"] = time.perf_counter() - t0
+
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    rec = dict(events=[], losses=[], ntokens=[])
+    make_step = train_cli.make_train_step
+
+    def timed_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, gen):
+            e = [ev(), ev()]
+            e[0].record()
+            state, m = step(state, batch, gen)
+            e[1].record()
+            rec["events"].append(e)
+            rec["losses"].append(m["loss"] / m["sample_size"])
+            rec["ntokens"].append(m["ntokens"])
+            return state, m
+        return run
+
+    args = [f"dataset.data={data}", "task.name=language_modeling_for_asr",
+            "dataset.train_subset=lm_train", "dataset.valid_subset=lm_valid",
+            "model.name=lstm_lm_librispeech", "criterion.name=cross_entropy_v2",
+            "optimization.lr=0.001", "optimization.max_epoch=1",
+            f"dataset.batch_size={LM_CORPUS['BATCH']}", f"checkpoint.save_dir={lm_dir}"]
+    # the LM's training runs no kernel of the port (JAX trains it through
+    # plain XLA): every count stays 0 through the train CLI and eval_lm
+    from espresso_tpu_torch.features.fbank_kernels import fbank_fused
+
+    kernels = {**all_kernels(), **train_kernels(), "fbank": fbank_fused}
+    for f in kernels.values():
+        f.launches = 0
+    train_cli.make_train_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        stats = train_cli.main(args, device=dev)
+        torch.cuda.synchronize()
+        secs["train"] = time.perf_counter() - t0
+    finally:
+        train_cli.make_train_step = make_step
+    step_ms = [e[0].elapsed_time(e[1]) for e in rec["events"]]
+    losses = torch.stack(rec["losses"]).tolist()
+    ntokens = torch.stack(rec["ntokens"]).tolist()
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"recipe LM train losses not finite and falling: {losses}")
+    t0 = time.perf_counter()
+    res = eval_lm.main([f"dataset.data={data}", "task.name=language_modeling_for_asr",
+                        "dataset.gen_subset=lm_valid", f"checkpoint.save_dir={lm_dir}",
+                        f"dataset.batch_size={LM_CORPUS['BATCH']}"], device=dev)
+    secs["eval_lm"] = time.perf_counter() - t0
+    launched = {name: f.launches for name, f in kernels.items() if f.launches}
+    if launched:
+        raise AssertionError(f"the LM stage launched kernels: {launched}")
+    rel = abs(res["nll_loss"] - stats["valid_nll_loss"]) / stats["valid_nll_loss"]
+    ckpt_dir = os.path.join(lm_dir, "checkpoint_last")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, f)) for f in os.listdir(ckpt_dir))
+    t0 = time.perf_counter()
+    cpu = compare_lm_train_steps(dev, data, dict_path)
+    secs["card_vs_cpu"] = time.perf_counter() - t0
+    n_steady = step_ms[1:] or step_ms
+    out = dict(
+        corpus=corpus, stage_s=secs, steps=len(step_ms), step_ms=step_ms,
+        train_ms_per_step=statistics.mean(n_steady),
+        tokens_per_s=sum(ntokens[1:] or ntokens) / (sum(n_steady) / 1e3),
+        first_loss=losses[0], last_loss=losses[-1], losses=losses,
+        valid_nll=stats["valid_nll_loss"], eval_lm=res, eval_lm_rel_diff=rel,
+        checkpoint_bytes=ckpt_bytes, card_vs_cpu=cpu, lm_dir=lm_dir, card=card,
+    )
+    log(f"recipe LM stage on {card}: {len(step_ms)} steps, {out['train_ms_per_step']:.1f} ms a step after "
+        f"the first ({step_ms[0]:.1f} ms), {out['tokens_per_s']:.0f} tokens/s; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; eval_lm {res['ntokens']:.0f} tokens, nll {res['nll_loss']:.4f}, ppl "
+        f"{res['ppl']:.2f} (the CLI's valid nll {stats['valid_nll_loss']:.4f}, {rel:.2e} apart); "
+        f"checkpoint {ckpt_bytes} bytes; stages {secs}")
+    if not rel <= LM_EVAL_RTOL:
+        raise AssertionError(f"eval_lm nll {res['nll_loss']} vs the CLI's valid nll "
+                             f"{stats['valid_nll_loss']}: {rel} > {LM_EVAL_RTOL}")
+    return out
+
+
 CLI_CORPUS = dict(train=32, valid=8)
 CLI_EPOCHS = 2
 CLI_SIGTERM_AFTER = 1
@@ -2349,14 +2580,14 @@ def encoded_frames(T: int, enc_cfg) -> int:
     return T
 
 
-def run_recipe_clis(dev, tmpdir: str, card: str) -> dict:
+def run_recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
     """``recipe_clis`` with the CLIs' log lines (their handler writes to the
     stdout of the moment) on stderr beside this script's log."""
     with contextlib.redirect_stdout(sys.stderr):
-        return recipe_clis(dev, tmpdir, card)
+        return recipe_clis(dev, tmpdir, card, lm_dir)
 
 
-def recipe_clis(dev, tmpdir: str, card: str) -> dict:
+def recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
     """The recipe as run.sh runs it, through the port's entry points at the
     flagship width (16 layers, d=512, V=5,004): stages 1-2 (``prep
     asr_prep_json`` from wav.scp and token-text files, ``prep
@@ -2366,9 +2597,11 @@ def recipe_clis(dev, tmpdir: str, card: str) -> dict:
     epoch 2 and a second ``main`` resuming from checkpoint_last, with
     asynchronous checkpoint writes); stage 5 (``average_checkpoints
     --num-epoch-checkpoints 2``, then ``speech_recognize`` from
-    checkpoint_avg at beam 10, beta 2, gamma 2.3, and again fused with an
-    LSTM LM written by the port's checkpoint module at lm_weight 0.47); the
-    hub's ``transcribe`` on two WAVs against the CLI's hypotheses. Asserts
+    checkpoint_avg at beam 10, beta 2, gamma 2.3, and again fused at
+    lm_weight 0.47 with the LSTM LM that the "recipe LM stage" trained in
+    ``lm_dir``, its vocab the dictionary's without the blank); the
+    hub's ``transcribe`` on two WAVs against ``speech_recognize``'s
+    hypotheses on the same inputs. Asserts
     every kernel's launches per train step, per valid batch and per decode
     batch, finite losses, the update count and iterator position after the
     resume, V = 5,004 and the four result files. Returns the recipe_cli
@@ -2383,10 +2616,8 @@ def recipe_clis(dev, tmpdir: str, card: str) -> dict:
     from espresso_tpu_torch import hub
     from espresso_tpu_torch.cli import average_checkpoints, prep, speech_recognize
     from espresso_tpu_torch.cli import train as train_cli
-    from espresso_tpu_torch.config import config_to_dict
     from espresso_tpu_torch.decode.transducer_beam import TransducerBeamSearchDecoder
     from espresso_tpu_torch.features.fbank_kernels import fbank_fused
-    from espresso_tpu_torch.models.lstm_lm import LSTMLanguageModel, LSTMLMConfig
     from espresso_tpu_torch.ops import attention_kernels as ak
     from espresso_tpu_torch.ops import decode_kernels
     from espresso_tpu_torch.train import checkpoint as ckpt
@@ -2572,17 +2803,11 @@ def recipe_clis(dev, tmpdir: str, card: str) -> dict:
     average_checkpoints.main(["--inputs", save_dir, "--num-epoch-checkpoints", "2",
                               "--output", os.path.join(save_dir, "checkpoint_avg")])
     secs["average"] = time.perf_counter() - t0
-    lm_dir = os.path.join(root, "lm")
-    os.makedirs(lm_dir)
-    lm_cfg = LSTMLMConfig(**{**LM, "vocab_size": V - 1})
-    torch.manual_seed(1)
-    lm = LSTMLanguageModel(lm_cfg)
-    ckpt.save_checkpoint_state(os.path.join(lm_dir, "checkpoint_last"),
-                               ckpt.flatten_tree({"params": ckpt.flax_variables(lm)["params"]}), {})
-    with open(os.path.join(lm_dir, "model_cfg.json"), "w") as f:
-        json.dump({"model_name": "LSTMLanguageModel", "name": lm_cfg.name, "criterion": "cross_entropy",
-                   "config": config_to_dict(lm_cfg)}, f, indent=2)
-    del lm
+    with open(os.path.join(lm_dir, "model_cfg.json")) as f:
+        lm_cfg = json.load(f)["config"]
+    if lm_cfg["vocab_size"] != V - 1 or lm_cfg["num_layers"] != LM_RECIPE["num_layers"] \
+            or lm_cfg["hidden_size"] != LM_RECIPE["hidden_size"]:
+        raise AssertionError(f"the trained LM's config {lm_cfg} against V = {V} and {LM_RECIPE}")
     dec_args = args + ["checkpoint.restore_file=checkpoint_avg", "generation.beam=10",
                        "generation.expansion_beta=2", "generation.expansion_gamma=2.3",
                        "dataset.gen_subset=test"]
@@ -2637,24 +2862,35 @@ def recipe_clis(dev, tmpdir: str, card: str) -> dict:
         TransducerBeamSearchDecoder.decode_async = run_async
         logging.getLogger("espresso_tpu_torch.recognize").removeHandler(handler)
 
-    # the hub on two of the test WAVs against the CLI's beam hypotheses
+    # the hub on two of the test WAVs against speech_recognize on the same
+    # inputs: a split of their wave paths alone, as transcribe writes it, with
+    # the recipe's batching in both, so that both pad them alike (a bf16
+    # decode's hypotheses may move with the padding: a near-tie of this
+    # briefly trained model flipped a token between the test split's padding
+    # and the hub's)
     t0 = time.perf_counter()
     with open(os.path.join(data, "test.json")) as f:
         test = json.load(f)
     utts = sorted(test)[:2]
-    asr = hub.from_pretrained(save_dir, data_dir=data, beam=10, device=dev, **{
-        "checkpoint.restore_file": "checkpoint_avg", "dataset.feature_type": "device_fbank",
-        "dataset.global_cmvn_stats_path": cmvn, "generation.expansion_beta": 2,
-        "generation.expansion_gamma": 2.3})
+    with open(os.path.join(data, "hub.json"), "w") as f:
+        json.dump({f"hub_utt{i:06d}": {"wave": test[u]["wave"]} for i, u in enumerate(utts)}, f)
+    hub_dir = os.path.join(root, "decode_hub")
+    speech_recognize.main(dec_args + ["dataset.gen_subset=hub", f"generation.results_path={hub_dir}"],
+                          device=dev)
+    batching = {f"dataset.{k}": v for k, v in RECIPE["dataset"].items() if k != "specaugment_config"}
+    asr = hub.from_pretrained(save_dir, data_dir=data, beam=10, device=dev, **batching, **{
+        "checkpoint.restore_file": "checkpoint_avg", "dataset.global_cmvn_stats_path": cmvn,
+        "generation.expansion_beta": 2, "generation.expansion_gamma": 2.3})
     got = asr.transcribe([test[u]["wave"] for u in utts])
     secs["hub"] = time.perf_counter() - t0
     cli = {}
-    with open(os.path.join(root, "decode_beam", "decoded_results.txt")) as f:
+    with open(os.path.join(hub_dir, "decoded_results.txt")) as f:
         for line in f:
             u, _, hyp = line.rstrip("\n").partition(" ")
             cli[u] = hyp
-    if got != [cli[u] for u in utts]:
-        raise AssertionError(f"hub {got} != the CLI's {[cli[u] for u in utts]}")
+    want = [cli[f"hub_utt{i:06d}"] for i in range(len(utts))]
+    if got != want:
+        raise AssertionError(f"hub {got} != the CLI's {want}")
     log(f"recipe CLI hub: {utts} -> {got}, the CLI's hypotheses")
     del asr
     torch.cuda.empty_cache()
@@ -2785,9 +3021,15 @@ def main() -> int:
     recipe = run_recipe_data_path(dev, tmp.name, card)
     tmp.cleanup()
     torch.cuda.empty_cache()
+    lm_tmp = tempfile.TemporaryDirectory()
+    phase("recipe LM stage")
+    recipe_lm_stage = run_recipe_lm(dev, lm_tmp.name, card)
+    print(json.dumps({"recipe_lm": recipe_lm_stage}))
+    torch.cuda.empty_cache()
     phase("recipe CLIs")
     with tempfile.TemporaryDirectory() as cli_tmp:
-        recipe_cli = run_recipe_clis(dev, cli_tmp, card)
+        recipe_cli = run_recipe_clis(dev, cli_tmp, card, recipe_lm_stage["lm_dir"])
+    lm_tmp.cleanup()
     print(json.dumps({"recipe_cli": recipe_cli}))
     torch.cuda.empty_cache()
     phase("long utterances")

@@ -8,8 +8,10 @@ subcommands, arguments and IO formats (host code, numpy only):
   * ``text2vocabulary``  — a vocab with cutoffs + OOV stats
   * ``wav2num_frames``   — Kaldi frame counts for waves
   * ``compute_wer``      — offline WER between ref/hyp files
-  * ``estimate_state_prior`` (hybrid) and ``binarize`` (LM text) are not
-    ported and raise (ROADMAP queue A items 5 and 3)
+  * ``binarize``         — LM text into an mmap int32 token stream
+    ({prefix}.bin/.idx, ``data/indexed_dataset.py``), byte for byte JAX's
+  * ``estimate_state_prior`` (hybrid) is not ported and raises (ROADMAP
+    queue A item 5)
 
 Usage: ``python -m espresso_tpu_torch.cli.prep <subcommand> [args]``.
 """
@@ -215,10 +217,30 @@ def estimate_state_prior(argv):
 
 
 def binarize(argv):
-    raise NotImplementedError(
-        "prep binarize: the LM's binarized token streams (data/indexed_dataset.py) are not ported "
-        "(ROADMAP queue A item 3, the fusion LM's training)"
-    )
+    """Binarize LM text (one sentence per line) into {prefix}.bin/.idx
+    (fairseq-preprocess + MMapIndexedDataset equivalent)."""
+    p = argparse.ArgumentParser(prog="binarize")
+    p.add_argument("--text", required=True, help="input text file")
+    p.add_argument("--dict", required=True, help="dictionary file")
+    p.add_argument("--output-prefix", required=True)
+    p.add_argument("--no-append-eos", action="store_true")
+    args = p.parse_args(argv)
+    from espresso_tpu_torch.data.dictionary import AsrDictionary
+    from espresso_tpu_torch.data.indexed_dataset import MMapTokenDataset, write_binarized
+
+    dic = AsrDictionary.load(args.dict)
+
+    def seqs():
+        with open(args.text, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    yield dic.encode_line(line, append_eos=not args.no_append_eos)
+
+    n = write_binarized(args.output_prefix, seqs())
+    ds = MMapTokenDataset(args.output_prefix)
+    logger.info("binarized %d sentences, %d tokens -> %s.bin", n, ds.total_tokens, args.output_prefix)
+    return 0
 
 
 COMMANDS = {

@@ -5,13 +5,18 @@ Counterpart of ``espresso_tpu/cli/train.py`` (``main`` :173-483,
 task's checkpointable iterator, the train step of ``train/trainer.py`` on
 one card, validation at each epoch's end (the valid loss through
 ``make_valid_step``, WER and CER through the task's greedy valid decoder on
-the train state's compute weights), the checkpoint policy of
+the train state's compute weights; perplexity alone for a task without a
+valid decoder, the language model's), the checkpoint policy of
 ``train/checkpoint.py`` with patience and early stopping, ``max_update``,
 mid-epoch ``save_interval_updates``, a SIGTERM handler that saves
 ``checkpoint_last`` with the iterator's position and exits cleanly (a
 restart resumes the state, the iterator, the step generator and ``best``,
 so that the run continues bit for bit), a crash checkpoint, the heartbeat
-watchdog, ``ema_seed_model``, ``model_cfg.json`` as JAX writes it, and
+watchdog, ``ema_seed_model``, ``model_cfg.json`` as JAX writes it (an
+LM's ``LSTMLMConfig``, which ``speech_recognize``'s ``generation.lm_path``
+reads), the epoch-driven lr schedulers (``reduce_lr_on_plateau_v2``,
+``manual``: their state in ``host_state["plateau"]``; a new lr reaches the
+next update through the schedule, the optimizer's state untouched), and
 ``common.profile`` (a ``torch.profiler`` trace of the first 5 updates into
 ``save_dir/profile``). The step's metrics stay on the device and are read
 once a ``log_interval``.
@@ -19,8 +24,8 @@ once a ``log_interval``.
 ``main(argv=None, device="cuda")`` runs on the card unless the caller asks
 for the CPU (``device="cpu"``, as the tests do). Not ported, and refused:
 several devices (``config.check_single_device``, ROADMAP queue A item 6),
-scheduled sampling (item 4), the hybrid task's state prior (item 5) and
-the plateau and manual schedulers (``train/lr_schedulers.py``).
+scheduled sampling and the adafactor and composite optimizers (item 4) and
+the hybrid task's state prior (item 5).
 
 Usage:
     python -m espresso_tpu_torch.cli.train --config cfg.yaml dataset.data=DIR \\
@@ -45,6 +50,7 @@ from espresso_tpu_torch.config import check_single_device, config_to_dict, parse
 from espresso_tpu_torch.tasks import setup_task
 from espresso_tpu_torch.train import checkpoint as ckpt
 from espresso_tpu_torch.train.heartbeat import HeartbeatMonitor
+from espresso_tpu_torch.train.lr_schedulers import build_epoch_scheduler
 from espresso_tpu_torch.train.metrics import MetricsAggregator, ProgressLogger
 from espresso_tpu_torch.train.trainer import (
     build_optimizer,
@@ -186,7 +192,11 @@ def _main(argv, device) -> Dict[str, float]:
     logger.info("model: %s | criterion: %s", type(model).__name__, cfg.criterion.name)
     write_model_cfg(cfg.checkpoint.save_dir, model, cfg, task.model_cfg)
 
+    if cfg.lr_scheduler.name == "manual" and cfg.lr_scheduler.manual_lr:
+        # epoch 1 trains at the first table entry
+        cfg.optimization.lr = [float(cfg.lr_scheduler.manual_lr[0])]
     optimizer, schedule = build_optimizer(cfg)
+    plateau = build_epoch_scheduler(cfg.lr_scheduler, cfg.optimization)
     train_itr = task.get_batch_iterator(
         train_ds,
         cfg.dataset.max_tokens,
@@ -218,6 +228,9 @@ def _main(argv, device) -> Dict[str, float]:
         logger.info("restored checkpoint from %s", restore)
         if not cfg.checkpoint.reset_dataloader and "iterator" in host_state:
             train_itr.load_state_dict(host_state["iterator"])
+        if plateau is not None and "plateau" in host_state:
+            plateau.load_state_dict(host_state["plateau"])
+            schedule.set_lr(plateau.lr)  # the lr the run had reached
         ckpt_mgr.best = host_state.get("best")
 
     train_step = make_train_step(model, criterion, optimizer, cfg)
@@ -234,7 +247,7 @@ def _main(argv, device) -> Dict[str, float]:
     try:
         num_updates, final_stats = _train_loop(
             cfg, task, model, train_itr, valid_ds, state, generator, train_step, valid_step,
-            schedule, ckpt_mgr, progress, hb, device,
+            schedule, plateau, ckpt_mgr, progress, hb, device,
         )
     except Exception:
         # crash checkpoint (reference trainer.py:858-863 crash.pt)
@@ -254,19 +267,25 @@ def _main(argv, device) -> Dict[str, float]:
 
 
 def _train_loop(cfg, task, model, train_itr, valid_ds, state, generator, train_step, valid_step,
-                schedule, ckpt_mgr, progress, hb, device):
+                schedule, plateau, ckpt_mgr, progress, hb, device):
     max_epoch = cfg.optimization.max_epoch or 10**9
     max_update = cfg.optimization.max_update or 10**9
     patience_left = cfg.checkpoint.patience
     num_updates = state.step
     final_stats: Dict[str, float] = {}
 
+    def host_state() -> Dict[str, Any]:
+        out: Dict[str, Any] = {"iterator": train_itr.state_dict()}
+        if plateau is not None:
+            out["plateau"] = plateau.state_dict()
+        return out
+
     def save_last(reason: str) -> None:
         if not cfg.checkpoint.no_save:
             ckpt.save_checkpoint_state(
                 os.path.join(cfg.checkpoint.save_dir, "checkpoint_last"),
                 ckpt.train_state_arrays(state, model, generator),
-                {"iterator": train_itr.state_dict(), "best": ckpt_mgr.best},
+                {**host_state(), "best": ckpt_mgr.best},
             )
         logger.info("%s: saved checkpoint_last at %d updates, exiting", reason, num_updates)
 
@@ -325,7 +344,7 @@ def _train_loop(cfg, task, model, train_itr, valid_ds, state, generator, train_s
             ):
                 ckpt_mgr.save_epoch(
                     ckpt.train_state_arrays(state, model, generator),
-                    {"iterator": train_itr.state_dict()},
+                    host_state(),
                     epoch,
                     end_of_epoch=False,
                     updates=num_updates,
@@ -353,6 +372,14 @@ def _train_loop(cfg, task, model, train_itr, valid_ds, state, generator, train_s
         val_metric = val_stats.get(cfg.checkpoint.best_checkpoint_metric, val_stats.get("loss"))
         final_stats = {**train_stats, **{f"valid_{k}": v for k, v in val_stats.items()}}
 
+        if plateau is not None:
+            old_lr = plateau.lr
+            new_lr = plateau.step_epoch(epoch, val_metric)
+            if new_lr != old_lr:
+                # the next update reads it (JAX re-jits its step, :380-399)
+                logger.info("epoch lr scheduler: lr -> %g", new_lr)
+                schedule.set_lr(new_lr)
+
         # checkpoint and early stopping (reference validate_and_save :363-434)
         improved = ckpt_mgr.best is None or (
             val_metric < ckpt_mgr.best
@@ -362,7 +389,7 @@ def _train_loop(cfg, task, model, train_itr, valid_ds, state, generator, train_s
         if not cfg.checkpoint.no_save:
             ckpt_mgr.save_epoch(
                 ckpt.train_state_arrays(state, model, generator),
-                {"iterator": train_itr.state_dict()},
+                host_state(),
                 epoch,
                 val_metric=val_metric,
             )

@@ -5,15 +5,17 @@ recipe path carries, with the same names and defaults: every section and
 field that ``examples/asr_librispeech/conformer_transducer_librispeech.yaml``
 names, ``DatasetConfig``, ``DistributedConfig`` and ``GenerationConfig``
 whole, the ``common`` fields the CLIs read (logging sinks, ``profile``),
-the optimization, optimizer and noam schedule fields the train and valid
-steps read, ``CheckpointConfig``, the task and criterion names, and the
+the optimization fields the train and valid steps read, the optimizer
+fields of the ported optimizers, ``LRSchedulerConfig`` whole,
+``CheckpointConfig``, the task's name and ``autoregressive``, the
+criterion's name and the cross-entropy criteria's smoothing fields, and the
 ``model`` section as a dict; ``load_config_dict``, ``parse_config``
 (``[--config file.yaml] key.path=value ...``; PyYAML is imported only for
 a YAML file, a ``.json`` file is read without it; every key set is
 recorded in ``cfg._explicit_keys``),
 ``apply_saved_model_cfg`` and ``config_to_dict``. A key of the reference
-that the port does not carry (the other criteria's and schedules' fields)
-raises ``KeyError``; a ``distributed`` setting that asks for more than one
+that the port does not carry (the other criteria's and tasks' fields, the
+composite optimizer's ``groups``) raises ``KeyError``; a ``distributed`` setting that asks for more than one
 device raises ``NotImplementedError`` in ``check_single_device``.
 
 Usage:
@@ -211,6 +213,7 @@ class OptimizerConfig:
     adam_betas: Tuple[float, float] = (0.9, 0.999)
     adam_eps: float = 1e-8
     weight_decay: float = 0.0
+    momentum: float = 0.0  # sgd/nag
 
 
 @dataclass
@@ -221,11 +224,31 @@ class LRSchedulerConfig:
     # noam (espresso/optim/lr_scheduler/noam_lr_scheduler.py:24-70)
     model_size: int = 512
     final_lr: float = 0.0
+    # tri_stage
+    hold_steps: int = 0
+    decay_steps: int = 0
+    init_lr_scale: float = 0.01
+    final_lr_scale: float = 0.01
+    phase_ratio: Optional[List[float]] = None
+    # plateau (reduce_lr_on_plateau_v2)
+    lr_shrink: float = 0.1
+    lr_threshold: float = 1e-4
+    start_reduce_lr_epoch: int = 0
+    # polynomial
+    power: float = 1.0
+    total_num_update: int = 0
+    # triangular (fairseq triangular_lr_scheduler): cycle between base lr
+    # and max_lr over lr_period_updates, shrinking max by lr_shrink per cycle
+    max_lr: float = 0.0
+    lr_period_updates: int = 0
+    # manual: lr per epoch (1-indexed; the last entry persists)
+    manual_lr: Optional[List[float]] = None
 
 
 @dataclass
 class TaskSection:
     name: str = "speech_recognition_espresso"
+    autoregressive: bool = True
     # scheduled sampling is not ported (ROADMAP queue A item 4): the train
     # CLI refuses it
     scheduled_sampling: bool = False
@@ -234,6 +257,9 @@ class TaskSection:
 @dataclass
 class CriterionSection:
     name: str = "label_smoothed_cross_entropy_v2"
+    label_smoothing: float = 0.0
+    smoothing_type: str = "uniform"  # uniform | unigram | temporal
+    unigram_pseudo_count: float = 1.0
     # the lattice-free fused RNNT loss; only the fused path is ported
     fused_transducer: bool = True
 

@@ -1,22 +1,103 @@
 """Training criteria.
 
-Counterpart of ``espresso_tpu/criterions.py``, reduced to the flagship's
-``TransducerCriterion`` on its fused path (criterions.py:171-243): the
-model's ``forward_fused`` and the lattice-free RNNT loss
-(``ops/rnnt_fused.py``), registered as ``transducer_loss`` for
-``build_criterion`` (criterions.py:402). The lattice path
-(``fused_transducer=False``) and the other criteria wait for later slices.
+Counterpart of ``espresso_tpu/criterions.py``, for ``build_criterion``
+(criterions.py:402):
+
+* ``transducer_loss``: the flagship's ``TransducerCriterion`` on its fused
+  path (criterions.py:171-243), the model's ``forward_fused`` and the
+  lattice-free RNNT loss (``ops/rnnt_fused.py``);
+* ``cross_entropy_v2`` and ``label_smoothed_cross_entropy_v2``
+  (criterions.py:74-130, ``ops/losses.py``) on a language-model batch, one
+  without ``src_frames``, which runs ``model(prev_output_tokens)``
+  (criterions.py:45-56).
+
+A criterion is ``criterion(model, batch) -> (loss, sample_size,
+logging)``; the model's train or eval mode decides dropout and batch
+statistics. The lattice path (``fused_transducer=False``), the
+cross-entropy criteria on an encoder's batch (the attention models) and the
+other criteria wait for later slices.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from espresso_tpu_torch.config import CriterionSection
+from espresso_tpu_torch.ops.losses import (
+    cross_entropy_loss,
+    label_smoothed_cross_entropy,
+    unigram_probs_from_counts,
+)
 from espresso_tpu_torch.ops.rnnt_fused import RnntLossFused
 from espresso_tpu_torch.registry import CRITERIONS
+
+
+def _apply_model(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The model's teacher-forced logits. A batch without ``src_frames`` is
+    a language-model batch (criterions.py:45-56)."""
+    if "src_frames" in batch:
+        raise NotImplementedError(
+            "the cross-entropy criteria on an encoder's batch: the attention encoder-decoders "
+            "are not ported (ROADMAP queue A item 5)"
+        )
+    return model(batch["prev_output_tokens"])
+
+
+class CECriterionBase:
+    """Token-level cross entropy over the target's non-pad positions of the
+    rows of positive weight; ``sample_size`` is their count, at least 1."""
+
+    logging_keys = ("loss", "nll_loss", "ntokens")
+
+    def __init__(self, cfg: CriterionSection, dictionary):
+        self.cfg = cfg
+        self.pad = dictionary.pad()
+        self.unigram = None
+        if cfg.smoothing_type == "unigram":
+            self.unigram = torch.from_numpy(
+                unigram_probs_from_counts(
+                    np.asarray(dictionary.count, dtype=np.float64), cfg.unigram_pseudo_count, self.pad
+                )
+            )
+
+    def _mask(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return (batch["target"] != self.pad) & (batch["weight"][:, None] > 0)
+
+    def _loss(self, logits, batch, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def __call__(
+        self, model, batch: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        logits = _apply_model(model, batch)
+        mask = self._mask(batch)
+        loss, nll = self._loss(logits, batch, mask)
+        ntokens = mask.sum()
+        return loss, ntokens.clamp(min=1), {"loss": loss, "nll_loss": nll, "ntokens": ntokens}
+
+
+@CRITERIONS.register("cross_entropy_v2")
+class CrossEntropyV2(CECriterionBase):
+    def _loss(self, logits, batch, mask):
+        return cross_entropy_loss(logits, batch["target"], mask)
+
+
+@CRITERIONS.register("label_smoothed_cross_entropy_v2")
+class LabelSmoothedCrossEntropyV2(CECriterionBase):
+    def _loss(self, logits, batch, mask):
+        unigram = None if self.unigram is None else self.unigram.to(logits.device)
+        return label_smoothed_cross_entropy(
+            logits,
+            batch["target"],
+            mask,
+            self.cfg.label_smoothing,
+            smoothing_type=self.cfg.smoothing_type,
+            pad_index=self.pad,
+            unigram_probs=unigram,
+        )
 
 
 @CRITERIONS.register("transducer_loss")

@@ -3,8 +3,9 @@
 Counterpart of ``espresso_tpu/models/lstm_lm.py``: the speech LSTM decoder in
 LM mode (no attention, encoder_output_units = 0; ``models/speech_lstm.py``),
 its sequence forward and single-step decode, and the named architectures
-lstm_lm_{wsj,librispeech,swbd} and lstm_wordlm_wsj (lstm_lm.py:92-121), in
-``ARCHITECTURES`` (the port has no registry). The JAX variables load with
+lstm_lm_{wsj,librispeech,swbd} and lstm_wordlm_wsj (lstm_lm.py:92-121),
+registered as ``lstm_lm_espresso`` and its presets in the port's registry
+(``ARCHITECTURES`` here names the four presets). The JAX variables load with
 ``bridge.load_jax_variables``: the flax tree ``params/decoder/{embed_tokens,
 cell{i}_ih, cell{i}_hh, additional_fc, fc_out}`` maps onto ``decoder``.
 """
@@ -18,6 +19,8 @@ import torch
 from torch import nn
 
 from espresso_tpu_torch.models.speech_lstm import Carry, DecoderStep, SpeechLSTMConfig
+from espresso_tpu_torch.registry import ARCHITECTURES as PRESETS
+from espresso_tpu_torch.registry import MODELS, register_architecture
 
 
 @dataclass
@@ -48,6 +51,7 @@ def _to_decoder_cfg(cfg: LSTMLMConfig) -> SpeechLSTMConfig:
     )
 
 
+@MODELS.register("lstm_lm_espresso", config=LSTMLMConfig)
 class LSTMLanguageModel(nn.Module):
     def __init__(self, cfg: LSTMLMConfig):
         super().__init__()
@@ -61,13 +65,19 @@ class LSTMLanguageModel(nn.Module):
         return self.decoder.init_carry(batch_size, dtype or p.dtype, device or p.device)
 
     def forward(self, prev_output_tokens: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced logits: [B, U] -> [B, U, V] (lstm_lm.py:70-81)."""
+        """Teacher-forced logits: [B, U] -> [B, U, V] (lstm_lm.py:70-81):
+        the tokens embedded at once, the cell stack step by step, then the
+        head once on the stacked outputs (the same products as an embedding
+        and a head a step). In train mode every dropout draws from the
+        generator ``set_dropout_generator`` set."""
         carry = self.init_carry(prev_output_tokens.shape[0])
-        logits = []
+        x = self.decoder.dropout(self.decoder.embed_tokens(prev_output_tokens))
+        zero = torch.zeros_like(self.decoder.cells_ih[0].bias)
+        outs = []
         for u in range(prev_output_tokens.shape[1]):
-            carry, lg = self.decoder(carry, prev_output_tokens[:, u])
-            logits.append(lg)
-        return torch.stack(logits, 1)
+            carry, out = self.decoder.cells(carry, x[:, u], zero)
+            outs.append(out)
+        return self.decoder.head(torch.stack(outs, 1))
 
     def decode_step(self, tokens: torch.Tensor, carry: Carry):
         """One step: tokens [B] -> (logits [B, V], new carry) (lstm_lm.py:83-89)."""
@@ -75,10 +85,12 @@ class LSTMLanguageModel(nn.Module):
         return logits, carry
 
 
+@register_architecture("lstm_lm_espresso", "lstm_lm_wsj")
 def _arch_lm_wsj(cfg: LSTMLMConfig) -> None:
     pass  # defaults
 
 
+@register_architecture("lstm_lm_espresso", "lstm_wordlm_wsj")
 def _arch_wordlm_wsj(cfg: LSTMLMConfig) -> None:
     cfg.embed_dim = 1200
     cfg.hidden_size = 1200
@@ -87,6 +99,7 @@ def _arch_wordlm_wsj(cfg: LSTMLMConfig) -> None:
     cfg.is_wordlm = True
 
 
+@register_architecture("lstm_lm_espresso", "lstm_lm_librispeech")
 def _arch_lm_librispeech(cfg: LSTMLMConfig) -> None:
     cfg.embed_dim = 800
     cfg.hidden_size = 800
@@ -95,6 +108,7 @@ def _arch_lm_librispeech(cfg: LSTMLMConfig) -> None:
     cfg.dropout = 0.0
 
 
+@register_architecture("lstm_lm_espresso", "lstm_lm_swbd")
 def _arch_lm_swbd(cfg: LSTMLMConfig) -> None:
     cfg.embed_dim = 1800
     cfg.hidden_size = 1800
@@ -103,10 +117,8 @@ def _arch_lm_swbd(cfg: LSTMLMConfig) -> None:
     cfg.dropout = 0.3
 
 
-# architecture name -> the function that sets its fields on a config
+# the four presets of ``lstm_lm_espresso``: name -> the function that sets
+# its fields on a config
 ARCHITECTURES: Dict[str, Callable[[LSTMLMConfig], None]] = {
-    "lstm_lm_wsj": _arch_lm_wsj,
-    "lstm_wordlm_wsj": _arch_wordlm_wsj,
-    "lstm_lm_librispeech": _arch_lm_librispeech,
-    "lstm_lm_swbd": _arch_lm_swbd,
+    name: fn for name, (model, fn) in PRESETS.items() if model == "lstm_lm_espresso"
 }

@@ -26,7 +26,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from espresso_tpu_torch.modules.dropout import Dropout
-from espresso_tpu_torch.modules.lstm import lstm_gates
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
@@ -96,15 +95,30 @@ class DecoderStep(nn.Module):
         Dropout on the embedding and after each layer in train mode."""
         if ss_prob < 1.0:
             raise NotImplementedError("scheduled sampling is not ported")
+        carry, out = self.cells(carry, self.dropout(self.embed_tokens(token)))
+        return carry, self.head(out)
+
+    def cells(
+        self, carry: Carry, x: torch.Tensor, zero: Optional[torch.Tensor] = None
+    ) -> Tuple[Carry, torch.Tensor]:
+        """The stack on one step's embedded input x [B, E] (after its
+        dropout): (new carry, the top layer's output [B, H] after its dropout
+        and residual), which ``head`` scores. Each layer is one
+        ``torch.lstm_cell``: on the card the two products and one fused gate
+        kernel (forward and backward), the gate order i, f, g, o and the
+        arithmetic of ``modules/lstm.py::lstm_gates``; the fused cell takes a
+        bias for each product and the flax cell has one, so the recurrent
+        product's is ``zero`` (a [4H] zero vector, made here if not given)."""
+        if zero is None:
+            zero = torch.zeros_like(self.cells_ih[0].bias)
         h_prev, c_prev = carry
-        x = self.dropout(self.embed_tokens(token))
         hs, cs = [], []
         for i, (ih, hh) in enumerate(zip(self.cells_ih, self.cells_hh)):
-            hidden, cell = lstm_gates(ih(x) + hh(h_prev[i]), h_prev[i], c_prev[i])
+            hidden, cell = torch.lstm_cell(x, (h_prev[i], c_prev[i]), ih.weight, hh.weight, ih.bias, zero)
             hs.append(hidden)
             cs.append(cell)
             prev = x[:, : hidden.shape[1]]
             x = self.dropout(hidden)
             if self.cfg.decoder_residual and i > 0:
                 x = x + prev
-        return (torch.stack(hs), torch.stack(cs)), self.head(x)
+        return (torch.stack(hs), torch.stack(cs)), x

@@ -9,8 +9,12 @@ is built on ``device`` (the card unless the caller asks for the CPU), in
 fp32: the train state makes its compute copies. ``build_valid_decoder``
 (tasks.py:214-230) and ``build_generator`` (:232-265) choose the
 transducer's greedy decoder (the valid pass's WER, a beam of at most 1) or
-its AES beam search, fused with an LSTM LM through ``lm=`` / ``lm_weight=``;
-the CTC and attention decoders and the hybrid and LM tasks are not ported.
+its AES beam search, fused with an LSTM LM through ``lm=`` / ``lm_weight=``.
+``language_modeling_for_asr`` (tasks.py:414-461) trains the LSTM LM on
+``{split}.bin``/``.idx`` token streams (``prep binarize``,
+``data/indexed_dataset.py``) or, without them, ``{split}.txt``
+(``data/lm_dataset.py``); it validates by perplexity alone. The CTC and
+attention decoders and the hybrid task are not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import logging
 import os
 from typing import Any, Dict, Optional
 
-import espresso_tpu_torch.models.transducer  # noqa: F401 — populate the model registry
+import espresso_tpu_torch.models.lstm_lm  # noqa: F401 — populate the model registry
+import espresso_tpu_torch.models.transducer  # noqa: F401
 from espresso_tpu_torch.config import EspressoConfig
 from espresso_tpu_torch.data.dataset import AsrDataset
 from espresso_tpu_torch.data.dictionary import AsrDictionary
@@ -178,7 +183,8 @@ class SpeechRecognitionEspressoTask:
 
         merge(model_cfg, model_section)
         model_cfg.vocab_size = len(self.dictionary)
-        model_cfg.feat_dim = self.feat_dim
+        if hasattr(model_cfg, "feat_dim"):  # an LM's config has none
+            model_cfg.feat_dim = self.feat_dim
         if hasattr(model_cfg, "pad_index"):
             model_cfg.pad_index = self.dictionary.pad()
         return base_name, model_cfg
@@ -241,6 +247,50 @@ class SpeechRecognitionEspressoTask:
             prefix_alpha=gen_cfg.prefix_alpha,
             max_out_factor=gen_cfg.max_out_factor,
         )
+
+
+@TASKS.register("language_modeling_for_asr")
+class LanguageModelingForASRTask(SpeechRecognitionEspressoTask):
+    """LM task (espresso/tasks/language_modeling_for_asr.py): trains the
+    subword/word LMs used for fusion. Data = ``{split}.bin``/``.idx`` when
+    present, else ``{split}.txt``, one sentence per line, encoded with the
+    AsrDictionary (``dataset.dict`` or ``data/dict.txt``, no bos)."""
+
+    def __init__(self, cfg: EspressoConfig):
+        self.cfg = cfg
+        dict_path = cfg.dataset.dict or os.path.join(cfg.dataset.data, "dict.txt")
+        self.dictionary = AsrDictionary.load(dict_path, non_lang_syms=cfg.dataset.non_lang_syms)
+        self.tokenizer = None  # LM text is pre-tokenized (reference recipes)
+        self.datasets = {}
+        self.feat_dim = 0
+        self.autoregressive = True
+        self.model_cfg = None
+
+    def load_dataset(self, split: str):
+        if split in self.datasets:
+            return self.datasets[split]
+        prefix = os.path.join(self.cfg.dataset.data, split)
+        if os.path.exists(prefix + ".bin"):
+            from espresso_tpu_torch.data.indexed_dataset import LMBlockDataset
+
+            ds = LMBlockDataset(
+                prefix,
+                self.dictionary,
+                block_size=self.cfg.dataset.tokens_per_sample,
+                break_mode=self.cfg.dataset.sample_break_mode,
+            )
+        else:
+            from espresso_tpu_torch.data.lm_dataset import LMTextDataset
+
+            ds = LMTextDataset(prefix + ".txt", self.dictionary, tokenizer=self.tokenizer)
+        self.datasets[split] = ds
+        return ds
+
+    def build_valid_decoder(self, model):
+        return None  # perplexity only
+
+    def build_generator(self, model, gen_cfg=None, lm=None, lm_weight=0.0):
+        raise NotImplementedError("use eval_lm for language models")
 
 
 def setup_task(cfg: EspressoConfig):

@@ -18,8 +18,9 @@ tree, ``/``-joined:
   leaf by leaf as JAX's does and a decoder loads them with
   ``bridge.load_jax_variables``;
 * ``ema_params/...`` (with an EMA), the same tree;
-* ``opt_state/mu``, ``opt_state/nu`` (the flat Adam moments, in the model's
-  parameter order), ``opt_state/count``, ``step``, ``overflow_count`` and
+* ``opt_state/<slot>`` (the optimizer's flat slots, in the model's
+  parameter order: ``mu`` and ``nu`` for adam, ``trace`` for momentum, ...),
+  ``opt_state/count``, ``step``, ``overflow_count`` and
   ``rng`` (the step generator's state): what a resume needs to continue bit
   for bit.
 
@@ -143,10 +144,8 @@ def train_state_arrays(state, model, generator: Optional[torch.Generator] = None
     out.update(_batch_stats_arrays(model))
     if state.ema_params is not None:
         out.update(_flax_leaf_arrays(_host(state.ema_params), model, "ema_params"))
-    opt = state.opt_state
-    out["opt_state/mu"] = _host(opt.mu)
-    out["opt_state/nu"] = _host(opt.nu)
-    out["opt_state/count"] = _host(opt.count)
+    for name, t in state.opt_state.tensors().items():
+        out[f"opt_state/{name}"] = _host(t)
     out["step"] = np.asarray(state.step, np.int64)
     if state.overflow_count is not None:
         out["overflow_count"] = _host(state.overflow_count)
@@ -179,10 +178,9 @@ def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def restore_train_state(state, model, tree: Mapping[str, Any],
-                        generator: Optional[torch.Generator] = None) -> None:
-    """Copy a checkpoint ``tree`` (``load_checkpoint_state``) into ``state``,
-    ``model`` and ``generator`` in place. The model's parameters stay views
+def restore_weights(state, model, tree: Mapping[str, Any]) -> None:
+    """Copy a checkpoint ``tree``'s ``params`` and batch-norm statistics
+    into ``state`` and ``model`` in place. The model's parameters stay views
     of ``state.compute`` (itself ``state.params`` in f32): the masters are
     copied into their buffer and the compute copies cast from them, never
     rebound."""
@@ -196,12 +194,24 @@ def restore_train_state(state, model, tree: Mapping[str, Any],
         for k in path:
             node = node[k]
         buffers[name].copy_(torch.from_numpy(np.asarray(node)))
+
+
+@torch.no_grad()
+def restore_train_state(state, model, tree: Mapping[str, Any],
+                        generator: Optional[torch.Generator] = None) -> None:
+    """Copy a checkpoint ``tree`` (``load_checkpoint_state``) into ``state``,
+    ``model`` and ``generator`` in place: the weights
+    (:func:`restore_weights`), the EMA, the optimizer's slots and count, the
+    step and overflow counts and the generator's state."""
+    restore_weights(state, model, tree)
     if state.ema_params is not None:
         src = tree.get("ema_params") or tree["params"]
         state.ema_params.copy_(flat_params_from_tree(src, model).to(state.ema_params.device))
     opt = tree["opt_state"]
-    for name in ("mu", "nu", "count"):
-        getattr(state.opt_state, name).copy_(torch.from_numpy(np.asarray(opt[name])))
+    for name, t in state.opt_state.tensors().items():
+        if name not in opt:
+            raise KeyError(f"the checkpoint holds no opt_state/{name}: saved by another optimizer")
+        t.copy_(torch.from_numpy(np.asarray(opt[name])))
     state.step = int(tree["step"])
     if state.overflow_count is not None and "overflow_count" in tree:
         state.overflow_count.copy_(torch.from_numpy(np.asarray(tree["overflow_count"])))

@@ -1,8 +1,9 @@
 """The train step: the feature front, SpecAugment, quant noise, microbatch
-accumulation, clip, overflow skip, adam, EMA.
+accumulation, clip, overflow skip, the optimizer, EMA.
 
-Counterpart of ``espresso_tpu/train/trainer.py``: ``build_optimizer`` for
-``adam`` (trainer.py:43-87), ``make_device_feature_fn`` (:135-180),
+Counterpart of ``espresso_tpu/train/trainer.py``: ``build_optimizer``
+(trainer.py:43-87: adam, adamw, adagrad, adadelta, adamax, sgd, nag and
+momentum, each the optax chain on flat tensors), ``make_device_feature_fn`` (:135-180),
 ``make_train_step`` (:192-399), ``make_valid_step`` (:402-432) and
 ``create_train_state`` (:435-461). One step:
 
@@ -13,7 +14,9 @@ Counterpart of ``espresso_tpu/train/trainer.py``: ``build_optimizer`` for
   the feature front (a batch of ``src_waveforms`` / ``num_samples`` becomes
   log-mel ``src_frames`` / ``src_lengths`` on the device, with global CMVN
   and delta-deltas); f32; SpecAugment (``dataset.specaugment_config``,
-  drawn from the step's generator); the compute dtype;
+  drawn from the step's generator); the compute dtype. A batch without
+  ``src_frames`` or ``src_waveforms`` is a language model's (trainer.py:
+  251-262): its tokens go to the criterion as they are;
 * runs each microbatch of the batch's leading axis forward and backward in
   the compute dtype and sums its gradients in f32 (bf16 compute copies of
   the fp32 master weights, trainer.py:245-246: the gradient of the cast is
@@ -40,8 +43,8 @@ no dropout) on the compute weights, or with ``optimization.ema_validate``
 on a compute-dtype copy of the EMA weights, and returns the criterion's
 sums on the device.
 
-Not ported: scheduled sampling, the other optimizers and the composite
-optimizer.
+Not ported: scheduled sampling, and the adafactor and composite optimizers
+(``build_optimizer`` raises, naming ROADMAP queue A item 4).
 """
 
 from __future__ import annotations
@@ -68,67 +71,182 @@ from espresso_tpu_torch.train.lr_schedulers import build_lr_schedule
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-@dataclass
-class AdamState:
-    mu: torch.Tensor  # flat f32 first moment
-    nu: torch.Tensor  # flat f32 second moment
-    count: torch.Tensor  # int32 on the device: updates applied so far
+class OptState:
+    """An optimizer's state: its flat f32 slots (in the model's parameter
+    order) and ``count``, the int32 count of applied updates on the device,
+    which the lr schedule reads as optax's ``scale_by_schedule`` does."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        self.__dict__.update(tensors)
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return dict(self.__dict__)
 
 
-class Adam:
-    """optax ``scale_by_adam`` -> ``add_decayed_weights`` (after adam, when
-    ``weight_decay > 0``) -> ``scale_by_schedule(-lr)``, on flat tensors.
-    The schedule reads the count of applied updates, as optax's does."""
+class Optimizer:
+    """An optax chain of JAX's ``build_optimizer`` (trainer.py:43-87) on
+    flat tensors: the named core transform (``direction``), then
+    ``add_decayed_weights`` when ``weight_decay > 0`` (inside the core's
+    chain for adamw, after it for the others: the same terms in the same
+    order), then ``scale_by_schedule(-lr)``."""
 
-    def __init__(self, b1: float, b2: float, eps: float, weight_decay: float, schedule):
-        self.b1, self.b2, self.eps = b1, b2, eps
+    slots: Tuple[str, ...] = ()
+
+    def __init__(self, weight_decay: float, schedule):
         self.weight_decay = weight_decay
         self.schedule = schedule
 
-    def init(self, params: torch.Tensor) -> AdamState:
-        return AdamState(
-            torch.zeros_like(params),
-            torch.zeros_like(params),
-            torch.zeros((), dtype=torch.int32, device=params.device),
+    def init(self, params: torch.Tensor) -> OptState:
+        return OptState(
+            count=torch.zeros((), dtype=torch.int32, device=params.device),
+            **{name: torch.zeros_like(params) for name in self.slots},
         )
+
+    def direction(
+        self, g: torch.Tensor, state: OptState, count: torch.Tensor
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(the core's update of ``g``, the new slots); ``count`` is the
+        count of updates applied with this one."""
+        raise NotImplementedError
 
     @torch.no_grad()
     def step(
-        self, grads: torch.Tensor, state: AdamState, params: torch.Tensor, apply: torch.Tensor
+        self, grads: torch.Tensor, state: OptState, params: torch.Tensor, apply: torch.Tensor
     ) -> None:
         """Update ``params`` and ``state`` in place where ``apply`` (a bool
         on the device) holds; leave both as they were where it does not."""
-        b1, b2 = self.b1, self.b2
         g = torch.where(apply, grads, 0.0)  # a skipped step may hold NaN
-        mu = (1 - b1) * g + b1 * state.mu
-        nu = (1 - b2) * (g * g) + b2 * state.nu
         count = state.count + 1
-        mu_hat = mu / (1 - torch.pow(b1, count.float()))
-        nu_hat = nu / (1 - torch.pow(b2, count.float()))
-        upd = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        upd, slots = self.direction(g, state, count)
         if self.weight_decay > 0.0:
             upd = upd + self.weight_decay * params
         new_params = params + upd * -self.schedule(state.count)
         params.copy_(torch.where(apply, new_params, params))
-        state.mu.copy_(torch.where(apply, mu, state.mu))
-        state.nu.copy_(torch.where(apply, nu, state.nu))
+        for name, value in slots.items():
+            old = getattr(state, name)
+            old.copy_(torch.where(apply, value, old))
         state.count.copy_(torch.where(apply, count, state.count))
 
 
-def build_optimizer(cfg: EspressoConfig) -> Tuple[Adam, Callable]:
-    """(optimizer, lr schedule) for ``optimizer.name == "adam"``."""
+def _bias_correction(moment: torch.Tensor, decay: float, count: torch.Tensor) -> torch.Tensor:
+    return moment / (1 - torch.pow(decay, count.float()))
+
+
+class Adam(Optimizer):
+    """optax ``scale_by_adam``; ``adam`` and ``adamw`` (whose decay optax
+    adds inside its chain, at the same point)."""
+
+    slots = ("mu", "nu")
+
+    def __init__(self, b1: float, b2: float, eps: float, weight_decay: float, schedule):
+        super().__init__(weight_decay, schedule)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def direction(self, g, state, count):
+        mu = (1 - self.b1) * g + self.b1 * state.mu
+        nu = (1 - self.b2) * (g * g) + self.b2 * state.nu
+        mu_hat = _bias_correction(mu, self.b1, count)
+        nu_hat = _bias_correction(nu, self.b2, count)
+        return mu_hat / (torch.sqrt(nu_hat) + self.eps), {"mu": mu, "nu": nu}
+
+
+class Adagrad(Optimizer):
+    """optax ``scale_by_rss(initial_accumulator_value=0.0)``, eps 1e-7."""
+
+    slots = ("sum_of_squares",)
+    eps = 1e-7
+
+    def direction(self, g, state, count):
+        ss = g * g + state.sum_of_squares
+        inv = torch.where(ss > 0, torch.rsqrt(ss + self.eps), 0.0)
+        return inv * g, {"sum_of_squares": ss}
+
+
+class Adadelta(Optimizer):
+    """optax ``scale_by_adadelta()``: rho 0.9, eps 1e-6."""
+
+    slots = ("e_g", "e_x")
+    rho, eps = 0.9, 1e-6
+
+    def direction(self, g, state, count):
+        rho = self.rho
+        e_g = (1 - rho) * (g * g) + rho * state.e_g
+        upd = (torch.sqrt(state.e_x + self.eps) / torch.sqrt(e_g + self.eps)) * g
+        e_x = (1 - rho) * (upd * upd) + rho * state.e_x
+        return upd, {"e_g": e_g, "e_x": e_x}
+
+
+class Adamax(Optimizer):
+    """optax ``scale_by_adamax(b1, b2)``, eps 1e-8: the first moment's bias
+    corrected over the infinity norm's decayed maximum."""
+
+    slots = ("mu", "nu")
+    eps = 1e-8
+
+    def __init__(self, b1: float, b2: float, weight_decay: float, schedule):
+        super().__init__(weight_decay, schedule)
+        self.b1, self.b2 = b1, b2
+
+    def direction(self, g, state, count):
+        mu = (1 - self.b1) * g + self.b1 * state.mu
+        nu = torch.maximum(g.abs() + self.eps, self.b2 * state.nu)
+        return _bias_correction(mu, self.b1, count) / nu, {"mu": mu, "nu": nu}
+
+
+class SGD(Optimizer):
+    """``optax.identity()``: the gradient itself."""
+
+    def direction(self, g, state, count):
+        return g, {}
+
+
+class Momentum(Optimizer):
+    """optax ``trace(decay=momentum, nesterov)``: ``momentum`` and ``nag``."""
+
+    slots = ("trace",)
+
+    def __init__(self, decay: float, nesterov: bool, weight_decay: float, schedule):
+        super().__init__(weight_decay, schedule)
+        self.decay, self.nesterov = decay, nesterov
+
+    def direction(self, g, state, count):
+        trace = g + self.decay * state.trace
+        return (g + self.decay * trace) if self.nesterov else trace, {"trace": trace}
+
+
+def build_optimizer(cfg: EspressoConfig) -> Tuple[Optimizer, Callable]:
+    """(optimizer, lr schedule) for ``cfg.optimizer.name``: adam, adamw,
+    adagrad, adadelta, adamax, sgd, nag or momentum."""
     schedule = build_lr_schedule(cfg.lr_scheduler, cfg.optimization)
-    if cfg.optimizer.name != "adam":
-        raise NotImplementedError(f"optimizer {cfg.optimizer.name!r}")
-    b1, b2 = cfg.optimizer.adam_betas
-    return Adam(b1, b2, cfg.optimizer.adam_eps, cfg.optimizer.weight_decay, schedule), schedule
+    ocfg = cfg.optimizer
+    name, wd = ocfg.name, ocfg.weight_decay
+    b1, b2 = ocfg.adam_betas
+    if name in ("adam", "adamw"):
+        opt = Adam(b1, b2, ocfg.adam_eps, wd, schedule)
+    elif name == "adagrad":
+        opt = Adagrad(wd, schedule)
+    elif name == "adadelta":
+        opt = Adadelta(wd, schedule)
+    elif name == "adamax":
+        opt = Adamax(b1, b2, wd, schedule)
+    elif name == "sgd":
+        opt = SGD(wd, schedule)
+    elif name in ("nag", "momentum"):
+        opt = Momentum(ocfg.momentum, name == "nag", wd, schedule)
+    elif name in ("adafactor", "composite"):
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported (ROADMAP queue A item 4)"
+        )
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
+    return opt, schedule
 
 
 @dataclass
 class TrainState:
     step: int  # train_step calls so far (skipped ones included)
     params: torch.Tensor  # flat f32 master weights
-    opt_state: AdamState
+    opt_state: OptState
     compute: torch.Tensor  # flat weights in the compute dtype (the model's)
     grads: torch.Tensor  # flat gradients of the compute weights
     ema_params: Optional[torch.Tensor] = None  # flat f32
@@ -147,7 +265,7 @@ def _flatten_into(model: nn.Module, flat: torch.Tensor, grads: torch.Tensor) -> 
 
 
 @torch.no_grad()
-def create_train_state(model: nn.Module, optimizer: Adam, cfg: EspressoConfig) -> TrainState:
+def create_train_state(model: nn.Module, optimizer: Optimizer, cfg: EspressoConfig) -> TrainState:
     """The train state of ``model``'s current weights (a seeded init, or
     weights carried across by ``bridge.load_jax_variables``), on the
     model's device, with an EMA copy when ``optimization.ema_decay > 0``.
@@ -210,7 +328,7 @@ def make_device_feature_fn(cfg: EspressoConfig):
     return prepare
 
 
-def make_train_step(model: nn.Module, criterion, optimizer: Adam, cfg: EspressoConfig):
+def make_train_step(model: nn.Module, criterion, optimizer: Optimizer, cfg: EspressoConfig):
     """Returns ``train_step(state, batch, generator=None) -> (state,
     metrics)``. ``batch`` tensors have a leading microbatch axis
     [n_micro, B, ...] (1 for no accumulation); ``generator`` (a
@@ -258,11 +376,12 @@ def make_train_step(model: nn.Module, criterion, optimizer: Adam, cfg: EspressoC
                 with torch.no_grad():
                     state.compute.copy_(quant_noise.apply(state.params, keep))
             mb = prepare_features(mb)
-            frames = mb["src_frames"].float()
-            if specaug is not None:
-                draws = draw_specaugment(frames.shape[0], frames.shape[-1], specaug, generator, dev)
-                frames = apply_specaugment(frames, mb["src_lengths"], draws, specaug)
-            mb["src_frames"] = frames.to(compute_dtype)
+            if "src_frames" in mb:  # else a language-model batch (trainer.py:251)
+                frames = mb["src_frames"].float()
+                if specaug is not None:
+                    draws = draw_specaugment(frames.shape[0], frames.shape[-1], specaug, generator, dev)
+                    frames = apply_specaugment(frames, mb["src_lengths"], draws, specaug)
+                mb["src_frames"] = frames.to(compute_dtype)
             state.grads.zero_()
             loss, sample_size, logging = criterion(model, mb)
             loss.backward()

@@ -197,10 +197,13 @@ def test_lstm_step_reorder_kernel_at_tiling_edges(dev, B, K, H_, L, live):
 
 
 # B7 on an LSTM LM's gate-padded stack: the beam_lm point's LM (embed 512
-# padded to H = 1024, 3 layers) at BK = 2560 and 12, and the LM config's
-# default H = 650 (padded to 704: the padded channels stay 0); some rows dead
+# padded to H = 1024, 3 layers) at BK = 2560 and 12, the LM config's
+# default H = 650 (padded to 704: the padded channels stay 0), and the
+# recipe's lstm_lm_librispeech (4 x 800, padded to Hp = 832: 13 column tiles
+# of 64); some rows dead
 @pytest.mark.parametrize(
-    "B,K,E,H_,L", [(256, 10, 512, 1024, 3), (1, 12, 512, 1024, 3), (3, 4, 48, 650, 2)]
+    "B,K,E,H_,L", [(256, 10, 512, 1024, 3), (1, 12, 512, 1024, 3), (3, 4, 48, 650, 2),
+                   (256, 10, 800, 800, 4), (1, 12, 800, 800, 4), (5, 3, 800, 800, 4)]
 )
 def test_lstm_step_reorder_kernel_at_lm_shapes(dev, B, K, E, H_, L):
     a = kc.lstm_lm_inputs(B, K, E, H_, L, seed=B + E, dev=dev)
@@ -796,3 +799,33 @@ def test_valid_step_launches_and_matches_plain_versions(dev, tmp_path, monkeypat
     monkeypatch.setattr(tr, "fbank_fused", fk.fbank_plain)
     plain = valid(state, mb)["loss"].item()
     assert np.isfinite(loss) and abs(loss - plain) <= 0.01 * abs(plain), (loss, plain)
+
+
+@pytest.mark.parametrize("name", ["adam", "adamw", "adagrad", "adadelta", "adamax", "sgd", "nag",
+                                  "momentum"])
+def test_optimizer_step_on_the_card_matches_the_cpu(dev, name):
+    """Two updates of each ported optimizer (weight decay 0.01, a warm-up
+    schedule read from the device count) on the card and on the CPU: the
+    same weights and slots to 1e-6, the same count."""
+    from espresso_tpu_torch.config import EspressoConfig
+    from espresso_tpu_torch.train.trainer import build_optimizer
+
+    cfg = EspressoConfig()
+    cfg.optimizer.name, cfg.optimizer.weight_decay, cfg.optimizer.momentum = name, 0.01, 0.9
+    cfg.optimization.lr = [0.05]
+    cfg.lr_scheduler.warmup_updates, cfg.lr_scheduler.warmup_init_lr = 2, 0.01
+    g = torch.Generator().manual_seed(0)
+    p, grads = torch.randn(100_003, generator=g), torch.randn(2, 100_003, generator=g) * 1e-2
+    out = []
+    for d in (torch.device("cpu"), dev):
+        opt, _ = build_optimizer(cfg)
+        params = p.clone().to(d)
+        state = opt.init(params)
+        for grad in grads:
+            opt.step(grad.to(d), state, params, torch.tensor(True, device=d))
+        out.append((params.cpu(), {k: v.cpu() for k, v in state.tensors().items()}))
+    (p_cpu, s_cpu), (p_gpu, s_gpu) = out
+    torch.testing.assert_close(p_gpu, p_cpu, rtol=0, atol=1e-6)
+    assert s_cpu.keys() == s_gpu.keys() and int(s_gpu["count"]) == 2
+    for k in s_cpu:
+        torch.testing.assert_close(s_gpu[k], s_cpu[k], rtol=1e-5, atol=1e-6, msg=k)

@@ -385,7 +385,7 @@ def test_recipe_config_matches_jax(corpora, monkeypatch):
             else:
                 assert value == jdefault[section][name], f"{section}.{name}"
     assert all(set(fields) <= set(want[section]) for section, fields in got.items() if section != "model")
-    for key in ("criterion.label_smoothing=0.1", "common.prng_impl=rbg"):
+    for key in ("criterion.ctc_weight=0.5", "common.prng_impl=rbg"):
         with pytest.raises(KeyError):
             port_config.parse_config([key])
     with pytest.raises(NotImplementedError, match="queue A item 6"):

@@ -1,0 +1,236 @@
+"""The port's optimizers and epoch lr schedulers against the JAX package.
+
+* Each ported optimizer (adam, adamw, adagrad, adadelta, adamax, sgd, nag,
+  momentum), with and without weight decay, against the optax chain of
+  JAX's ``build_optimizer`` on a small seeded parameter tree: three updates
+  under a warm-up schedule (so the count the schedule reads matters), every
+  parameter to ``P_ATOL``; adafactor and composite raise.
+* ``ManualScheduler`` and ``PlateauScheduler`` give JAX's lr sequence on a
+  fixed sequence of valid losses, through ``state_dict``/``load_state_dict``.
+* In the port's train CLI (a tiny LSTM LM), a manual table's and a
+  plateau's new lr reach the optimizer at the next epoch with its state
+  carried on (JAX's ``tests/test_misc.py::test_manual_and_plateau_lr_reach_optimizer``).
+* A run stopped by the preemption flag in epoch 3 and resumed, with
+  momentum and with ``reduce_lr_on_plateau_v2`` (a shrink already made),
+  ends on a checkpoint bit-equal to a straight run's.
+
+fp32 on the CPU, torch on one thread.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from espresso_tpu.config import EspressoConfig as JaxConfig
+from espresso_tpu.train import lr_schedulers as jax_sched
+from espresso_tpu.train import trainer as jax_trainer
+from espresso_tpu_torch.config import EspressoConfig
+from espresso_tpu_torch.train import checkpoint as ckpt
+from espresso_tpu_torch.train import lr_schedulers as port_sched
+from espresso_tpu_torch.train import trainer
+
+# an updated weight moves by ~lr a step: 2e-6 absolute is ~0.02 % of it
+# (the transducer step's bound, tests/test_torch_train.py)
+P_ATOL = 2e-6
+SHAPES = {"a": (3, 7), "b": (11,), "c": (2, 2, 5)}
+OPTIMIZERS = ["adam", "adamw", "adagrad", "adadelta", "adamax", "sgd", "nag", "momentum"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _configs(name, weight_decay):
+    out = []
+    for cfg in (JaxConfig(), EspressoConfig()):
+        cfg.optimizer.name = name
+        cfg.optimizer.weight_decay = weight_decay
+        cfg.optimizer.momentum = 0.9
+        cfg.optimizer.adam_betas = (0.9, 0.98)
+        cfg.optimization.lr = [0.05]
+        cfg.lr_scheduler.warmup_updates = 2  # 0.01, 0.03, then 0.05
+        cfg.lr_scheduler.warmup_init_lr = 0.01
+        out.append(cfg)
+    return out
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_optimizers_match_optax(name, weight_decay):
+    jcfg, pcfg = _configs(name, weight_decay)
+    rng = np.random.default_rng(OPTIMIZERS.index(name))
+    params = {k: rng.standard_normal(s).astype(np.float32) for k, s in SHAPES.items()}
+    grads = [{k: (rng.standard_normal(s) * 10.0 ** rng.uniform(-3, 0)).astype(np.float32)
+              for k, s in SHAPES.items()} for _ in range(3)]
+    tx, _ = jax_trainer.build_optimizer(jcfg)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = tx.init(jp)
+    opt, _ = trainer.build_optimizer(pcfg)
+    flat = lambda tree: torch.cat([torch.from_numpy(np.array(tree[k])).reshape(-1) for k in SHAPES])
+    p = flat(params)
+    state = opt.init(p)
+    for g in grads:
+        updates, jstate = tx.update({k: jnp.asarray(v) for k, v in g.items()}, jstate, jp)
+        jp = optax.apply_updates(jp, updates)
+        opt.step(flat(g), state, p, torch.tensor(True))
+        np.testing.assert_allclose(p.numpy(), flat(jp).numpy(), rtol=0, atol=P_ATOL)
+    assert int(state.count) == 3
+    # a skipped update leaves the weights and every slot as they were
+    before = {k: v.clone() for k, v in state.tensors().items()}
+    p0 = p.clone()
+    opt.step(torch.full_like(p, float("nan")), state, p, torch.tensor(False))
+    assert torch.equal(p, p0) and all(torch.equal(before[k], v) for k, v in state.tensors().items())
+
+
+@pytest.mark.parametrize("name", ["adafactor", "composite"])
+def test_unported_optimizers_raise(name):
+    _, pcfg = _configs(name, 0.0)
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
+        trainer.build_optimizer(pcfg)
+
+
+@pytest.mark.parametrize("name", ["manual", "reduce_lr_on_plateau_v2"])
+def test_epoch_schedulers_match_jax(name):
+    """The lr after each epoch of a fixed valid-loss sequence, and a
+    scheduler restored from the state_dict of epoch 3 goes on as the
+    original does."""
+    cfgs = []
+    for cfg in (JaxConfig(), EspressoConfig()):
+        cfg.lr_scheduler.name = name
+        cfg.lr_scheduler.manual_lr = [1e-3, 5e-4, 2e-4, 1e-4]
+        cfg.lr_scheduler.lr_shrink = 0.5
+        cfg.lr_scheduler.start_reduce_lr_epoch = 2
+        cfg.optimization.lr = [1e-3]
+        cfgs.append(cfg)
+    cls = "ManualScheduler" if name == "manual" else "PlateauScheduler"
+    want = getattr(jax_sched, cls)(cfgs[0].lr_scheduler, cfgs[0].optimization)
+    got = getattr(port_sched, cls)(cfgs[1].lr_scheduler, cfgs[1].optimization)
+    assert type(port_sched.build_epoch_scheduler(cfgs[1].lr_scheduler, cfgs[1].optimization)) is type(got)
+    losses = [4.0, 3.0, 3.5, 2.9, 2.89995, 2.95, None, 2.0]
+    restored = None
+    for epoch, loss in enumerate(losses, 1):
+        lr = want.step_epoch(epoch, loss)
+        assert got.step_epoch(epoch, loss) == lr, epoch
+        if restored is not None:
+            assert restored.step_epoch(epoch, loss) == lr, epoch
+        if epoch == 3:
+            restored = getattr(port_sched, cls)(cfgs[1].lr_scheduler, cfgs[1].optimization)
+            restored.load_state_dict(got.state_dict())
+    assert got.state_dict() == want.state_dict() == restored.state_dict()
+    # the schedule the optimizer reads holds the lr the train loop sets
+    sched = port_sched.build_lr_schedule(cfgs[1].lr_scheduler, cfgs[1].optimization)
+    sched.set_lr(got.lr)
+    assert sched(torch.tensor(7)).item() == np.float32(got.lr)
+
+
+# a tiny LSTM LM on a seeded 30-unit text corpus
+LM_ARGS = ["task.name=language_modeling_for_asr", "model.name=lstm_lm_wsj", "model.embed_dim=16",
+           "model.hidden_size=24", "model.out_embed_dim=16", "model.num_layers=2",
+           "criterion.name=cross_entropy_v2", "dataset.batch_size=8", "dataset.num_batch_buckets=2",
+           "common.dtype=float32", "common.log_interval=100", "optimization.clip_norm=5.0"]
+
+
+def write_lm_corpus(d, n_train=48, n_valid=8, units=30, seed=0):
+    """dict.txt and {train,valid}.txt: sentences of 3 to 14 of ``units``
+    units, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"u{i:02d}" for i in range(units)]
+    with open(os.path.join(d, "dict.txt"), "w") as f:
+        f.writelines(f"{u} {units - i}\n" for i, u in enumerate(vocab))
+    for split, n in (("train", n_train), ("valid", n_valid)):
+        with open(os.path.join(d, f"{split}.txt"), "w") as f:
+            for _ in range(n):
+                f.write(" ".join(vocab[j] for j in rng.integers(0, units, rng.integers(3, 15))) + "\n")
+
+
+def test_epoch_lr_reaches_the_optimizer(tmp_path, monkeypatch):
+    """A manual table and a plateau shrink: each update reads the lr of its
+    epoch, and the optimizer's count runs on across the change (its state
+    is never reset)."""
+    from espresso_tpu_torch.cli import train
+
+    d = str(tmp_path)
+    write_lm_corpus(d)
+    seen = []
+    orig = trainer.Optimizer.step
+
+    def spy(self, grads, state, params, apply):
+        seen.append((int(state.count), self.schedule(state.count).item()))
+        return orig(self, grads, state, params, apply)
+
+    monkeypatch.setattr(trainer.Optimizer, "step", spy)
+    base = [f"dataset.data={d}", "optimization.max_epoch=3", "optimizer.name=momentum",
+            "optimizer.momentum=0.9"] + LM_ARGS
+    runs = {
+        "manual": (["lr_scheduler.name=manual", "lr_scheduler.manual_lr=[0.01,0.005,0.0025]",
+                    "optimization.lr=0.2"], [0.01, 0.005, 0.0025]),
+        "plateau": (["lr_scheduler.name=reduce_lr_on_plateau_v2", "lr_scheduler.lr_shrink=0.5",
+                     "lr_scheduler.lr_threshold=100.0", "optimization.lr=0.01"], [0.01, 0.01, 0.005]),
+    }
+    for tag, (extra, lrs) in runs.items():
+        seen.clear()
+        train.main(base + extra + [f"checkpoint.save_dir={d}/{tag}"], device="cpu")
+        n = len(seen) // 3
+        assert len(seen) == 3 * n and n > 0
+        assert [c for c, _ in seen] == list(range(3 * n)), tag  # the count runs on
+        want = [np.float32(lr) for lr in lrs for _ in range(n)]
+        assert [lr for _, lr in seen] == want, tag
+        host = ckpt.load_checkpoint_state(f"{d}/{tag}/checkpoint_last")[1]
+        assert host["plateau"]["lr"] == 0.0025, tag  # the lr after epoch 3
+
+
+@pytest.mark.parametrize("extra", [
+    ["optimizer.name=momentum", "optimizer.momentum=0.9", "optimization.lr=0.2"],
+    ["lr_scheduler.name=reduce_lr_on_plateau_v2", "lr_scheduler.lr_shrink=0.5",
+     "lr_scheduler.lr_threshold=100.0", "optimization.lr=0.01", "model.dropout=0.2"],
+], ids=["momentum", "plateau"])
+def test_preempted_lm_run_resumes_bit_equal(tmp_path, monkeypatch, extra):
+    """Three epochs straight, against a run stopped by the preemption flag
+    after 2 updates of epoch 3 (the plateau has shrunk the lr after epoch 2)
+    and resumed from its checkpoint_last: the same checkpoint_last, array
+    for array and in host_state.json."""
+    from espresso_tpu_torch.cli import train
+
+    d = str(tmp_path)
+    write_lm_corpus(d)
+    base = [f"dataset.data={d}", "optimization.max_epoch=3"] + LM_ARGS + extra
+    train.main(base + [f"checkpoint.save_dir={d}/straight"], device="cpu")
+    n_epoch2 = int(ckpt.load_raw_checkpoint(f"{d}/straight/checkpoint2")["step"])
+    make_step = train.make_train_step
+    steps = []
+
+    def stopping(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, gen):
+            out = step(state, batch, gen)
+            steps.append(state.step)
+            if len(steps) == n_epoch2 + 2:
+                train._PREEMPT.set()
+            return out
+        return run
+
+    monkeypatch.setattr(train, "make_train_step", stopping)
+    train.main(base + [f"checkpoint.save_dir={d}/resumed"], device="cpu")
+    stopped, host = ckpt.load_checkpoint_state(f"{d}/resumed/checkpoint_last")
+    assert int(stopped["step"]) == n_epoch2 + 2 and host["iterator"]["epoch"] == 3
+    monkeypatch.setattr(train, "make_train_step", make_step)
+    train.main(base + [f"checkpoint.save_dir={d}/resumed"], device="cpu")
+    want, want_host = ckpt.load_checkpoint_state(f"{d}/straight/checkpoint_last")
+    got, got_host = ckpt.load_checkpoint_state(f"{d}/resumed/checkpoint_last")
+    fw, fg = ckpt.flatten_tree(want), ckpt.flatten_tree(got)
+    slots = {"opt_state/trace"} if "optimizer.name=momentum" in extra else {"opt_state/mu", "opt_state/nu"}
+    assert fw.keys() == fg.keys() and slots | {"opt_state/count", "rng", "step"} <= fw.keys()
+    for k in fw:
+        assert fw[k].dtype == fg[k].dtype and fw[k].tobytes() == fg[k].tobytes(), k
+    assert got_host == want_host
+    if "plateau" in want_host:
+        assert want_host["plateau"]["lr"] == 0.0025  # shrunk after epochs 2 and 3

@@ -273,17 +273,40 @@ def test_non_finite_step_skips_update_and_counts(jax_run):
         )
 
 
-@pytest.mark.parametrize("name", ["fixed", "noam"])
-def test_lr_schedules_match_jax(name):
+# each schedule name with fields of its own: warm-ups, decays, cycles and
+# floors that the sampled steps below cross
+SCHEDULES = {
+    "fixed": dict(warmup_updates=100, warmup_init_lr=1e-7),
+    "noam": dict(warmup_updates=12000, warmup_init_lr=1e-7, lr=5.0),
+    "inverse_sqrt": dict(warmup_updates=100, warmup_init_lr=1e-7),
+    "tri_stage": dict(phase_ratio=[0.1, 0.4, 0.5], total_num_update=20000, init_lr_scale=0.05,
+                      final_lr_scale=0.02),
+    "tri_stage_steps": dict(warmup_updates=100, hold_steps=900, decay_steps=11000),
+    "cosine": dict(warmup_updates=100, warmup_init_lr=1e-7, total_num_update=15000, final_lr=1e-5),
+    "polynomial": dict(warmup_updates=100, total_num_update=15000, power=2.0, final_lr=1e-5),
+    "triangular": dict(max_lr=5e-3, lr_period_updates=7000, lr_shrink=0.5),
+    "step": dict(warmup_updates=100, warmup_init_lr=1e-7, decay_steps=5000, lr_shrink=0.5),
+    "pass_through": {},
+    "reduce_lr_on_plateau_v2": {},
+    "manual": dict(manual_lr=[1e-3, 5e-4]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULES))
+def test_lr_schedules_match_jax(case):
+    """Every name of JAX's ``build_lr_schedule``, each with its own fields;
+    the epoch-driven names (plateau, manual) hold their base lr."""
     jcfg, pcfg = _configs()
+    fields = dict(SCHEDULES[case])
+    lr = fields.pop("lr", LR)
     for cfg in (jcfg, pcfg):
-        cfg.lr_scheduler.name = name
-        cfg.lr_scheduler.warmup_updates = 12000 if name == "noam" else 100
-        cfg.lr_scheduler.warmup_init_lr = 1e-7
-        cfg.optimization.lr = [5.0] if name == "noam" else [LR]
+        cfg.lr_scheduler.name = "tri_stage" if case.startswith("tri_stage") else case
+        for k, v in fields.items():
+            setattr(cfg.lr_scheduler, k, v)
+        cfg.optimization.lr = [lr]
     want = jax_lr_schedule(jcfg.lr_scheduler, jcfg.optimization)
     got = build_lr_schedule(pcfg.lr_scheduler, pcfg.optimization)
-    for s in (0, 1, 100, 12000, 20000):
+    for s in (0, 1, 50, 100, 999, 1000, 2000, 3500, 7000, 10000, 12000, 14000, 15000, 20000, 30000):
         np.testing.assert_allclose(
             got(torch.tensor(s)).item(), float(want(jnp.int32(s))), rtol=1e-6, err_msg=str(s)
         )

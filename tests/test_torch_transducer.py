@@ -268,7 +268,10 @@ def test_port_imports_no_jax():
         "       'espresso_tpu_torch.train.heartbeat', 'espresso_tpu_torch.tools.wer',\n"
         "       'espresso_tpu_torch.tools.scoring', 'espresso_tpu_torch.cli.speech_recognize',\n"
         "       'espresso_tpu_torch.cli.average_checkpoints', 'espresso_tpu_torch.cli.prep',\n"
-        "       'espresso_tpu_torch.cli.logging_utils', 'espresso_tpu_torch.hub'}\n"
+        "       'espresso_tpu_torch.cli.logging_utils', 'espresso_tpu_torch.hub',\n"
+        "       'espresso_tpu_torch.ops.losses', 'espresso_tpu_torch.data.lm_dataset',\n"
+        "       'espresso_tpu_torch.data.indexed_dataset', 'espresso_tpu_torch.cli.eval_lm',\n"
+        "       'espresso_tpu_torch.train.lr_schedulers'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = [m for m in ('jax', 'flax', 'espresso_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
