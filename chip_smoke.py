@@ -120,7 +120,18 @@ eleven Hopper kernels:
    ``speech_recognize`` on the same inputs; every kernel's launches per
    step, valid batch and decode batch asserted; prints the ``recipe_cli``
    JSON line;
-10. encodes and trains 2 layers of the flagship on utterances past its
+10. runs the LSTM attention encoder-decoder's recipe (``run_recipe_lstm``,
+   ``lstm_librispeech.yaml``) at ``speech_conv_lstm_librispeech``'s full
+   width on a seeded 40 + 8 utterance WAV corpus through the front (B10):
+   ``cli.train.main`` for an epoch with its greedy WER validation, a
+   second ``main`` resuming for epoch 2, two fp32 train steps card against
+   CPU, ``speech_recognize`` at beam 60 alone and fused with the LM the LM
+   stage trained (no host sync while a batch is launched), a
+   2-utterance fp32 beam_lm decode of a seeded model card against CPU
+   (the n-best rank by rank), and one encoder layer's forward and backward
+   with separate and with flattened weights (``time_lstm_weight_compaction``);
+   B10's launches asserted; prints the ``recipe_lstm`` JSON line;
+11. encodes and trains 2 layers of the flagship on utterances past its
    relative table (T' = 1500).
 
 Any failure raises (nonzero exit) before the result lines. Prints the
@@ -2905,6 +2916,462 @@ def recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
     )
 
 
+# the attention encoder-decoder's recipe, examples/asr_librispeech/lstm_librispeech.yaml,
+# written out (tests/test_torch_speech_lstm.py holds the two equal)
+LSTM_RECIPE = {
+    "task": {"name": "speech_recognition_espresso"},
+    "criterion": {"name": "label_smoothed_cross_entropy_v2", "label_smoothing": 0.1,
+                  "smoothing_type": "uniform"},
+    "model": {"name": "speech_conv_lstm_librispeech"},
+    "dataset": {"feat_dim": 80, "max_tokens": 26000, "num_batch_buckets": 10},
+    "optimizer": {"name": "adam"},
+    "lr_scheduler": {"name": "reduce_lr_on_plateau_v2", "lr_shrink": 0.5, "start_reduce_lr_epoch": 11},
+    "optimization": {"lr": [0.001], "clip_norm": 2.0, "max_epoch": 30, "update_freq": [2]},
+    "generation": {"beam": 60, "max_len_a": 0.08, "lm_weight": 0.47, "eos_factor": 1.5},
+    "checkpoint": {"save_dir": "ckpts_lstm", "best_checkpoint_metric": "wer"},
+}
+# the phase's cuts of LSTM_RECIPE: a seeded WAV corpus (CORPUS's lengths and
+# 5,000 units) of LSTM_CORPUS utterances through the on-device front (B10,
+# global CMVN); frame batches of LSTM_MAX_TOKENS (the yaml's 26,000 would
+# make one update an epoch here) so that each of 2 epochs takes ~5 updates
+# of 2 microbatches; the epoch checkpoints off (checkpoint_best and
+# checkpoint_last stay, ~2 GB each with adam's moments)
+LSTM_CORPUS = dict(train=40, valid=8)
+LSTM_MAX_TOKENS = 6000
+# two fp32 train steps, card against CPU, on LSTM_CPU_ROWS utterances cut to
+# LSTM_CPU_FRAMES frames and LSTM_CPU_TOKENS tokens (the CPU takes seconds
+# a step at this width); a 2-utterance beam decode, card against CPU, fp32,
+# beam 60 with the LM, cut to LSTM_SUB_MAX_LEN output steps, of a seeded
+# model whose output layer is scaled by LSTM_SEEDED_PEAK (the briefly
+# trained checkpoint gives the same one-token hypothesis for every input;
+# these weights give hypotheses of many tokens that depend on the input)
+LSTM_CPU_ROWS, LSTM_CPU_FRAMES, LSTM_CPU_TOKENS = 2, 160, 8
+LSTM_SUB_MAX_LEN, LSTM_SEEDED_PEAK = 20, 6.0
+# fp32 on both: cuDNN's LSTM and cuBLAS beside ATen's CPU loops sum in other
+# orders; the loss to 1e-4 and the gradient norm to 1e-3, relative (as the
+# LM stage holds its steps); each of the n-best's scores to 1e-4 relative
+LSTM_CPU_LOSS_RTOL, LSTM_CPU_GNORM_RTOL, LSTM_BEAM_SCORE_RTOL = 1e-4, 1e-3, 1e-4
+# cuDNN's copy of an encoder layer's weights into one buffer at each call:
+# one layer's forward and backward at the recipe's layers 1-3 (D = 2 x 1024
+# in, H = 1024), bf16, on a [LSTM_COMPACT_B, LSTM_COMPACT_T] batch of encoder
+# frames, with the port's separate weights and with one flattened buffer
+LSTM_COMPACT_B, LSTM_COMPACT_T = 8, 400
+
+
+def run_recipe_lstm(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
+    """``recipe_lstm`` with the CLIs' log lines on stderr beside this
+    script's log."""
+    with contextlib.redirect_stdout(sys.stderr):
+        return recipe_lstm(dev, tmpdir, card, lm_dir)
+
+
+def lstm_sub_batch(dev, cfg, rows: int):
+    """(task, batch): the first ``rows`` utterances of the test split, as
+    log-mel frames from the on-device front (B10, global CMVN) on the card
+    cut to the longest of them, and their targets."""
+    from espresso_tpu_torch.cli.train import put_batch
+    from espresso_tpu_torch.tasks import setup_task
+    from espresso_tpu_torch.train.trainer import make_device_feature_fn
+
+    cfg = copy.deepcopy(cfg)
+    cfg.dataset.num_batch_buckets = 1  # one batch of the whole split
+    task = setup_task(cfg)
+    ds = task.load_dataset("test")
+    group = next(iter(task.get_batch_iterator(ds, None, len(ds), shuffle=False).next_epoch_itr()))
+    mb = {k: v[0][:rows] for k, v in put_batch(group, dev).items()}
+    with torch.no_grad():
+        mb = make_device_feature_fn(cfg)(mb)
+    mb["src_frames"] = mb["src_frames"][:, : int(mb["src_lengths"].max())]
+    return task, mb
+
+
+def trained_lstm(task, tree, where):
+    """The task's model on ``where`` with the checkpoint tree's weights,
+    built on the meta device (no seeded init of its ~169 M weights)."""
+    from espresso_tpu_torch.bridge import load_jax_variables
+    from espresso_tpu_torch.registry import MODELS
+
+    base, mcfg = task.build_model_config()
+    with torch.device("meta"):
+        model = MODELS.get(base)(mcfg)
+    model = model.to_empty(device=where)
+    for name, buf in model.named_buffers():
+        if name.endswith("num_batches_tracked"):
+            buf.zero_()
+    return load_jax_variables(model, {"params": tree["params"], "batch_stats": tree["batch_stats"]})
+
+
+def compare_lstm_train_steps(dev, cfg, tree) -> dict:
+    """Two fp32 train steps of the recipe's model (full width, the trained
+    checkpoint's weights, dropout 0) on the card and on the CPU, on
+    LSTM_CPU_ROWS test utterances cut to LSTM_CPU_FRAMES frames and
+    LSTM_CPU_TOKENS tokens: the loss within LSTM_CPU_LOSS_RTOL and the
+    gradient norm within LSTM_CPU_GNORM_RTOL, relative, at each step."""
+    from espresso_tpu_torch.train.trainer import build_optimizer, create_train_state, make_train_step
+
+    cfg = copy.deepcopy(cfg)
+    cfg.common.dtype = "float32"
+    cfg.model["dropout"] = 0.0
+    task, mb = lstm_sub_batch(dev, cfg, LSTM_CPU_ROWS)
+    T, U = LSTM_CPU_FRAMES, LSTM_CPU_TOKENS
+    batch = {"src_frames": mb["src_frames"][:, :T].float(), "src_lengths": mb["src_lengths"].clamp(max=T),
+             "target": mb["target"][:, :U], "prev_output_tokens": mb["prev_output_tokens"][:, :U],
+             "tgt_lengths": mb["tgt_lengths"].clamp(max=U), "weight": mb["weight"]}
+    out = []
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        model = trained_lstm(task, tree, where)
+        optimizer, _ = build_optimizer(cfg)
+        state = create_train_state(model, optimizer, cfg)
+        step = make_train_step(model, task.build_criterion(), optimizer, cfg)
+        b = {k: v[None].to(where) for k, v in batch.items()}
+        t1 = time.perf_counter()
+        ms = [step(state, b, torch.Generator(device=where).manual_seed(0))[1] for _ in range(2)]
+        out.append(([(m["loss"].item(), m["gnorm"].item()) for m in ms], t1 - t0, time.perf_counter() - t1))
+        del model, state
+    (card_steps, card_setup_s, card_s), (cpu_steps, cpu_setup_s, cpu_s) = out
+    rel = [(abs(c[0] - g[0]) / abs(c[0]), abs(c[1] - g[1]) / abs(c[1])) for c, g in zip(cpu_steps, card_steps)]
+    res = dict(card=card_steps, cpu=cpu_steps, loss_rel_diff=max(r[0] for r in rel),
+               gnorm_rel_diff=max(r[1] for r in rel), rows=LSTM_CPU_ROWS, frames=T, tokens=U,
+               card_s=card_s, cpu_s=cpu_s, card_setup_s=card_setup_s, cpu_setup_s=cpu_setup_s)
+    log(f"recipe LSTM two fp32 train steps, card vs CPU: {res} (bounds: loss {LSTM_CPU_LOSS_RTOL}, "
+        f"gnorm {LSTM_CPU_GNORM_RTOL})")
+    if not (res["loss_rel_diff"] <= LSTM_CPU_LOSS_RTOL and res["gnorm_rel_diff"] <= LSTM_CPU_GNORM_RTOL):
+        raise AssertionError(f"the encoder-decoder's train step on the card disagrees with the CPU: {res}")
+    return res
+
+
+def seeded_lstm(task, seed: int):
+    """The task's model on the CPU, fp32, from torch's seeded init at
+    LeCun's scale (1/sqrt(fan-in)) with the output layer x LSTM_SEEDED_PEAK,
+    so that the decoder's choices are not near-ties."""
+    from espresso_tpu_torch.registry import MODELS
+
+    base, mcfg = task.build_model_config()
+    torch.manual_seed(seed)
+    model = MODELS.get(base)(mcfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("weight") and p.ndim > 1 and "embed" not in name:
+                p.mul_(3 ** 0.5 * (LSTM_SEEDED_PEAK if "fc_out" in name else 1.0))
+    return model.eval()
+
+
+def compare_lstm_beam(dev, cfg, lm_dir: str) -> dict:
+    """A 2-utterance fp32 beam decode (beam 60, eos_factor 1.5, the LM at
+    0.47, LSTM_SUB_MAX_LEN output steps) of the recipe's model from a seeded
+    init (``seeded_lstm``) on the card and on the CPU, from the same frames:
+    each utterance's n-best holds the same token sequences (two whose
+    scores agree within LSTM_BEAM_SCORE_RTOL may swap ranks: a near-tie,
+    which ``nbest_share_equal``, the share equal rank by rank, counts), every
+    rank's score within LSTM_BEAM_SCORE_RTOL, relative, the top-1 equal and
+    of more than one token."""
+    from espresso_tpu_torch.cli.speech_recognize import _load_lm_checkpoint
+    from espresso_tpu_torch.decode.beam_search import BeamSearchDecoder
+
+    cfg = copy.deepcopy(cfg)
+    cfg.common.dtype = "float32"
+    task, mb = lstm_sub_batch(dev, cfg, 2)
+    gen = cfg.generation
+    cpu_model = seeded_lstm(task, seed=17)
+    out = []
+    for where, model in ((dev, copy.deepcopy(cpu_model).to(dev)), (torch.device("cpu"), cpu_model)):
+        lm = _load_lm_checkpoint(lm_dir, where, torch.float32)[0]
+        dec = BeamSearchDecoder(model, task.dictionary, beam_size=gen.beam, max_len_a=0.0,
+                                max_len_b=LSTM_SUB_MAX_LEN, eos_factor=gen.eos_factor, lm=lm,
+                                lm_weight=gen.lm_weight)
+        t0 = time.perf_counter()
+        hyps = dec.decode({"src_frames": mb["src_frames"].float().to(where),
+                           "src_lengths": mb["src_lengths"].to(where)})
+        out.append((hyps, time.perf_counter() - t0))
+        del model, lm
+    del cpu_model
+    (card, card_s), (cpu, cpu_s) = out
+    seqs = lambda hyps: sorted(tuple(int(t) for t in h["tokens"]) for h in hyps)
+    same = [sum(np.array_equal(g["tokens"], w["tokens"]) for g, w in zip(gb, wb)) / len(wb)
+            for gb, wb in zip(card, cpu)]
+    rel = [max(abs(g["score"] - w["score"]) / abs(w["score"]) for g, w in zip(gb, wb))
+           for gb, wb in zip(card, cpu)]
+    res = dict(nbest_sets_equal=[seqs(gb) == seqs(wb) for gb, wb in zip(card, cpu)],
+               nbest_share_equal=same, nbest_score_rel_diff=max(rel),
+               top1_equal=[bool(np.array_equal(gb[0]["tokens"], wb[0]["tokens"])) for gb, wb in zip(card, cpu)],
+               top1_lengths=[len(gb[0]["tokens"]) for gb in card], distinct_top1=len({
+                   tuple(gb[0]["tokens"]) for gb in card}),
+               top1=[[int(t) for t in gb[0]["tokens"]] for gb in card], card_s=card_s, cpu_s=cpu_s)
+    log(f"recipe LSTM 2-utterance fp32 beam_lm decode of a seeded model, card vs CPU: {res}")
+    if not (all(res["nbest_sets_equal"]) and all(res["top1_equal"])
+            and res["nbest_score_rel_diff"] <= LSTM_BEAM_SCORE_RTOL and min(res["top1_lengths"]) > 1):
+        raise AssertionError(f"the beam decode on the card disagrees with the CPU: {res}")
+    return res
+
+
+def time_lstm_weight_compaction(dev, mcfg) -> dict:
+    """One encoder layer's forward and backward (``LSTMLayer``, bf16, at
+    the recipe's layers 1-3) with the port's separate weights, which cuDNN
+    copies into one buffer at each call, and with ``nn.LSTM``'s flattened
+    buffer holding the same weights: ms each (median of 10 after 3
+    warm-up calls on CUDA events) and the outputs' largest difference."""
+    from espresso_tpu_torch.modules.lstm import LSTMLayer
+
+    H = mcfg.encoder_hidden_size
+    D = 2 * H
+    torch.manual_seed(3)
+    layer = LSTMLayer(D, H).to(dev, torch.bfloat16).train()
+    flat = torch.nn.LSTM(D, H, batch_first=True)
+    with torch.no_grad():
+        flat.weight_ih_l0.copy_(layer.ih.weight)
+        flat.weight_hh_l0.copy_(layer.hh_kernel)
+        flat.bias_ih_l0.copy_(layer.ih.bias)
+        flat.bias_hh_l0.zero_()
+    flat = flat.to(dev, torch.bfloat16)  # flattens its weights into one buffer
+    x = torch.randn(LSTM_COMPACT_B, LSTM_COMPACT_T, D, device=dev, dtype=torch.bfloat16)
+    lengths = torch.full((LSTM_COMPACT_B,), LSTM_COMPACT_T, device=dev)
+    runs = {"separate": lambda: layer(x, lengths), "flattened": lambda: flat(x)[0]}
+    ms, outs = {}, {}
+    for name, fn in runs.items():
+        def once():
+            y = fn()
+            y.float().sum().backward()
+            return y
+        for _ in range(3):
+            outs[name] = once().detach()
+        times = []
+        for _ in range(10):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            once()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        ms[name] = statistics.median(times)
+    err = float((outs["separate"].float() - outs["flattened"].float()).abs().max())
+    res = dict(ms_separate=ms["separate"], ms_flattened=ms["flattened"], max_abs_diff=err,
+               shape=dict(B=LSTM_COMPACT_B, T=LSTM_COMPACT_T, D=D, H=H),
+               weight_bytes=2 * sum(p.numel() for p in layer.parameters()))
+    del layer, flat, x
+    return res
+
+
+def recipe_lstm(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
+    """The attention encoder-decoder's recipe (lstm_librispeech.yaml,
+    ``LSTM_RECIPE``) through the port's entry points at the full width of
+    speech_conv_lstm_librispeech (a 4-layer bi-LSTM encoder of 1024, a
+    3-layer decoder of 1024, Bahdanau attention 512, output embedding
+    3,072, dropout 0.4, V = 5,003), bf16 on fp32 masters: a seeded WAV
+    corpus fed through the on-device front; ``cli.train.main`` for one
+    epoch with its valid pass (loss, greedy WER) and checkpoints, then a
+    second ``main`` resuming from checkpoint_last for epoch 2 with
+    asynchronous writes; two fp32 train steps card against CPU;
+    ``speech_recognize`` of the test split at beam 60, eos_factor 1.5,
+    max_len_a 0.08, alone and fused at 0.47 with the LM the "recipe LM
+    stage" trained in ``lm_dir`` (the LM's plain step, as JAX's beam search
+    runs it); a 2-utterance fp32 decode of a seeded model card against CPU;
+    one encoder layer timed with separate and flattened weights. Asserts B10's
+    launches (one a microbatch, two a valid batch, one a decode batch),
+    finite losses, the resume's update count and iterator, the result
+    files; counts the host syncs of each decode batch's launch (encoder and
+    beam loop) and fails on any. Returns the numbers."""
+    import json
+    import logging
+    import os
+    import warnings
+
+    from espresso_tpu_torch.cli import speech_recognize
+    from espresso_tpu_torch.cli import train as train_cli
+    from espresso_tpu_torch.config import load_config_dict
+    from espresso_tpu_torch.decode.beam_search import BeamSearchDecoder
+    from espresso_tpu_torch.features.fbank_kernels import fbank_fused
+    from espresso_tpu_torch.tasks import setup_task
+    from espresso_tpu_torch.train import checkpoint as ckpt
+
+    root = os.path.join(tmpdir, "recipe_lstm")
+    data, save_dir = os.path.join(root, "data"), os.path.join(root, "ckpts")
+    os.makedirs(data)
+    secs = {}
+    t0 = time.perf_counter()
+    corpus = write_corpus(data, dict(LSTM_CORPUS), seed=5)
+    with open(os.path.join(data, "test.json"), "w") as f, open(os.path.join(data, "valid.json")) as g:
+        f.write(g.read())  # the decode split: the valid utterances
+    cmvn = write_global_cmvn(data)
+    secs["corpus_and_cmvn"] = time.perf_counter() - t0
+    recipe = copy.deepcopy(LSTM_RECIPE)
+    recipe["dataset"].update(data=data, feature_type="device_fbank", global_cmvn_stats_path=cmvn,
+                             max_tokens=LSTM_MAX_TOKENS)
+    recipe["checkpoint"].update(save_dir=save_dir, save_interval=0)
+    recipe["optimization"]["max_epoch"] = 1
+    cfg_path = os.path.join(root, "recipe.json")
+    with open(cfg_path, "w") as f:
+        json.dump(recipe, f)
+    args = ["--config", cfg_path]
+    cfg = load_config_dict(recipe)
+    task = setup_task(cfg)
+    V, mcfg = len(task.dictionary), task.build_model_config()[1]
+    with open(os.path.join(lm_dir, "model_cfg.json")) as f:
+        lm_cfg = json.load(f)["config"]
+    if V != CORPUS["UNITS"] + 3 or lm_cfg["vocab_size"] != V:  # the units, <pad>, </s>, <unk>
+        raise AssertionError(f"V = {V}, the LM's {lm_cfg['vocab_size']}")
+    del task
+    widths = {k: getattr(mcfg, k) for k in ("encoder_hidden_size", "encoder_layers", "decoder_hidden_size",
+                                            "decoder_layers", "attention_dim", "decoder_out_embed_dim",
+                                            "dropout")}
+    log(f"recipe LSTM: corpus {corpus}; {secs}; V = {V}; {widths}")
+
+    # train: epoch 1, then a second main resuming for epoch 2
+    fbank_fused.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    rec = dict(steps=0, micro=0, step_events=[], losses=[], valid_batches=0, valid_s=[], wer=[])
+    make_step, make_valid, validate = train_cli.make_train_step, train_cli.make_valid_step, train_cli.validate
+
+    def counted_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, gen, *rest):
+            e = [ev(), ev()]
+            e[0].record()
+            state, m = step(state, batch, gen, *rest)
+            e[1].record()
+            rec["steps"] += 1
+            rec["micro"] += batch["prev_output_tokens"].shape[0]
+            rec["step_events"].append(e)
+            rec["losses"].append(m["loss"])
+            return state, m
+        return run
+
+    def counted_valid(*a, **kw):
+        valid = make_valid(*a, **kw)
+
+        def run(state, mb):
+            rec["valid_batches"] += 1
+            return valid(state, mb)
+        return run
+
+    def timed_validate(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = validate(*a, **kw)
+        rec["valid_s"].append(time.perf_counter() - t)
+        rec["wer"].append(stats.get("wer"))
+        return stats
+
+    patches = [(train_cli, "make_train_step", counted_step), (train_cli, "make_valid_step", counted_valid),
+               (train_cli, "validate", timed_validate)]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        t0 = time.perf_counter()
+        train_cli.main(args, device=dev)
+        secs["train_epoch1"] = time.perf_counter() - t0
+        n1 = rec["steps"]
+        t0 = time.perf_counter()
+        stats = train_cli.main(args + ["optimization.max_epoch=2",
+                                       "checkpoint.write_checkpoints_asynchronously=true"], device=dev)
+        secs["train_epoch2_resumed"] = time.perf_counter() - t0
+    finally:
+        for mod, name, _ in patches:
+            setattr(mod, name, {"make_train_step": make_step, "make_valid_step": make_valid,
+                                "validate": validate}[name])
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated()
+    n, nv = rec["steps"], rec["valid_batches"]
+    train_launches = fbank_fused.launches
+    if train_launches != rec["micro"] + 2 * nv or n1 == 0 or n == n1:
+        raise AssertionError(f"recipe LSTM train: B10 launched {train_launches} times for {rec['micro']} "
+                             f"microbatches and {nv} valid batches; steps {n1} then {n}")
+    losses = torch.stack(rec["losses"]).tolist()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"recipe LSTM train losses {losses}")
+    tree, host = ckpt.load_checkpoint_state(os.path.join(save_dir, "checkpoint_last"))
+    if int(tree["step"]) != n or host["iterator"]["epoch"] != 3 or host["iterator"]["iterations_in_epoch"]:
+        raise AssertionError(f"after the resume: step {int(tree['step'])} of {n}, iterator {host['iterator']}")
+    names = sorted(os.listdir(save_dir))
+    if not {"checkpoint_best", "checkpoint_last", "model_cfg.json"} <= set(names):
+        raise AssertionError(f"checkpoints {names}")
+    step_ms = [e[0].elapsed_time(e[1]) for e in rec["step_events"]]
+    n_params = sum(int(np.prod(v.shape)) for v in ckpt.flatten_tree(tree["params"]).values())
+    log(f"recipe LSTM train on {card}: {n} steps ({n1} in epoch 1, then resumed), {rec['micro']} "
+        f"microbatches, step ms {[round(x, 1) for x in step_ms]}, {nv} valid batches in {rec['valid_s']} s, "
+        f"WER {rec['wer']}, peak memory {train_peak / 2**30:.2f} GiB, {n_params:,} params, losses "
+        f"{[round(x, 3) for x in losses]}, B10 launches {train_launches}; {stats}")
+    torch.cuda.empty_cache()
+
+    cpu_steps = compare_lstm_train_steps(dev, cfg, tree)
+    torch.cuda.empty_cache()
+
+    # decode the test split at the yaml's beam, alone and with the LM
+    calls = []
+    run_async = BeamSearchDecoder.decode_async
+
+    def counted_async(self, batch, *a, **kw):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                handle = run_async(self, batch, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        calls.append((tuple(batch["src_frames"].shape), syncs))
+        return handle
+
+    class Elapsed(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("Recognized"):
+                rec["elapsed"] = record.args[1]
+
+    handler = Elapsed()
+    logging.getLogger("espresso_tpu_torch.recognize").addHandler(handler)
+    decodes = {}
+    audio_s = corpus["valid"]["audio_s"]
+    try:
+        BeamSearchDecoder.decode_async = counted_async
+        for tag, extra in (("beam", ["generation.lm_weight=0.0"]), ("beam_lm", [f"generation.lm_path={lm_dir}"])):
+            out_dir = os.path.join(root, f"decode_{tag}")
+            fbank_fused.launches = 0
+            calls.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = speech_recognize.main(args + extra + ["dataset.gen_subset=test",
+                                                        f"generation.results_path={out_dir}"], device=dev)
+            torch.cuda.synchronize()
+            secs[f"decode_{tag}"] = time.perf_counter() - t0
+            files = sorted(os.listdir(out_dir))
+            syncs = sum(s for _, s in calls)
+            if files != ["aligned_results.txt", "cer", "decoded_results.txt", "wer"] \
+                    or res["num_utts"] != LSTM_CORPUS["valid"] or fbank_fused.launches != len(calls) or syncs:
+                raise AssertionError(f"recipe LSTM {tag} decode: files {files}, result {res}, B10 "
+                                     f"{fbank_fused.launches} for {len(calls)} batches, host syncs {calls}")
+            decodes[tag] = dict(result=res, batches=[s for s, _ in calls], host_syncs=syncs,
+                                fbank_launches=fbank_fused.launches, elapsed_s=rec["elapsed"],
+                                rtfx=audio_s / rec["elapsed"], peak_bytes=torch.cuda.max_memory_allocated(),
+                                wer_file=open(os.path.join(out_dir, "wer")).read().strip())
+            log(f"recipe LSTM {tag} decode on {card}: {res}, batches {decodes[tag]['batches']} in "
+                f"{rec['elapsed']:.3f} s, RTFx {audio_s / rec['elapsed']:.2f}, host syncs {syncs}, B10 "
+                f"launches {fbank_fused.launches}, peak memory {decodes[tag]['peak_bytes'] / 2**30:.2f} GiB; "
+                f"{decodes[tag]['wer_file']}")
+    finally:
+        BeamSearchDecoder.decode_async = run_async
+        logging.getLogger("espresso_tpu_torch.recognize").removeHandler(handler)
+    torch.cuda.empty_cache()
+    del tree
+    torch.cuda.empty_cache()
+    sub = compare_lstm_beam(dev, cfg, lm_dir)
+    torch.cuda.empty_cache()
+    compaction = time_lstm_weight_compaction(dev, mcfg)
+    log(f"recipe LSTM encoder layer fwd+bwd on {card}: {compaction}")
+    torch.cuda.empty_cache()
+    return dict(
+        corpus=corpus, vocab=V, widths=widths, params=n_params, stage_s=secs, steps=n, steps_epoch1=n1,
+        microbatches=rec["micro"], train_ms_per_step=statistics.mean(step_ms), step_ms=step_ms,
+        valid_batches=nv, valid_s=rec["valid_s"], valid_wer=rec["wer"], losses=losses,
+        train_peak_bytes=train_peak, fbank_launches=dict(train=train_launches, **{
+            tag: d["fbank_launches"] for tag, d in decodes.items()}),
+        decodes=decodes, card_vs_cpu_steps=cpu_steps, card_vs_cpu_beam=sub,
+        encoder_layer_weight_compaction=compaction, card=card,
+    )
+
+
 def compare_train_step(dev) -> dict:
     """One step of a 2-utterance sub-batch at dropout 0 from one init,
     through the kernels and through the plain versions: the loss and the
@@ -3029,8 +3496,13 @@ def main() -> int:
     phase("recipe CLIs")
     with tempfile.TemporaryDirectory() as cli_tmp:
         recipe_cli = run_recipe_clis(dev, cli_tmp, card, recipe_lm_stage["lm_dir"])
-    lm_tmp.cleanup()
     print(json.dumps({"recipe_cli": recipe_cli}))
+    torch.cuda.empty_cache()
+    phase("recipe LSTM encoder-decoder")
+    with tempfile.TemporaryDirectory() as lstm_tmp:
+        recipe_lstm_path = run_recipe_lstm(dev, lstm_tmp, card, recipe_lm_stage["lm_dir"])
+    lm_tmp.cleanup()
+    print(json.dumps({"recipe_lstm": recipe_lstm_path}))
     torch.cuda.empty_cache()
     phase("long utterances")
     long_utt = run_long_utterances(dev)
@@ -3104,6 +3576,10 @@ def main() -> int:
                if name in recipe_cli["train_launches"] else {}),
             **{f"recipe_cli_{tag}_launches": d["launches"][name]
                for tag, d in recipe_cli["decodes"].items() if name in d["launches"]},
+            # the attention encoder-decoder's recipe: its train runs (a launch a
+            # microbatch, two a valid batch) and its beam and beam_lm decodes
+            **({f"recipe_lstm_{tag}_launches": v for tag, v in recipe_lstm_path["fbank_launches"].items()}
+               if name == "fbank" else {}),
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

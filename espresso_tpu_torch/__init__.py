@@ -7,10 +7,13 @@ layout and names so each module's counterpart is easy to find:
   wrappers (each beside its plain PyTorch version), the CUDA gate, the
   RNNT loss and its DP
 - ``espresso_tpu_torch.modules`` : nn.Module building blocks (attention,
-  conformer pieces, conv frontend, positional tables, LSTM gates, flax-style
-  batch norm and dropout)
-- ``espresso_tpu_torch.models``  : Conformer encoder, Transducer model
-- ``espresso_tpu_torch.decode``  : batched transducer greedy and beam decoding
+  conformer pieces, conv frontend, positional tables, LSTM gates and
+  sequence layers, Bahdanau and Luong attention, flax-style batch norm and
+  dropout)
+- ``espresso_tpu_torch.models``  : Conformer encoder, Transducer model, the
+  LSTM attention encoder-decoder, the LSTM LM
+- ``espresso_tpu_torch.decode``  : batched transducer greedy and beam
+  decoding; the encoder-decoder's greedy and beam decoding and its adapters
 - ``espresso_tpu_torch.train``   : the train step (adam, clip, overflow skip,
   EMA) and the learning-rate schedules
 - ``espresso_tpu_torch.criterions``, ``espresso_tpu_torch.config``,

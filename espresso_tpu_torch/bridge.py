@@ -11,7 +11,9 @@ layout mapping in ``espresso_tpu/cli/convert_espresso_checkpoint.py:7-17``:
   * LayerNorm / BatchNorm ``scale`` -> ``weight``; ``batch_stats``
     ``mean`` / ``var`` -> ``running_mean`` / ``running_var``
   * Embed ``embedding`` -> ``weight``
-  * LSTM gate order (i, f, g, o) is the same in both
+  * LSTM gate order (i, f, g, o) is the same in both; a sequence layer's
+    recurrent ``hh_kernel`` [H, 4H] keeps its name and is transposed as a
+    Dense kernel is
 
 It raises if a port tensor is left unfilled, a JAX leaf goes unused, or a
 shape disagrees. ``flax_leaves`` names the flax leaf of each port parameter
@@ -46,7 +48,7 @@ _RENAMES = {
         "Dense_1": "pointwise_conv2",
     },
     "predictor": {r"cell(\d+)_ih": r"cells_ih.\1", r"cell(\d+)_hh": r"cells_hh.\1"},
-    # the LSTM LM's decoder (models/lstm_lm.py)
+    # the LSTM decoder of the LM and of the speech LSTM (models/speech_lstm.py)
     "decoder": {r"cell(\d+)_ih": r"cells_ih.\1", r"cell(\d+)_hh": r"cells_hh.\1"},
 }
 _LEAVES = {
@@ -60,6 +62,8 @@ _LEAVES = {
 _KERNEL_PERM = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
 _KERNEL_PERM_INV = {n: tuple(int(i) for i in np.argsort(p)) for n, p in _KERNEL_PERM.items()}
 _KERNEL_MODULES = (nn.Linear, nn.Conv1d, nn.Conv2d)
+# flax leaves held in the torch layout
+_KERNEL_LEAVES = ("kernel", "hh_kernel")
 
 
 def flax_leaves(model: nn.Module) -> Dict[str, str]:
@@ -84,12 +88,12 @@ def _permute(x, perm):
 
 def to_flax_layout(leaf: str, x):
     """A port parameter (tensor or array) in its flax leaf's layout."""
-    return _permute(x, _KERNEL_PERM_INV[x.ndim]) if leaf == "kernel" else x
+    return _permute(x, _KERNEL_PERM_INV[x.ndim]) if leaf in _KERNEL_LEAVES else x
 
 
 def from_flax_layout(leaf: str, x):
     """The inverse of :func:`to_flax_layout`."""
-    return _permute(x, _KERNEL_PERM[x.ndim]) if leaf == "kernel" else x
+    return _permute(x, _KERNEL_PERM[x.ndim]) if leaf in _KERNEL_LEAVES else x
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
@@ -168,12 +172,12 @@ def jax_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
             arr = np.asarray(leaf, dtype=np.float32)
-            if path[-1] == "kernel":
+            if path[-1] in _KERNEL_LEAVES:
                 arr = arr.transpose(_KERNEL_PERM[arr.ndim])
             key = port_key(path)
             if key in out:
                 raise ValueError(f"two JAX leaves map to {key}")
-            out[key] = np.ascontiguousarray(arr)
+            out[key] = np.ascontiguousarray(arr).reshape(arr.shape)  # a scalar stays 0-d
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")

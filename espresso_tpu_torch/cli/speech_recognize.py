@@ -3,19 +3,24 @@
 Counterpart of ``espresso_tpu/cli/speech_recognize.py``: loads a port
 checkpoint (``train/checkpoint.py``; its ``params`` tree loads through
 ``bridge.load_jax_variables``), decodes a split with the task's generator
-(greedy at a beam of at most 1, else the AES beam search, fused with an
-LSTM LM from ``generation.lm_path``), and writes ``decoded_results.txt``,
+(for the transducer greedy at a beam of at most 1, else the AES beam
+search; for the attention encoder-decoder the beam search of
+``decode/beam_search.py``; each fused with an LSTM LM from
+``generation.lm_path``), and writes ``decoded_results.txt``,
 ``wer``, ``cer`` and ``aligned_results.txt`` as JAX writes them, with the
 "Recognized N utterances" throughput line. The decode is pipelined one
 deep: the next batch's search is launched (``decode_async``) before the
 previous one is collected and scored on the host. Each batch goes through
 the feature front first (``make_device_feature_fn``: a PCM batch becomes
 log-mel frames on the device). Transducers have no ``decode_sequence``, so
-``generation.print_alignment`` writes nothing, as in JAX.
+``generation.print_alignment`` writes nothing for them, as in JAX; for the
+attention encoder-decoder it raises: JAX writes the attention matrices and
+their plots there (:204-233, :327-339), and ``tools/plot`` is not ported
+(ROADMAP queue A item 3).
 
 ``main(argv=None, device="cuda")`` runs on the card unless the caller asks
 for the CPU. A word LM (``generation.word_lm_path``, the look-ahead LM) is
-not ported (ROADMAP queue A item 5).
+not ported (ROADMAP queue A item 2).
 
 Usage:
     python -m espresso_tpu_torch.cli.speech_recognize --config cfg.yaml \\
@@ -96,7 +101,7 @@ def build_lm(cfg: EspressoConfig, task, device="cuda"):
     if gen.word_lm_path:
         raise NotImplementedError(
             "generation.word_lm_path: the look-ahead word LM (and the multi-level LM) is not "
-            "ported (ROADMAP queue A item 5)"
+            "ported (ROADMAP queue A item 2)"
         )
     if gen.lm_path:
         return _load_lm_checkpoint(gen.lm_path, device, _decode_dtype(cfg))[0]
@@ -112,6 +117,11 @@ def main(argv=None, device="cuda") -> Dict[str, float]:
     task = setup_task(cfg)
     ds = task.load_dataset(cfg.dataset.gen_subset)
     model = load_model_for_decoding(cfg, task, device)
+    if cfg.generation.print_alignment and hasattr(model, "decode_sequence"):
+        raise NotImplementedError(
+            "generation.print_alignment: the attention matrices and their plots need tools/plot, "
+            "which is not ported (ROADMAP queue A item 3)"
+        )
     lm = build_lm(cfg, task, device)
     generator = task.build_generator(model, cfg.generation, lm=lm, lm_weight=cfg.generation.lm_weight)
 

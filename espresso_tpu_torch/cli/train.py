@@ -18,14 +18,16 @@ reads), the epoch-driven lr schedulers (``reduce_lr_on_plateau_v2``,
 ``manual``: their state in ``host_state["plateau"]``; a new lr reaches the
 next update through the schedule, the optimizer's state untouched), and
 ``common.profile`` (a ``torch.profiler`` trace of the first 5 updates into
-``save_dir/profile``). The step's metrics stay on the device and are read
-once a ``log_interval``.
+``save_dir/profile``), and scheduled sampling (``task.scheduled_sampling``:
+each epoch's rate from ``tools/scheduled_sampling.py``, :399-408 and
+:523-577). The step's metrics stay on the device and are read once a
+``log_interval``.
 
 ``main(argv=None, device="cuda")`` runs on the card unless the caller asks
 for the CPU (``device="cpu"``, as the tests do). Not ported, and refused:
 several devices (``config.check_single_device``, ROADMAP queue A item 6),
-scheduled sampling and the adafactor and composite optimizers (item 4) and
-the hybrid task's state prior (item 5).
+the adafactor and composite optimizers (item 4) and the hybrid task's
+state prior (item 5).
 
 Usage:
     python -m espresso_tpu_torch.cli.train --config cfg.yaml dataset.data=DIR \\
@@ -48,6 +50,7 @@ import torch
 from espresso_tpu_torch.cli.logging_utils import setup_logging
 from espresso_tpu_torch.config import check_single_device, config_to_dict, parse_config
 from espresso_tpu_torch.tasks import setup_task
+from espresso_tpu_torch.tools.scheduled_sampling import ScheduledSamplingRateScheduler
 from espresso_tpu_torch.train import checkpoint as ckpt
 from espresso_tpu_torch.train.heartbeat import HeartbeatMonitor
 from espresso_tpu_torch.train.lr_schedulers import build_epoch_scheduler
@@ -178,8 +181,6 @@ def main(argv=None, device="cuda") -> Dict[str, float]:
 def _main(argv, device) -> Dict[str, float]:
     cfg = parse_config(argv if argv is not None else sys.argv[1:])
     check_single_device(cfg.distributed)
-    if cfg.task.scheduled_sampling:
-        raise NotImplementedError("scheduled sampling is not ported (ROADMAP queue A item 4)")
     device = torch.device(device)
     np.random.seed(cfg.common.seed)
     torch.manual_seed(cfg.common.seed)
@@ -273,6 +274,13 @@ def _train_loop(cfg, task, model, train_itr, valid_ds, state, generator, train_s
     patience_left = cfg.checkpoint.patience
     num_updates = state.step
     final_stats: Dict[str, float] = {}
+    ss_scheduler = (
+        ScheduledSamplingRateScheduler(
+            cfg.task.scheduled_sampling_probs, cfg.task.start_scheduled_sampling_epoch
+        )
+        if cfg.task.scheduled_sampling
+        else None
+    )
 
     def host_state() -> Dict[str, Any]:
         out: Dict[str, Any] = {"iterator": train_itr.state_dict()}
@@ -296,6 +304,7 @@ def _train_loop(cfg, task, model, train_itr, valid_ds, state, generator, train_s
         epoch = train_itr.next_epoch_idx
         epoch_itr = train_itr.next_epoch_itr()
         agg = MetricsAggregator()
+        step_args = (ss_scheduler.step(epoch),) if ss_scheduler is not None else ()
         profiler = None
         if cfg.common.profile and epoch == 1:
             activities = [torch.profiler.ProfilerActivity.CPU]
@@ -323,7 +332,7 @@ def _train_loop(cfg, task, model, train_itr, valid_ds, state, generator, train_s
                 profiler = None
 
         for group in epoch_itr:
-            state, metrics = train_step(state, put_batch(group, device), generator)
+            state, metrics = train_step(state, put_batch(group, device), generator, *step_args)
             num_updates += 1
             if profiler is not None and num_updates >= 5:
                 stop_profiler()

@@ -249,9 +249,10 @@ class LRSchedulerConfig:
 class TaskSection:
     name: str = "speech_recognition_espresso"
     autoregressive: bool = True
-    # scheduled sampling is not ported (ROADMAP queue A item 4): the train
-    # CLI refuses it
+    # scheduled sampling (tools/scheduled_sampling.py)
     scheduled_sampling: bool = False
+    scheduled_sampling_probs: List[float] = field(default_factory=lambda: [1.0])
+    start_scheduled_sampling_epoch: int = 1
 
 
 @dataclass

@@ -7,15 +7,16 @@ Counterpart of ``espresso_tpu/criterions.py``, for ``build_criterion``
   path (criterions.py:171-243), the model's ``forward_fused`` and the
   lattice-free RNNT loss (``ops/rnnt_fused.py``);
 * ``cross_entropy_v2`` and ``label_smoothed_cross_entropy_v2``
-  (criterions.py:74-130, ``ops/losses.py``) on a language-model batch, one
-  without ``src_frames``, which runs ``model(prev_output_tokens)``
-  (criterions.py:45-56).
+  (criterions.py:74-130, ``ops/losses.py``) on a speech batch, through the
+  encoder-decoder's teacher-forced forward ``model(src_frames,
+  src_lengths, prev_output_tokens, ss_prob=)`` (criterions.py:37-60;
+  ``ss_prob`` < 1 turns scheduled sampling on), or on a language-model
+  batch, one without ``src_frames``, through ``model(prev_output_tokens)``.
 
 A criterion is ``criterion(model, batch) -> (loss, sample_size,
 logging)``; the model's train or eval mode decides dropout and batch
-statistics. The lattice path (``fused_transducer=False``), the
-cross-entropy criteria on an encoder's batch (the attention models) and the
-other criteria wait for later slices.
+statistics. The lattice path (``fused_transducer=False``) and the other
+criteria wait for later slices.
 """
 
 from __future__ import annotations
@@ -35,15 +36,16 @@ from espresso_tpu_torch.ops.rnnt_fused import RnntLossFused
 from espresso_tpu_torch.registry import CRITERIONS
 
 
-def _apply_model(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def _apply_model(model, batch: Dict[str, torch.Tensor], ss_prob: float = 1.0) -> torch.Tensor:
     """The model's teacher-forced logits. A batch without ``src_frames`` is
-    a language-model batch (criterions.py:45-56)."""
-    if "src_frames" in batch:
-        raise NotImplementedError(
-            "the cross-entropy criteria on an encoder's batch: the attention encoder-decoders "
-            "are not ported (ROADMAP queue A item 5)"
-        )
-    return model(batch["prev_output_tokens"])
+    a language-model batch (criterions.py:45-56); scheduled sampling is the
+    speech decoder's alone."""
+    if "src_frames" not in batch:
+        return model(batch["prev_output_tokens"])
+    logits, _ = model(
+        batch["src_frames"], batch["src_lengths"], batch["prev_output_tokens"], ss_prob=ss_prob
+    )
+    return logits
 
 
 class CECriterionBase:
@@ -70,9 +72,9 @@ class CECriterionBase:
         raise NotImplementedError
 
     def __call__(
-        self, model, batch: Dict[str, torch.Tensor]
+        self, model, batch: Dict[str, torch.Tensor], ss_prob: float = 1.0
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
-        logits = _apply_model(model, batch)
+        logits = _apply_model(model, batch, ss_prob)
         mask = self._mask(batch)
         loss, nll = self._loss(logits, batch, mask)
         ntokens = mask.sum()
@@ -118,10 +120,11 @@ class TransducerCriterion:
         self.blank = dictionary.blank()
 
     def __call__(
-        self, model, batch: Dict[str, torch.Tensor]
+        self, model, batch: Dict[str, torch.Tensor], ss_prob: float = 1.0
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, sample_size, logging) for one batch; the model's train or
-        eval mode decides dropout and batch statistics."""
+        eval mode decides dropout and batch statistics. ``ss_prob`` is
+        taken and unused, as in JAX."""
         enc_proj, dec_proj, enc = model.forward_fused(
             batch["src_frames"], batch["src_lengths"], batch["prev_output_tokens"]
         )

@@ -5,7 +5,9 @@ data_dir)`` loads a train-CLI checkpoint (the model rebuilt from the saved
 ``model_cfg.json``) and returns an interface whose ``transcribe()`` takes
 wave paths, Kaldi rxfilenames or commands and returns text, decoding as
 ``cli/speech_recognize.py`` does (the feature front, then the task's
-generator). It runs on the card unless the caller asks for the CPU.
+generator: for a transducer its greedy or AES beam decoder, for the
+attention encoder-decoder the beam search at any beam). It runs on the
+card unless the caller asks for the CPU.
 
     import espresso_tpu_torch.hub as hub
     asr = hub.from_pretrained("ckpts", data_dir="data", beam=10)

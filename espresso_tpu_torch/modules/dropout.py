@@ -34,7 +34,9 @@ class Dropout(nn.Module):
 
 
 def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Make every :class:`Dropout` of ``model`` draw from ``generator``."""
+    """Make every :class:`Dropout` of ``model``, and every module that marks
+    itself ``draws_from_step_generator`` (the speech LSTM's scheduled
+    sampling coins), draw from ``generator``."""
     for m in model.modules():
-        if isinstance(m, Dropout):
+        if isinstance(m, Dropout) or getattr(m, "draws_from_step_generator", False):
             m.generator = generator

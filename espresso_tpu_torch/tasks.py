@@ -7,14 +7,17 @@ bucketed epoch batch iterator, the model from the named architecture with
 the ``model`` section merged over its preset, and the criterion. The model
 is built on ``device`` (the card unless the caller asks for the CPU), in
 fp32: the train state makes its compute copies. ``build_valid_decoder``
-(tasks.py:214-230) and ``build_generator`` (:232-265) choose the
-transducer's greedy decoder (the valid pass's WER, a beam of at most 1) or
-its AES beam search, fused with an LSTM LM through ``lm=`` / ``lm_weight=``.
+(tasks.py:214-230) and ``build_generator`` (:232-303) choose, for the
+transducer, its greedy decoder (the valid pass's WER, a beam of at most 1)
+or its AES beam search, and for the cross-entropy criteria (the attention
+encoder-decoder) ``decode/greedy.py``'s greedy decoder (the valid pass's
+WER) or ``decode/beam_search.py``'s beam search, each fused with an LSTM LM
+through ``lm=`` / ``lm_weight=``.
 ``language_modeling_for_asr`` (tasks.py:414-461) trains the LSTM LM on
 ``{split}.bin``/``.idx`` token streams (``prep binarize``,
 ``data/indexed_dataset.py``) or, without them, ``{split}.txt``
-(``data/lm_dataset.py``); it validates by perplexity alone. The CTC and
-attention decoders and the hybrid task are not ported.
+(``data/lm_dataset.py``); it validates by perplexity alone. The CTC
+decoders and the hybrid task are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import os
 from typing import Any, Dict, Optional
 
 import espresso_tpu_torch.models.lstm_lm  # noqa: F401 — populate the model registry
+import espresso_tpu_torch.models.speech_lstm  # noqa: F401
 import espresso_tpu_torch.models.transducer  # noqa: F401
 from espresso_tpu_torch.config import EspressoConfig
 from espresso_tpu_torch.data.dataset import AsrDataset
@@ -202,26 +206,51 @@ class SpeechRecognitionEspressoTask:
         return build_criterion(self.cfg.criterion, self)
 
     # -- decoding hooks (per-criterion decoders, reference :479-596) --------
-    def _transducer_only(self, what: str) -> None:
-        crit = self.cfg.criterion.name
-        if crit != "transducer_loss":
+    def _refuse_ctc(self, what: str) -> None:
+        if self.cfg.criterion.name == "ctc_loss":
             raise NotImplementedError(
-                f"{what} for criterion {crit!r}: only the transducer's decoders are ported; the "
-                "CTC and attention decoders are ROADMAP queue A item 5"
+                f"{what} for criterion 'ctc_loss': the CTC decoders are not ported (ROADMAP "
+                "queue A item 2)"
             )
 
     def build_valid_decoder(self, model):
-        """The transducer's greedy decoder for the valid pass's WER."""
-        self._transducer_only("the valid decoder")
-        from espresso_tpu_torch.decode.transducer_greedy import TransducerGreedyDecoder
+        """The valid pass's greedy WER decoder: the transducer's, else the
+        attention encoder-decoder's."""
+        self._refuse_ctc("the valid decoder")
+        if self.cfg.criterion.name == "transducer_loss":
+            from espresso_tpu_torch.decode.transducer_greedy import TransducerGreedyDecoder
 
-        return TransducerGreedyDecoder(model, self.dictionary)
+            return TransducerGreedyDecoder(model, self.dictionary)
+        from espresso_tpu_torch.decode.greedy import SimpleGreedyDecoder
+
+        return SimpleGreedyDecoder(model, self.dictionary)
 
     def build_generator(self, model, gen_cfg=None, lm=None, lm_weight=0.0):
-        """The inference decoder: greedy at a beam of at most 1, else the AES
-        beam search (with ``lm`` fused at ``lm_weight``)."""
+        """The inference decoder: for the transducer its greedy decoder at a
+        beam of at most 1, else its AES beam search; for the cross-entropy
+        criteria the beam search at any beam; ``lm`` fused at
+        ``lm_weight``."""
         gen_cfg = gen_cfg or self.cfg.generation
-        self._transducer_only("the generator")
+        self._refuse_ctc("the generator")
+        if self.cfg.criterion.name != "transducer_loss":
+            from espresso_tpu_torch.decode.beam_search import BeamSearchDecoder
+
+            return BeamSearchDecoder(
+                model,
+                self.dictionary,
+                beam_size=gen_cfg.beam,
+                max_len_a=gen_cfg.max_len_a,
+                max_len_b=gen_cfg.max_len_b,
+                min_len=gen_cfg.min_len,
+                len_penalty=gen_cfg.lenpen,
+                eos_factor=gen_cfg.eos_factor,
+                temperature=gen_cfg.temperature,
+                lm=lm,
+                lm_weight=lm_weight,
+                sampling=gen_cfg.sampling,
+                no_repeat_ngram_size=gen_cfg.no_repeat_ngram_size,
+                diverse_beam_groups=gen_cfg.diverse_beam_groups,
+            )
         if gen_cfg.beam <= 1:
             from espresso_tpu_torch.decode.transducer_greedy import TransducerGreedyDecoder
 

@@ -43,8 +43,11 @@ no dropout) on the compute weights, or with ``optimization.ema_validate``
 on a compute-dtype copy of the EMA weights, and returns the criterion's
 sums on the device.
 
-Not ported: scheduled sampling, and the adafactor and composite optimizers
-(``build_optimizer`` raises, naming ROADMAP queue A item 4).
+With ``task.scheduled_sampling`` a step takes the epoch's ``ss_prob``
+(trainer.py:272-290) and hands it to the criterion; the speech LSTM draws
+its coins from the step's generator. Not ported: the adafactor and
+composite optimizers (``build_optimizer`` raises, naming ROADMAP queue A
+item 4).
 """
 
 from __future__ import annotations
@@ -329,13 +332,15 @@ def make_device_feature_fn(cfg: EspressoConfig):
 
 
 def make_train_step(model: nn.Module, criterion, optimizer: Optimizer, cfg: EspressoConfig):
-    """Returns ``train_step(state, batch, generator=None) -> (state,
-    metrics)``. ``batch`` tensors have a leading microbatch axis
+    """Returns ``train_step(state, batch, generator=None, ss_prob=None) ->
+    (state, metrics)``. ``batch`` tensors have a leading microbatch axis
     [n_micro, B, ...] (1 for no accumulation); ``generator`` (a
     ``torch.Generator`` on the model's device) drives every dropout of the
     step. The metrics are tensors on the device: reading one is the
     caller's choice of host sync. The same generator draws SpecAugment's
-    random numbers and the quant-noise masks."""
+    random numbers, the quant-noise masks and the scheduled-sampling coins;
+    ``ss_prob`` is the teacher-forcing rate, read where
+    ``task.scheduled_sampling`` is set (1.0 otherwise)."""
     compute_dtype = _DTYPES[cfg.common.dtype]
     prepare_features = make_device_feature_fn(cfg)
     specaug = (
@@ -351,10 +356,13 @@ def make_train_step(model: nn.Module, criterion, optimizer: Optimizer, cfg: Espr
     ema_decay = cfg.optimization.ema_decay
     ema_start_update = cfg.optimization.ema_start_update
     ema_update_freq = max(cfg.optimization.ema_update_freq, 1)
+    use_ss = cfg.task.scheduled_sampling
 
     def train_step(
-        state: TrainState, batch: Dict[str, torch.Tensor], generator=None
+        state: TrainState, batch: Dict[str, torch.Tensor], generator=None, ss_prob=None
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        ss = float(ss_prob) if use_ss and ss_prob is not None else 1.0
+        extra = {"ss_prob": ss} if ss < 1.0 else {}
         model.train()
         set_dropout_generator(model, generator)
         dev = state.params.device
@@ -383,7 +391,7 @@ def make_train_step(model: nn.Module, criterion, optimizer: Optimizer, cfg: Espr
                     frames = apply_specaugment(frames, mb["src_lengths"], draws, specaug)
                 mb["src_frames"] = frames.to(compute_dtype)
             state.grads.zero_()
-            loss, sample_size, logging = criterion(model, mb)
+            loss, sample_size, logging = criterion(model, mb, **extra)
             loss.backward()
             g = state.grads.float()
             grads += g if quant_noise is None else quant_noise.apply(g, keep)

@@ -829,3 +829,97 @@ def test_optimizer_step_on_the_card_matches_the_cpu(dev, name):
     assert s_cpu.keys() == s_gpu.keys() and int(s_gpu["count"]) == 2
     for k in s_cpu:
         torch.testing.assert_close(s_gpu[k], s_cpu[k], rtol=1e-5, atol=1e-6, msg=k)
+
+
+def _speech_lstm(seed, **over):
+    """A small attention encoder-decoder (a 2-layer frontend, a 2-layer
+    bi-LSTM of 32, a 2-layer decoder of 32, Bahdanau attention 16, V = 61,
+    dropout 0) from a seeded init, its output layer x4 (no greedy or beam
+    near-ties), and seeded frames, targets and lengths."""
+    from espresso_tpu_torch.models.speech_lstm import SpeechLSTMConfig, SpeechLSTMModel
+
+    torch.manual_seed(seed)
+    cfg = SpeechLSTMConfig(feat_dim=16, vocab_size=61, conv_channels=(4, 8),
+                           conv_kernel_sizes=((3, 3), (3, 3)), conv_strides=((2, 2), (2, 2)),
+                           encoder_hidden_size=32, encoder_layers=2, decoder_embed_dim=12,
+                           decoder_hidden_size=32, decoder_out_embed_dim=40, decoder_layers=2,
+                           attention_dim=16, dropout=0.0, **over)
+    model = SpeechLSTMModel(cfg)
+    with torch.no_grad():
+        model.decoder.fc_out.weight.mul_(4.0)
+    g = torch.Generator().manual_seed(seed)
+    frames = torch.randn(3, 60, 16, generator=g)
+    lengths = torch.tensor([60, 45, 23])
+    target = torch.randint(3, 61, (3, 7), generator=g)
+    target[1, 5:], target[2, 3:] = 1, 1
+    target[0, 6], target[1, 4], target[2, 2] = 2, 2, 2
+    prev = torch.cat([torch.full((3, 1), 2), target[:, :-1]], 1)
+    return model, frames, lengths, target, prev
+
+
+def test_speech_lstm_train_step_on_the_card_matches_the_cpu(dev):
+    """One fp32 train step of the attention encoder-decoder (label-smoothed
+    CE, adam, clip 0.5, scheduled sampling off) on the card and on the CPU
+    from one init: the loss and gradient norm to 1e-5 relative, every
+    weight to 1e-5 (cuDNN's LSTM beside ATen's loop)."""
+    import copy
+
+    from espresso_tpu_torch.config import EspressoConfig
+    from espresso_tpu_torch.criterions import build_criterion
+    from espresso_tpu_torch.train import trainer
+
+    torch.backends.cudnn.allow_tf32 = False  # cuDNN's LSTM in full fp32, as on the CPU
+    cfg = EspressoConfig()
+    cfg.common.dtype, cfg.criterion.label_smoothing = "float32", 0.1
+    cfg.optimization.clip_norm, cfg.optimization.lr, cfg.optimizer.adam_eps = 0.5, [0.01], 1e-4
+    model, frames, lengths, target, prev = _speech_lstm(1)
+    batch = {"src_frames": frames, "src_lengths": lengths, "target": target, "prev_output_tokens": prev,
+             "tgt_lengths": (target != 1).sum(1), "weight": torch.ones(3)}
+    task = type("T", (), {"dictionary": type("D", (), {"pad": lambda self: 1, "count": [1] * 61})()})()
+    out = []
+    for d in (torch.device("cpu"), dev):
+        m = copy.deepcopy(model).to(d)
+        opt, _ = trainer.build_optimizer(cfg)
+        state = trainer.create_train_state(m, opt, cfg)
+        step = trainer.make_train_step(m, build_criterion(cfg.criterion, task), opt, cfg)
+        state, metrics = step(state, {k: v[None].to(d) for k, v in batch.items()},
+                              torch.Generator(device=d).manual_seed(0))
+        out.append(({k: metrics[k].item() for k in ("loss", "gnorm")}, state.params.cpu()))
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = out
+    for k in m_cpu:
+        assert abs(m_gpu[k] - m_cpu[k]) <= 1e-5 * abs(m_cpu[k]), (k, m_gpu[k], m_cpu[k])
+    torch.testing.assert_close(p_gpu, p_cpu, rtol=0, atol=1e-5)
+
+
+def test_speech_lstm_beam_with_lm_on_the_card_matches_the_cpu(dev):
+    """The beam search (K = 5, eos_factor 1.5, lenpen 0.6) fused with an
+    LSTM LM at 0.47, fp32, on the card and on the CPU: the same n-best
+    tokens, scores to 1e-4 relative; the card's loop makes no host sync."""
+    from espresso_tpu_torch.decode.beam_search import BeamSearchDecoder
+    from espresso_tpu_torch.models.lstm_lm import LSTMLanguageModel, LSTMLMConfig
+
+    torch.backends.cudnn.allow_tf32 = False  # cuDNN's LSTM in full fp32, as on the CPU
+    model, frames, lengths, _, _ = _speech_lstm(2)
+    torch.manual_seed(3)
+    lm = LSTMLanguageModel(LSTMLMConfig(vocab_size=61, embed_dim=16, hidden_size=24, out_embed_dim=24,
+                                        num_layers=2, dropout=0.0))
+    dic = type("D", (), {"eos": lambda self: 2, "pad": lambda self: 1})()
+    out = []
+    for d in (torch.device("cpu"), dev):
+        dec = BeamSearchDecoder(model.to(d).eval(), dic, beam_size=5, max_len_b=15, eos_factor=1.5,
+                                len_penalty=0.6, lm=lm.to(d).eval(), lm_weight=0.47)
+        batch = {"src_frames": frames.to(d), "src_lengths": lengths.to(d)}
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                handle = dec.decode_async(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            out.append(dec.collect(handle))
+        else:
+            out.append(dec.decode(batch))
+    for want, got in zip(*out):
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g["tokens"], w["tokens"])
+            assert abs(g["score"] - w["score"]) <= 1e-4 * abs(w["score"])

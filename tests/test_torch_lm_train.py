@@ -208,8 +208,19 @@ def test_losses_and_criteria_match_jax(smoothing):
     assert int(size) == int(jsize) == int(log["ntokens"]) == int(mask.sum())
     for g, w in ((loss, jloss), (log["nll_loss"], jlog["nll_loss"])):
         np.testing.assert_allclose(g.item(), float(w), rtol=RTOL)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        crit(None, {"src_frames": None, **batch})
+    # a speech batch goes through the encoder-decoder's teacher-forced
+    # forward, (logits, encoder output), with the scheduled-sampling rate
+    seen = {}
+
+    def speech_model(frames, lengths, tokens, ss_prob=1.0):
+        seen.update(frames=frames, lengths=lengths, ss_prob=ss_prob)
+        return t(logits), None
+
+    speech = {"src_frames": t(np.zeros((3, 4, 2), np.float32)), "src_lengths": t(np.ones(3, np.int32)),
+              **{k: t(v) for k, v in batch.items()}}
+    loss2, size2, _ = crit(speech_model, speech, ss_prob=0.7)
+    assert float(loss2) == float(loss) and int(size2) == int(size) and seen["ss_prob"] == 0.7
+    assert seen["frames"] is speech["src_frames"] and seen["lengths"] is speech["src_lengths"]
 
 
 def _configs():

@@ -3,10 +3,12 @@
 WER scoring, BLEU/chrF, the metrics aggregator and progress lines, the
 heartbeat, the data-preparation CLIs and the saved-model-config restore give
 JAX's results (strings and numbers equal, files byte for byte); then the
-recipe end to end on the port alone: prep -> the train CLI for 2 epochs
-with WER validation -> checkpoint averaging -> ``speech_recognize`` at
-beam 2 -> the ``wer`` file, and the hub's ``transcribe`` gives the CLI's
-hypotheses. Everything runs on the CPU (``device="cpu"``), f32.
+recipe end to end on the port for each model family: prep -> the train CLI
+with WER validation -> ``speech_recognize`` -> the result files, and the
+hub's ``transcribe`` gives the CLI's hypotheses (the transducer's through
+checkpoint averaging; the attention encoder-decoder's files, alone and
+with an LM, byte for byte against JAX's CLI). Everything runs on the CPU
+(``device="cpu"``), f32.
 """
 
 import contextlib
@@ -46,6 +48,29 @@ TINY = [
     "model.pred_dropout=0.0", "model.joint_dim=16", "optimization.lr=0.005",
     "optimization.clip_norm=2.0", "common.log_interval=2", "common.dtype=float32",
 ]
+
+# speech_conv_lstm_wsj (lstm_wsj.yaml's criterion) narrowed: a 2-layer frontend
+# (4x subsampling), one bi-LSTM layer of 16, two decoder layers of 16,
+# attention 12, scheduled sampling on
+LSTM_TINY = [
+    "dataset.max_tokens=400", "dataset.num_batch_buckets=1", "dataset.feat_dim=12",
+    "criterion.name=label_smoothed_cross_entropy_v2", "criterion.label_smoothing=0.05",
+    "criterion.smoothing_type=temporal", "model.name=speech_conv_lstm_wsj", "model.conv_channels=(4,8)",
+    "model.conv_kernel_sizes=((3,3),(3,3))", "model.conv_strides=((2,2),(2,2))",
+    "model.encoder_hidden_size=16", "model.encoder_layers=1", "model.decoder_embed_dim=8",
+    "model.decoder_hidden_size=16", "model.decoder_out_embed_dim=24", "model.decoder_layers=2",
+    "model.attention_dim=12", "optimization.lr=0.005", "optimization.clip_norm=2.0",
+    "common.dtype=float32", "task.scheduled_sampling=true", "task.scheduled_sampling_probs=0.8",
+]
+# what each family's speech_recognize and hub take beside the data, the
+# checkpoint directory and the feature width: the transducer decodes the
+# average of its 2 epoch checkpoints at beam 2, the encoder-decoder its
+# checkpoint_last at beam 3 with eos_factor
+DECODE = {
+    "transducer": {"checkpoint.restore_file": "checkpoint_avg", "generation.beam": 2},
+    "lstm": {"dataset.max_tokens": 100000, "dataset.num_batch_buckets": 1, "generation.beam": 3,
+             "generation.eos_factor": 1.2, "generation.max_len_b": 12},
+}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -260,13 +285,68 @@ def test_saved_model_cfg_resolves_as_jax_does(tmp_path, monkeypatch, overrides):
     assert jax_config.config_to_dict(jt.model_cfg) == port_config.config_to_dict(pt.build_model_config()[1])
 
 
-def test_recipe_end_to_end_on_the_port(tmp_path):
-    """prep (asr_prep_json from scp and text files) -> train 2 epochs with
-    WER validation -> average the 2 epoch checkpoints -> speech_recognize at
-    beam 2 from checkpoint_avg -> the four result files; the hub's
-    transcribe on two utterances gives the CLI's hypotheses."""
+def _write_lm(d):
+    """A seeded LSTM LM over make_corpus's 11 units in ``d``/lm, as the
+    train CLI writes one (model_cfg.json and checkpoint_last)."""
+    from espresso_tpu_torch.bridge import flax_paths, to_flax_layout
+    from espresso_tpu_torch.models.lstm_lm import LSTMLanguageModel, LSTMLMConfig
+    from espresso_tpu_torch.train import checkpoint as ckpt
+
+    torch.manual_seed(0)
+    lm_cfg = LSTMLMConfig(vocab_size=11, embed_dim=8, hidden_size=12, out_embed_dim=12, num_layers=2)
+    lm = LSTMLanguageModel(lm_cfg)
+    named, params = dict(lm.named_parameters()), {}
+    for name, path in flax_paths(lm)[0].items():
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.array(to_flax_layout(path[-1], named[name].detach().numpy()))
+    os.makedirs(f"{d}/lm")
+    with open(f"{d}/lm/model_cfg.json", "w") as f:
+        json.dump({"model_name": "LSTMLanguageModel", "name": "lstm_lm_espresso",
+                   "config": port_config.config_to_dict(lm_cfg)}, f)
+    ckpt.save_checkpoint_state(f"{d}/lm/checkpoint_last", ckpt.flatten_tree({"params": params}), {})
+
+
+def _jax_recognizer(monkeypatch, raw):
+    """JAX's speech_recognize reading the port's checkpoint files through
+    the port's reader (its own reads orbax directories; an orbax write and
+    restore here cost ~15 s), with a train state of the checkpoint's tree
+    in place of the one it inits for the tree's structure alone."""
+    from espresso_tpu.cli import speech_recognize as jax_rec
+    from espresso_tpu.models.lstm_lm import LSTMLanguageModel as JaxLM
+    from espresso_tpu.models.lstm_lm import LSTMLMConfig as JaxLMConfig
+    from espresso_tpu.train import checkpoint as jax_ckpt
+    from espresso_tpu.train.trainer import TrainState
+    from espresso_tpu_torch.train import checkpoint as ckpt
+
+    def jax_lm(ckpt_dir):  # JAX's _load_lm_checkpoint, its restore the port's reader
+        with open(os.path.join(ckpt_dir, "model_cfg.json")) as f:
+            cfg = JaxLMConfig(**json.load(f)["config"])
+        return JaxLM(cfg), {"params": ckpt.load_raw_checkpoint(f"{ckpt_dir}/checkpoint_last")["params"]}, cfg
+
+    monkeypatch.setenv("ESPRESSO_COMPILE_CACHE", "0")  # JAX's parse_config would turn it on
+    monkeypatch.setattr(jax_ckpt, "load_raw_checkpoint", ckpt.load_raw_checkpoint)
+    monkeypatch.setattr(jax_rec, "_load_lm_checkpoint", jax_lm)
+    monkeypatch.setattr(jax_rec, "create_train_state", lambda *a, **kw: TrainState(
+        step=0, params=raw["params"], batch_stats=raw["batch_stats"], opt_state=None))
+    return jax_rec.main
+
+
+@pytest.mark.parametrize("family", ["transducer", "lstm"])
+def test_recipe_end_to_end_on_the_port(tmp_path, monkeypatch, family):
+    """prep (asr_prep_json from scp and text files) -> the train CLI with
+    WER validation -> speech_recognize -> the four result files; the hub's
+    transcribe on two utterances gives the CLI's hypotheses. The conformer
+    transducer trains 2 epochs and decodes from the average of its 2 epoch
+    checkpoints. The attention encoder-decoder (``LSTM_TINY``) trains 2
+    updates with scheduled sampling and decodes alone and fused with an
+    LSTM LM; JAX's speech_recognize (``_jax_recognizer``) on the same
+    checkpoints writes the same four files byte for byte and returns the
+    same numbers."""
     from espresso_tpu_torch import hub
     from espresso_tpu_torch.cli import average_checkpoints, speech_recognize, train
+    from espresso_tpu_torch.train import checkpoint as ckpt
 
     d = str(tmp_path)
     for split, n, seed in (("train", 12, 0), ("valid", 4, 1)):
@@ -279,23 +359,38 @@ def test_recipe_end_to_end_on_the_port(tmp_path):
                         f"{d}/{split}.text", "--utt2num-frames-files", f"{d}/{split}.utt2num_frames",
                         "--output", f"{d}/{split}.json"])
     shutil.copy(f"{d}/valid.json", f"{d}/test.json")
-    args = [f"dataset.data={d}", f"checkpoint.save_dir={d}/ckpt"] + TINY
-    stats = train.main(args + ["optimization.max_epoch=2"], device="cpu")
+    args = [f"dataset.data={d}", f"checkpoint.save_dir={d}/ckpt"]
+    if family == "transducer":
+        stats = train.main(args + TINY + ["optimization.max_epoch=2"], device="cpu")
+        for name in ("checkpoint1", "checkpoint2", "checkpoint_best", "checkpoint_last", "model_cfg.json"):
+            assert os.path.exists(f"{d}/ckpt/{name}"), name
+        average_checkpoints.main(["--inputs", f"{d}/ckpt", "--num-epoch-checkpoints", "2",
+                                  "--output", f"{d}/ckpt/checkpoint_avg"])
+        lm_runs = [{}]
+    else:
+        stats = train.main(args + LSTM_TINY + ["optimization.max_update=2"], device="cpu")
+        raw = ckpt.load_raw_checkpoint(f"{d}/ckpt/checkpoint_last")
+        assert int(raw["step"]) == 2
+        _write_lm(d)
+        jax_main = _jax_recognizer(monkeypatch, raw)
+        lm_runs = [{}, {"generation.lm_path": f"{d}/lm", "generation.lm_weight": 0.4}]
     assert np.isfinite(stats["loss"]) and "valid_wer" in stats and "valid_cer" in stats
-    for name in ("checkpoint1", "checkpoint2", "checkpoint_best", "checkpoint_last", "model_cfg.json"):
-        assert os.path.exists(f"{d}/ckpt/{name}"), name
-    average_checkpoints.main(["--inputs", f"{d}/ckpt", "--num-epoch-checkpoints", "2",
-                              "--output", f"{d}/ckpt/checkpoint_avg"])
-    dec = [f"dataset.data={d}", f"checkpoint.save_dir={d}/ckpt", "dataset.feat_dim=12",
-           "common.dtype=float32", "checkpoint.restore_file=checkpoint_avg", "generation.beam=2",
-           f"generation.results_path={d}/dec"]
-    res = speech_recognize.main(dec, device="cpu")
-    assert res["num_utts"] == 4 and 0.0 <= res["wer"]
-    assert sorted(os.listdir(f"{d}/dec")) == ["aligned_results.txt", "cer", "decoded_results.txt", "wer"]
-    assert open(f"{d}/dec/wer").read().startswith("WER: ")
-    cli = dict(line.rstrip("\n").partition(" ")[::2] for line in open(f"{d}/dec/decoded_results.txt"))
+    common = {"dataset.feat_dim": 12, "common.dtype": "float32", **DECODE[family]}
+    files = ["aligned_results.txt", "cer", "decoded_results.txt", "wer"]
+    for i, lm in enumerate(lm_runs):
+        dec = args + [f"{k}={v}" for k, v in {**common, **lm}.items()]
+        res = speech_recognize.main(dec + [f"generation.results_path={d}/dec{i}"], device="cpu")
+        assert res["num_utts"] == 4 and 0.0 <= res["wer"]
+        assert sorted(os.listdir(f"{d}/dec{i}")) == files
+        assert open(f"{d}/dec{i}/wer").read().startswith("WER: ")
+        if family == "lstm":
+            assert jax_main(dec + [f"generation.results_path={d}/jax{i}"]) == res, lm
+            for name in files:
+                assert open(f"{d}/dec{i}/{name}", "rb").read() == open(f"{d}/jax{i}/{name}", "rb").read(), (lm, name)
+    cli = dict(line.rstrip("\n").partition(" ")[::2] for line in open(f"{d}/dec{i}/decoded_results.txt"))
+    assert any(cli.values())  # the hypotheses are not all empty
     test = json.load(open(f"{d}/test.json"))
     utts = sorted(test)[:2]
-    asr = hub.from_pretrained(f"{d}/ckpt", data_dir=d, beam=2, device="cpu", **{
-        "checkpoint.restore_file": "checkpoint_avg", "dataset.feat_dim": 12, "common.dtype": "float32"})
+    asr = hub.from_pretrained(f"{d}/ckpt", data_dir=d, beam=common["generation.beam"], device="cpu",
+                              **{**common, **lm_runs[-1]})
     assert asr.transcribe([test[u]["feat"] for u in utts]) == [cli[u] for u in utts]

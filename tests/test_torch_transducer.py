@@ -271,7 +271,10 @@ def test_port_imports_no_jax():
         "       'espresso_tpu_torch.cli.logging_utils', 'espresso_tpu_torch.hub',\n"
         "       'espresso_tpu_torch.ops.losses', 'espresso_tpu_torch.data.lm_dataset',\n"
         "       'espresso_tpu_torch.data.indexed_dataset', 'espresso_tpu_torch.cli.eval_lm',\n"
-        "       'espresso_tpu_torch.train.lr_schedulers'}\n"
+        "       'espresso_tpu_torch.train.lr_schedulers', 'espresso_tpu_torch.modules.lstm',\n"
+        "       'espresso_tpu_torch.modules.speech_attention', 'espresso_tpu_torch.decode.api',\n"
+        "       'espresso_tpu_torch.decode.greedy', 'espresso_tpu_torch.decode.beam_search',\n"
+        "       'espresso_tpu_torch.tools.scheduled_sampling'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = [m for m in ('jax', 'flax', 'espresso_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
