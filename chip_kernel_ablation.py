@@ -101,9 +101,9 @@ VARIANTS = [
         "  if (EXP == 33) { rs.m[0] += acc[0]; rs.m[1] += acc[63]; return; }\n")]),
     ("rnnt_joint_lp.cu", 34, "the consumers' stores of the joint hidden", [(
         "      jh.store(smem + (pre - base)", "      if (EXP != 34) jh.store(smem + (pre - base)")]),
-    ("rel_attention_train.cu", 11, "query pass: the dp atomics", [(
-        "    add_dp(dp, dpc, j0, T, D, h, qr, f.q);",
-        "    if (EXP != 11) add_dp(dp, dpc, j0, T, D, h, qr, f.q);")]),
+    ("rel_attention_train.cu", 11, "query pass: the dp band stores", [(
+        "    store_dp(band, dpc, k0, D, h, qr, f.q);",
+        "    if (EXP != 11) store_dp(band, dpc, k0, D, h, qr, f.q);")]),
     ("rel_attention_train.cu", 12, "query pass: the statistics' arithmetic", [(
         "    if (t == 0) refill(it + S);  // every product of the stage is done\n",
         "    if (t == 0) refill(it + S);  // every product of the stage is done\n"

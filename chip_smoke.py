@@ -37,7 +37,9 @@ eleven Hopper kernels:
    timed beside its bound; ``fbank`` also at 22.05, 44.1 (an odd shift), 48, 96, 176.4,
    192, 352.8 and 384 kHz, the 1024- to 8192-point instances and the large
    instance, at edge counts and at a batch of the serving batch's audio
-   seconds), and times kernel and plain version at
+   seconds; ``fbank`` and its plain version each against the function in
+   float64 on the card at 16, 8 and 384 kHz), and times kernel and plain
+   version at
    the flagship shape (and, beside B5, B6 and B7, their products alone
    through cuBLAS as a yardstick, beside B1 the forward of
    ``scaled_dot_product_attention``, beside B2 its forward with dropout,
@@ -111,15 +113,17 @@ eleven Hopper kernels:
 9. runs the recipe through the port's entry points (``run_recipe_clis``,
    run.sh's stages): ``prep asr_prep_json`` and ``text2vocabulary`` over a
    seeded 32 + 8 utterance WAV corpus (V = 5,004), ``cli.train.main`` for
-   2 epochs at the flagship width with WER validation, SIGTERM raised
-   after the first update of epoch 2 and a second ``main`` resuming from
-   checkpoint_last (asynchronous checkpoint writes), ``average_checkpoints
-   --num-epoch-checkpoints 2``, ``speech_recognize`` from checkpoint_avg at
-   beam 10 and again fused with the LM the LM stage trained (B7 on its
-   stack at Hp = 832, L = 4), and the hub's ``transcribe`` against
-   ``speech_recognize`` on the same inputs; every kernel's launches per
-   step, valid batch and decode batch asserted; prints the ``recipe_cli``
-   JSON line;
+   2 epochs at the flagship width (8 layers) with WER validation, SIGTERM
+   raised after the first update of epoch 2 and a second ``main`` resuming
+   from checkpoint_last (asynchronous checkpoint writes),
+   ``average_checkpoints --num-epoch-checkpoints 2``, ``speech_recognize``
+   from checkpoint_avg at beam 10 and again fused with the LM the LM stage
+   trained (B7 on its stack at Hp = 832, L = 4), and the hub's
+   ``transcribe`` against ``speech_recognize`` on the same inputs; every
+   kernel's launches per step, valid batch and decode batch asserted; one
+   test WAV decoded alone at two paddings (bf16 on the card, fp32 on the
+   CPU) and the train CLI run twice from one seed for 3 updates, each
+   logging where its two runs part; prints the ``recipe_cli`` JSON line;
 10. runs the LSTM attention encoder-decoder's recipe (``run_recipe_lstm``,
    ``lstm_librispeech.yaml``) at ``speech_conv_lstm_librispeech``'s full
    width on a seeded 40 + 8 utterance WAV corpus through the front (B10):
@@ -131,7 +135,19 @@ eleven Hopper kernels:
    (the n-best rank by rank), and one encoder layer's forward and backward
    with separate and with flattened weights (``time_lstm_weight_compaction``);
    B10's launches asserted; prints the ``recipe_lstm`` JSON line;
-11. encodes and trains 2 layers of the flagship on utterances past its
+11. runs the transformer encoder-decoder's recipe (``run_recipe_transformer``,
+   ``transformer_librispeech.yaml``) at ``speech_transformer_librispeech``'s
+   full width (12 transformer encoder layers with relative positions, 6
+   decoder layers, d 512, tied embedding) on a seeded 56 + 8 utterance WAV
+   corpus through the front: ``cli.train.main`` for an epoch (update_freq
+   8) with its greedy WER validation, a second ``main`` resuming for epoch
+   2, two fp32 train steps card against CPU, every B1, B2 and B3 call of an
+   encoder pass and a train step held against its plain version in situ,
+   ``speech_recognize`` at beam 60 alone and fused at 0.4 with the LM the
+   LM stage trained (no host sync while a batch is launched), a 2-utterance
+   fp32 beam_lm decode of a seeded model card against CPU; the launches of
+   B1, B2, B3 and B10 asserted; prints the ``recipe_transformer`` JSON line;
+12. encodes and trains 2 layers of the flagship on utterances past its
    relative table (T' = 1500).
 
 Any failure raises (nonzero exit) before the result lines. Prints the
@@ -891,8 +907,9 @@ def check_train_kernels(dev) -> dict:
         "rel_attention_train_bwd", plain_calls=3,
     ))
     bwd_fn = lambda: ak.rel_attention_train_bwd(*args, a["seed"], a["g"], H, scale, rate)
-    # the wrapper's whole device time (its dp fill included) and the split
-    # by kernel; a yardstick of the order of size, not the same function:
+    # the wrapper's whole device time and the split by kernel (the query
+    # pass, the dp bands' sum and the key pass); a yardstick of the order of
+    # size, not the same function:
     # scaled_dot_product_attention's backward, which has no relative positions
     row["ms_all_kernels"] = device_ms(bwd_fn)
     row["sdpa_bwd_ms"] = sdpa_bwd_ms(B, T, H, D // H, rate, dev)
@@ -1099,8 +1116,18 @@ def check_front_kernels(dev) -> dict:
             f"{r['ms']} ms, bound {row[f'{tag}_bound_ms']} ms; errors {errs[-2 * len(edges) - 1:]}")
         del ar
         torch.cuda.empty_cache()
+    # which side errs (ROADMAP queue C item 2): the kernel and the card's
+    # plain version each against the function in float64 on the card, at the
+    # serving batch (16 kHz), 8 kHz and the large instance's 384 kHz
+    sources = {"khz16": fc.fbank_error_sources(a)}
+    sources["khz8"] = fc.fbank_error_sources(a8, sample_rate=8000.0)
+    for nums, S_edge in dict(FBANK_RATES)[384000.0]:
+        ae = fc.waveform_inputs(nums, S_edge, seed=S_edge, dev=dev, sample_rate=384000.0)
+        sources[f"khz384_S{S_edge}"] = fc.fbank_error_sources(ae, sample_rate=384000.0)
+    log(f"fbank log errors on the loud bins against the float64 function on the card: {sources} (bound "
+        f"{fc.FBANK_LOG_TOL}, the kernel's)")
     rows["fbank"] = dict(row, max_abs_err=max(e["log"] for e in errs), valid_frames=valid,
-                         linear_err=max(e["linear"] for e in errs))
+                         linear_err=max(e["linear"] for e in errs), f64_error_sources=sources)
     log(f"fbank serving-batch bound: {row['bound_ms']} ms ({row['bound_by']}, {valid} valid "
         f"frames of {B * T}, {fft_flops / 1e9:.3f} GFLOP at FFT level, {n_bytes / 1e6:.1f} MB, "
         f"mel table {mel_nnz} non-zeros); cuFFT's rfft of the valid frames alone "
@@ -1159,6 +1186,7 @@ def flagship_model(dev, layers: int = 16):
         feat_dim=FLAGSHIP["FEAT"],
         vocab_size=FLAGSHIP["VOCAB"],
         encoder=SpeechTransformerConfig(
+            encoder_layer_type="conformer", encoder_pos_type="relative",
             encoder_embed_dim=512, encoder_ffn_dim=2048, encoder_layers=layers,
             encoder_heads=8, depthwise_conv_kernel_size=31,
         ),
@@ -1732,6 +1760,7 @@ def train_model(dev, dropout: float, layers: int = 16):
         feat_dim=FLAGSHIP["FEAT"],
         vocab_size=FLAGSHIP["VOCAB"],
         encoder=SpeechTransformerConfig(
+            encoder_layer_type="conformer", encoder_pos_type="relative",
             encoder_embed_dim=512, encoder_ffn_dim=2048, encoder_layers=layers,
             encoder_heads=8, depthwise_conv_kernel_size=31, dropout=dropout,
         ),
@@ -2581,6 +2610,10 @@ def recipe_lm(dev, tmpdir: str, card: str) -> dict:
 CLI_CORPUS = dict(train=32, valid=8)
 CLI_EPOCHS = 2
 CLI_SIGTERM_AFTER = 1
+# the phase's depth, cut from the recipe's 16 conformer layers (the width
+# stays the flagship's) so that the script stays near its time budget as
+# later recipe phases join it
+CLI_LAYERS = 8
 
 
 def encoded_frames(T: int, enc_cfg) -> int:
@@ -2589,6 +2622,122 @@ def encoded_frames(T: int, enc_cfg) -> int:
     for (kt, _), (st, _) in zip(enc_cfg.conv_kernel_sizes, enc_cfg.conv_strides):
         T = (T + (kt - 1) // 2 + kt // 2 - kt) // st + 1
     return T
+
+
+# ROADMAP queue C item 3: one test WAV decoded alone at two paddings (206,960
+# and 215,280 samples, the hub's batch and the test split's in an earlier
+# run), and two runs of the train CLI for REPRO_STEPS updates from one seed
+PADDINGS = (206960, 215280)
+REPRO_STEPS = 3
+
+
+def first_difference(a, b):
+    """The first index where two token sequences differ (None if equal)."""
+    a, b = [int(t) for t in a], [int(t) for t in b]
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None if a == b else min(len(a), len(b)))
+
+
+def decode_at_paddings(dev, cfg, task, tree, wav: str) -> dict:
+    """The WAV zero-padded to each of PADDINGS (or to its own length and
+    8,320 past it, when longer), through the on-device front and the beam
+    decoder of the recipe CLI's settings, in bf16 on the card and in fp32 on
+    the CPU (the attention kernels take bf16 alone, and the card runs
+    nothing else): per dtype the hypotheses and scores at each padding, the
+    first token where they part, and the largest difference between the
+    paddings of the valid frames' features and encoder outputs."""
+    from espresso_tpu_torch.data.audio import read_wav
+    from espresso_tpu_torch.train.trainer import make_device_feature_fn
+
+    pcm, _ = read_wav(wav)
+    S0 = len(pcm)
+    pads = PADDINGS if S0 <= PADDINGS[0] else (S0, S0 + PADDINGS[1] - PADDINGS[0])
+    prepare = make_device_feature_fn(cfg)
+    feats = []
+    for P in pads:
+        w = torch.zeros(1, P, device=dev)
+        w[0, :S0] = torch.from_numpy(pcm).to(dev)
+        with torch.no_grad():
+            feats.append(prepare({"src_waveforms": w, "num_samples": torch.tensor([S0], device=dev,
+                                                                                    dtype=torch.int32)}))
+    n = int(feats[0]["src_lengths"][0])
+    out = dict(samples=S0, paddings=list(pads), frames=[int(f["src_frames"].shape[1]) for f in feats],
+               feature_diff=(feats[0]["src_frames"][:, :n] - feats[1]["src_frames"][:, :n]).abs().max().item())
+    for dtype, where in ((torch.float32, torch.device("cpu")), (torch.bfloat16, dev)):
+        model = trained_model(task, tree, where).to(dtype).eval()
+        dec = task.build_generator(model, cfg.generation)
+        hyps, encs = [], []
+        for f in feats:
+            frames, lengths = f["src_frames"].to(where, dtype), f["src_lengths"].to(where)
+            with torch.no_grad():
+                enc = model.encode(frames, lengths)
+            encs.append(enc.encoder_out[:, : int(enc.src_lengths[0])].float())
+            hyps.append(dec.decode({"src_frames": frames, "src_lengths": lengths})[0][0])
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        out[tag] = dict(tokens=[[int(t) for t in h["tokens"]] for h in hyps], scores=[h["score"] for h in hyps],
+                        part_at=first_difference(hyps[0]["tokens"], hyps[1]["tokens"]),
+                        encoder_diff=(encs[0] - encs[1]).abs().max().item())
+        del model, dec
+    log(f"recipe CLI one WAV at two paddings (queue C item 3): {out}")
+    return out
+
+
+def train_reproducibility(dev, args, base_dir: str) -> dict:
+    """The recipe's train CLI twice from one seed for REPRO_STEPS updates
+    (no checkpoint written, the valid pass skipped): each update's loss and
+    gradient norm, and after
+    each update the parameters; the first update where the runs differ and,
+    at it, the loss's difference and the parameters that differ (by flax
+    path, the largest first)."""
+    import os
+
+    from espresso_tpu_torch.bridge import flax_paths
+    from espresso_tpu_torch.cli import train as train_cli
+
+    runs = []
+    make_step, validate = train_cli.make_train_step, train_cli.validate
+    for r in range(2):
+        rec = []
+        names = {}
+
+        def recorded(model, *a, **kw):
+            step = make_step(model, *a, **kw)
+            names["params"] = [(name, p.numel()) for name, p in model.named_parameters()]
+            names["paths"] = flax_paths(model)[0]
+
+            def run(state, batch, gen, *rest):
+                state, m = step(state, batch, gen, *rest)
+                rec.append((m["loss"].item(), m["gnorm"].item(), state.params.detach().cpu().clone()))
+                return state, m
+            return run
+
+        train_cli.make_train_step = recorded
+        train_cli.validate = lambda *a, **kw: {"loss": 0.0}
+        try:
+            train_cli.main(args + [f"checkpoint.save_dir={os.path.join(base_dir, f'repro{r}')}",
+                                   f"optimization.max_update={REPRO_STEPS}", "checkpoint.no_save=true"],
+                           device=dev)
+        finally:
+            train_cli.make_train_step, train_cli.validate = make_step, validate
+        runs.append(rec)
+    a, b = runs
+    out = dict(steps=[len(a), len(b)], losses=[[x[0] for x in a], [x[0] for x in b]],
+               gnorms=[[x[1] for x in a], [x[1] for x in b]], first_differing_step=None)
+    for k, (x, y) in enumerate(zip(a, b)):
+        if x[0] == y[0] and x[1] == y[1] and torch.equal(x[2], y[2]):
+            continue
+        diffs, off = [], 0
+        for name, size in names["params"]:
+            d = (x[2][off : off + size] - y[2][off : off + size]).abs().max().item()
+            if d > 0:
+                diffs.append(("/".join(names["paths"][name]), d))
+            off += size
+        diffs.sort(key=lambda t: -t[1])
+        out.update(first_differing_step=k + 1, loss_diff=x[0] - y[0], gnorm_diff=x[1] - y[1],
+                   differing_params=len(diffs), of_params=len(names["params"]), largest=diffs[:12],
+                   smallest=diffs[-6:])
+        break
+    log(f"recipe CLI train twice from one seed for {REPRO_STEPS} updates (queue C item 3): {out}")
+    return out
 
 
 def run_recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
@@ -2600,8 +2749,8 @@ def run_recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
 
 def recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
     """The recipe as run.sh runs it, through the port's entry points at the
-    flagship width (16 layers, d=512, V=5,004): stages 1-2 (``prep
-    asr_prep_json`` from wav.scp and token-text files, ``prep
+    flagship width cut to CLI_LAYERS layers (d=512, V=5,004): stages 1-2
+    (``prep asr_prep_json`` from wav.scp and token-text files, ``prep
     text2vocabulary`` over the 5,000 units, global CMVN from the train
     split); stage 4 (``cli.train.main`` on the card for CLI_EPOCHS epochs
     with WER validation, SIGTERM raised after CLI_SIGTERM_AFTER updates of
@@ -2676,11 +2825,12 @@ def recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
     recipe["dataset"].update(data=data, global_cmvn_stats_path=cmvn)
     recipe["checkpoint"]["save_dir"] = save_dir
     recipe["optimization"]["max_epoch"] = CLI_EPOCHS
+    recipe["model"]["encoder"] = {"encoder_layers": CLI_LAYERS}
     cfg_path = os.path.join(root, "recipe.json")
     with open(cfg_path, "w") as f:
         json.dump(recipe, f)
     args = ["--config", cfg_path]
-    from espresso_tpu_torch.config import load_config_dict
+    from espresso_tpu_torch.config import load_config_dict, parse_config
     from espresso_tpu_torch.tasks import setup_task
 
     task = setup_task(load_config_dict(recipe))
@@ -2905,6 +3055,18 @@ def recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
     log(f"recipe CLI hub: {utts} -> {got}, the CLI's hypotheses")
     del asr
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dec_cfg = parse_config(dec_args)
+    dec_task = setup_task(dec_cfg)
+    avg_tree = ckpt.load_raw_checkpoint(os.path.join(save_dir, "checkpoint_avg"))
+    paddings = decode_at_paddings(dev, dec_cfg, dec_task, avg_tree, test[utts[0]]["wave"])
+    del avg_tree, dec_task
+    torch.cuda.empty_cache()
+    secs["paddings"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    repro = train_reproducibility(dev, args, root)
+    secs["reproducibility"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     return dict(
         corpus=corpus, vocab=V, layers=layers, stage_s=secs, steps=n, steps_by_epoch=rec["epoch_steps"],
         train_ms_per_step=statistics.mean(step_ms), step_ms=step_ms, valid_batches=nv,
@@ -2912,7 +3074,7 @@ def recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
         sigterm=sigterm_state, train_launches=train_counts,
         checkpoint_bytes=size("checkpoint_last"), device_to_host_s=rec["copies"],
         saves=[dict(name=a, async_write=b, s=c) for a, b, c in rec["saves"]], decodes=decodes,
-        hub=dict(utts=utts, hyps=got), card=card,
+        hub=dict(utts=utts, hyps=got), paddings=paddings, reproducibility=repro, card=card,
     )
 
 
@@ -2965,7 +3127,7 @@ def run_recipe_lstm(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
         return recipe_lstm(dev, tmpdir, card, lm_dir)
 
 
-def lstm_sub_batch(dev, cfg, rows: int):
+def recipe_sub_batch(dev, cfg, rows: int):
     """(task, batch): the first ``rows`` utterances of the test split, as
     log-mel frames from the on-device front (B10, global CMVN) on the card
     cut to the longest of them, and their targets."""
@@ -2985,26 +3147,23 @@ def lstm_sub_batch(dev, cfg, rows: int):
     return task, mb
 
 
-def trained_lstm(task, tree, where):
-    """The task's model on ``where`` with the checkpoint tree's weights,
-    built on the meta device (no seeded init of its ~169 M weights)."""
+def trained_model(task, tree, where):
+    """The task's model (the LSTM's or the transformer's) on ``where`` with
+    the checkpoint tree's weights, its init drawn on ``where`` (the position
+    tables, buffers no checkpoint holds, built as at any init)."""
     from espresso_tpu_torch.bridge import load_jax_variables
     from espresso_tpu_torch.registry import MODELS
 
     base, mcfg = task.build_model_config()
-    with torch.device("meta"):
-        model = MODELS.get(base)(mcfg)
-    model = model.to_empty(device=where)
-    for name, buf in model.named_buffers():
-        if name.endswith("num_batches_tracked"):
-            buf.zero_()
+    with torch.device(where):
+        model = MODELS.get(base)(mcfg).to(where)
     return load_jax_variables(model, {"params": tree["params"], "batch_stats": tree["batch_stats"]})
 
 
-def compare_lstm_train_steps(dev, cfg, tree) -> dict:
+def compare_train_steps_card_cpu(dev, cfg, tree, tag: str = "LSTM") -> dict:
     """Two fp32 train steps of the recipe's model (full width, the trained
-    checkpoint's weights, dropout 0) on the card and on the CPU, on
-    LSTM_CPU_ROWS test utterances cut to LSTM_CPU_FRAMES frames and
+    checkpoint's weights, dropout 0, no SpecAugment) on the card and on the
+    CPU, on LSTM_CPU_ROWS test utterances cut to LSTM_CPU_FRAMES frames and
     LSTM_CPU_TOKENS tokens: the loss within LSTM_CPU_LOSS_RTOL and the
     gradient norm within LSTM_CPU_GNORM_RTOL, relative, at each step."""
     from espresso_tpu_torch.train.trainer import build_optimizer, create_train_state, make_train_step
@@ -3012,7 +3171,9 @@ def compare_lstm_train_steps(dev, cfg, tree) -> dict:
     cfg = copy.deepcopy(cfg)
     cfg.common.dtype = "float32"
     cfg.model["dropout"] = 0.0
-    task, mb = lstm_sub_batch(dev, cfg, LSTM_CPU_ROWS)
+    # the card's and the CPU's generators draw other SpecAugment masks
+    cfg.dataset.specaugment_config = None
+    task, mb = recipe_sub_batch(dev, cfg, LSTM_CPU_ROWS)
     T, U = LSTM_CPU_FRAMES, LSTM_CPU_TOKENS
     batch = {"src_frames": mb["src_frames"][:, :T].float(), "src_lengths": mb["src_lengths"].clamp(max=T),
              "target": mb["target"][:, :U], "prev_output_tokens": mb["prev_output_tokens"][:, :U],
@@ -3020,7 +3181,7 @@ def compare_lstm_train_steps(dev, cfg, tree) -> dict:
     out = []
     for where in (dev, torch.device("cpu")):
         t0 = time.perf_counter()
-        model = trained_lstm(task, tree, where)
+        model = trained_model(task, tree, where)
         optimizer, _ = build_optimizer(cfg)
         state = create_train_state(model, optimizer, cfg)
         step = make_train_step(model, task.build_criterion(), optimizer, cfg)
@@ -3034,14 +3195,14 @@ def compare_lstm_train_steps(dev, cfg, tree) -> dict:
     res = dict(card=card_steps, cpu=cpu_steps, loss_rel_diff=max(r[0] for r in rel),
                gnorm_rel_diff=max(r[1] for r in rel), rows=LSTM_CPU_ROWS, frames=T, tokens=U,
                card_s=card_s, cpu_s=cpu_s, card_setup_s=card_setup_s, cpu_setup_s=cpu_setup_s)
-    log(f"recipe LSTM two fp32 train steps, card vs CPU: {res} (bounds: loss {LSTM_CPU_LOSS_RTOL}, "
+    log(f"recipe {tag} two fp32 train steps, card vs CPU: {res} (bounds: loss {LSTM_CPU_LOSS_RTOL}, "
         f"gnorm {LSTM_CPU_GNORM_RTOL})")
     if not (res["loss_rel_diff"] <= LSTM_CPU_LOSS_RTOL and res["gnorm_rel_diff"] <= LSTM_CPU_GNORM_RTOL):
-        raise AssertionError(f"the encoder-decoder's train step on the card disagrees with the CPU: {res}")
+        raise AssertionError(f"the {tag} train step on the card disagrees with the CPU: {res}")
     return res
 
 
-def seeded_lstm(task, seed: int):
+def seeded_model(task, seed: int):
     """The task's model on the CPU, fp32, from torch's seeded init at
     LeCun's scale (1/sqrt(fan-in)) with the output layer x LSTM_SEEDED_PEAK,
     so that the decoder's choices are not near-ties."""
@@ -3057,10 +3218,10 @@ def seeded_lstm(task, seed: int):
     return model.eval()
 
 
-def compare_lstm_beam(dev, cfg, lm_dir: str) -> dict:
+def compare_beam_card_cpu(dev, cfg, lm_dir: str, tag: str = "LSTM") -> dict:
     """A 2-utterance fp32 beam decode (beam 60, eos_factor 1.5, the LM at
     0.47, LSTM_SUB_MAX_LEN output steps) of the recipe's model from a seeded
-    init (``seeded_lstm``) on the card and on the CPU, from the same frames:
+    init (``seeded_model``) on the card and on the CPU, from the same frames:
     each utterance's n-best holds the same token sequences (two whose
     scores agree within LSTM_BEAM_SCORE_RTOL may swap ranks: a near-tie,
     which ``nbest_share_equal``, the share equal rank by rank, counts), every
@@ -3071,9 +3232,9 @@ def compare_lstm_beam(dev, cfg, lm_dir: str) -> dict:
 
     cfg = copy.deepcopy(cfg)
     cfg.common.dtype = "float32"
-    task, mb = lstm_sub_batch(dev, cfg, 2)
+    task, mb = recipe_sub_batch(dev, cfg, 2)
     gen = cfg.generation
-    cpu_model = seeded_lstm(task, seed=17)
+    cpu_model = seeded_model(task, seed=17)
     out = []
     for where, model in ((dev, copy.deepcopy(cpu_model).to(dev)), (torch.device("cpu"), cpu_model)):
         lm = _load_lm_checkpoint(lm_dir, where, torch.float32)[0]
@@ -3098,10 +3259,10 @@ def compare_lstm_beam(dev, cfg, lm_dir: str) -> dict:
                top1_lengths=[len(gb[0]["tokens"]) for gb in card], distinct_top1=len({
                    tuple(gb[0]["tokens"]) for gb in card}),
                top1=[[int(t) for t in gb[0]["tokens"]] for gb in card], card_s=card_s, cpu_s=cpu_s)
-    log(f"recipe LSTM 2-utterance fp32 beam_lm decode of a seeded model, card vs CPU: {res}")
+    log(f"recipe {tag} 2-utterance fp32 beam_lm decode of a seeded model, card vs CPU: {res}")
     if not (all(res["nbest_sets_equal"]) and all(res["top1_equal"])
             and res["nbest_score_rel_diff"] <= LSTM_BEAM_SCORE_RTOL and min(res["top1_lengths"]) > 1):
-        raise AssertionError(f"the beam decode on the card disagrees with the CPU: {res}")
+        raise AssertionError(f"the {tag} beam decode on the card disagrees with the CPU: {res}")
     return res
 
 
@@ -3295,7 +3456,7 @@ def recipe_lstm(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
         f"{[round(x, 3) for x in losses]}, B10 launches {train_launches}; {stats}")
     torch.cuda.empty_cache()
 
-    cpu_steps = compare_lstm_train_steps(dev, cfg, tree)
+    cpu_steps = compare_train_steps_card_cpu(dev, cfg, tree)
     torch.cuda.empty_cache()
 
     # decode the test split at the yaml's beam, alone and with the LM
@@ -3356,7 +3517,7 @@ def recipe_lstm(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
     torch.cuda.empty_cache()
     del tree
     torch.cuda.empty_cache()
-    sub = compare_lstm_beam(dev, cfg, lm_dir)
+    sub = compare_beam_card_cpu(dev, cfg, lm_dir)
     torch.cuda.empty_cache()
     compaction = time_lstm_weight_compaction(dev, mcfg)
     log(f"recipe LSTM encoder layer fwd+bwd on {card}: {compaction}")
@@ -3369,6 +3530,367 @@ def recipe_lstm(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
             tag: d["fbank_launches"] for tag, d in decodes.items()}),
         decodes=decodes, card_vs_cpu_steps=cpu_steps, card_vs_cpu_beam=sub,
         encoder_layer_weight_compaction=compaction, card=card,
+    )
+
+
+# the transformer encoder-decoder's recipe, examples/asr_librispeech/
+# transformer_librispeech.yaml, written out (tests/test_torch_speech_transformer.py
+# holds the two equal)
+TRANSFORMER_RECIPE = {
+    "task": {"name": "speech_recognition_espresso"},
+    "criterion": {"name": "label_smoothed_cross_entropy_v2", "label_smoothing": 0.1,
+                  "smoothing_type": "uniform"},
+    "model": {"name": "speech_transformer_librispeech", "encoder_pos_type": "relative"},
+    "dataset": {"feat_dim": 80, "max_tokens": 22000, "num_batch_buckets": 10, "max_source_positions": 3600,
+                "max_target_positions": 200,
+                "specaugment_config": "{'time_warp_W': 0, 'freq_mask_F': 27, 'freq_mask_N': 2, "
+                                      "'time_mask_pm': 0.04, 'time_mask_ps': 0.04}"},
+    "optimizer": {"name": "adam"},
+    "lr_scheduler": {"name": "tri_stage", "warmup_updates": 2750, "hold_steps": 101250, "decay_steps": 175000},
+    "optimization": {"lr": [0.001], "clip_norm": 2.0, "max_epoch": 100, "update_freq": [8]},
+    "generation": {"beam": 60, "max_len_a": 0.08, "lm_weight": 0.4, "eos_factor": 1.5},
+    "checkpoint": {"save_dir": "ckpts_transformer", "best_checkpoint_metric": "wer"},
+}
+# the phase's cuts of TRANSFORMER_RECIPE: a seeded WAV corpus (CORPUS's
+# lengths and 5,000 units) of TRANSFORMER_CORPUS utterances through the
+# on-device front; frame batches of TRANSFORMER_MAX_TOKENS (the yaml's
+# 22,000 with update_freq 8 would make one update of this corpus) so that
+# each of 2 epochs takes ~2 updates of the yaml's 8 microbatches; the epoch
+# checkpoints off (checkpoint_best and checkpoint_last stay)
+TRANSFORMER_CORPUS = dict(train=56, valid=8)
+TRANSFORMER_MAX_TOKENS = 3500
+# the in-situ kernel checks: B1 over the encoder of TRANSFORMER_B1_ROWS test
+# utterances, B2/B3 over one bf16 train step (the recipe's dropout) of
+# TRANSFORMER_B23_ROWS
+TRANSFORMER_B1_ROWS, TRANSFORMER_B23_ROWS = 4, 2
+
+
+def run_recipe_transformer(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
+    """``recipe_transformer`` with the CLIs' log lines on stderr beside this
+    script's log."""
+    with contextlib.redirect_stdout(sys.stderr):
+        return recipe_transformer(dev, tmpdir, card, lm_dir)
+
+
+def without_relative_leaves(tree):
+    """The checkpoint tree without the relative attention's leaves
+    (``pos_proj``, ``pos_bias_u``, ``pos_bias_v``): the weights of the same
+    model with absolute positions."""
+    drop = ("pos_proj", "pos_bias_u", "pos_bias_v")
+    prune = lambda node: {k: prune(v) if isinstance(v, dict) else v for k, v in node.items() if k not in drop}
+    return {"params": prune(tree["params"]), "batch_stats": tree["batch_stats"]}
+
+
+def hold_attention_in_situ(dev, cfg, tree, layers: int) -> dict:
+    """Every B1, B2 and B3 call of the recipe's model (the trained
+    checkpoint's weights, bf16 compute) held against its plain version on
+    its own inputs: the encoder in eval on TRANSFORMER_B1_ROWS test
+    utterances (B1 a layer at the recipe's T'), and one train step at the
+    recipe's dropout on TRANSFORMER_B23_ROWS (B2 and B3 a layer, their
+    dropout replayed from the call's seed); bounds as the kernel checks'
+    (2 bf16 ulps of the output, 8 of each gradient). Returns the max errors,
+    the calls and T'."""
+    from espresso_tpu_torch.modules import attention
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+    from espresso_tpu_torch.train.trainer import build_optimizer, create_train_state, make_train_step
+
+    task, mb = recipe_sub_batch(dev, cfg, max(TRANSFORMER_B1_ROWS, TRANSFORMER_B23_ROWS))
+    model = trained_model(task, tree, dev)
+    errs = {"rel_attention": [], "rel_attention_train_fwd": [], "rel_attention_train_bwd": []}
+    fwd, bwd = ak.rel_attention_train_fwd, ak.rel_attention_train_bwd
+
+    def held_b1(*args):
+        errs["rel_attention"].append(tc.check_rel_attention(*args))
+        return ak.rel_attention(*args)
+
+    def held_fwd(q_u, q_v, k, v, p, kv, seed, H, scale, rate):
+        out = fwd(q_u, q_v, k, v, p, kv, seed, H, scale, rate)
+        ref = ak.rel_attention_train_reference(q_u, q_v, k, v, p, kv, H, scale, rate, seed)
+        errs["rel_attention_train_fwd"].append(tc._held("out", out, ref, tc.ATTN_OUT_ULPS, rate, {"q_u": q_u}))
+        return out
+
+    def held_bwd(q_u, q_v, k, v, p, kv, seed, g, H, scale, rate):
+        grads = bwd(q_u, q_v, k, v, p, kv, seed, g, H, scale, rate)
+        refs = ak.rel_attention_train_backward_reference(q_u, q_v, k, v, p, kv, g, H, scale, rate, seed)
+        errs["rel_attention_train_bwd"].append(max(
+            tc._held(n, x, r, tc.ATTN_GRAD_ULPS, rate, {"q_u": q_u})
+            for n, x, r in zip(("dq_u", "dq_v", "dk", "dv", "dp"), grads, refs)))
+        return grads
+
+    # the kernels count their launches on the module's name, the wrappers
+    # here while they stand in it (launches for the comparison, not the path)
+    held_fwd.launches = held_bwd.launches = 0
+    rows = TRANSFORMER_B1_ROWS
+    frames = mb["src_frames"][:rows, : int(mb["src_lengths"][:rows].max())]
+    with swapped([(attention, "rel_attention", held_b1)]), torch.no_grad():
+        enc = model.to(torch.bfloat16).eval().encode(frames.to(torch.bfloat16), mb["src_lengths"][:rows])
+    T_enc = enc.encoder_out.shape[1]
+    del model, enc
+    model = trained_model(task, tree, dev)
+    optimizer, _ = build_optimizer(cfg)
+    state = create_train_state(model, optimizer, cfg)
+    step = make_train_step(model, task.build_criterion(), optimizer, cfg)
+    rows = TRANSFORMER_B23_ROWS
+    T = int(mb["src_lengths"][:rows].max())
+    batch = {"src_frames": mb["src_frames"][:rows, :T].float(), "src_lengths": mb["src_lengths"][:rows],
+             "target": mb["target"][:rows], "prev_output_tokens": mb["prev_output_tokens"][:rows],
+             "tgt_lengths": mb["tgt_lengths"][:rows], "weight": mb["weight"][:rows]}
+    with swapped([(ak, "rel_attention_train_fwd", held_fwd), (ak, "rel_attention_train_bwd", held_bwd)]):
+        _, m = step(state, {k: v[None] for k, v in batch.items()}, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    del model, state
+    calls = {k: len(v) for k, v in errs.items()}
+    if calls != {"rel_attention": layers, "rel_attention_train_fwd": layers, "rel_attention_train_bwd": layers} \
+            or not math.isfinite(m["loss"].item()):
+        raise AssertionError(f"in-situ attention calls {calls} for {layers} layers, loss {m['loss'].item()}")
+    res = dict(max_abs_err={k: max(v) for k, v in errs.items()}, calls=calls, T_enc_b1=T_enc,
+               T_enc_b23=encoded_frames(T, task.build_model_config()[1]))
+    log(f"recipe transformer in-situ B1/B2/B3 against their plain versions: {res}")
+    return res
+
+
+def recipe_transformer(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
+    """The transformer encoder-decoder's recipe (transformer_librispeech.yaml,
+    ``TRANSFORMER_RECIPE``) through the port's entry points at the full
+    width of speech_transformer_librispeech (12 transformer encoder layers
+    with relative positions and 6 decoder layers, d 512, ffn 2048, 8 heads,
+    tied embedding, V = 5,003), bf16 on fp32 masters: a seeded WAV corpus
+    fed through the on-device front; ``cli.train.main`` for one epoch with
+    its valid pass (loss, greedy WER) and checkpoints, then a second
+    ``main`` resuming from checkpoint_last for epoch 2 with asynchronous
+    writes; two fp32 train steps card against CPU (with absolute positions:
+    the relative attention's kernels take bf16 alone); ``speech_recognize`` of
+    the test split at beam 60, eos_factor 1.5, max_len_a 0.08, alone and
+    fused at 0.4 with the LM the "recipe LM stage" trained in ``lm_dir``; a
+    2-utterance fp32 decode of a seeded model (its output layer untied)
+    card against CPU; B1, B2 and
+    B3 held against their plain versions in situ. Asserts the launches of
+    B1 (a layer per valid-step and greedy-decode batch, a layer per decode
+    batch), B2 and B3 (a layer per microbatch) and B10 (a microbatch, two a
+    valid batch, one a decode batch), finite losses, the resume's update
+    count and iterator, the result files; counts the host syncs of each
+    decode batch's launch (encoder and beam loop) and fails on any. Returns
+    the numbers."""
+    import json
+    import logging
+    import os
+    import warnings
+
+    from espresso_tpu_torch.cli import speech_recognize
+    from espresso_tpu_torch.cli import train as train_cli
+    from espresso_tpu_torch.config import load_config_dict
+    from espresso_tpu_torch.decode.beam_search import BeamSearchDecoder
+    from espresso_tpu_torch.features.fbank_kernels import fbank_fused
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.tasks import setup_task
+    from espresso_tpu_torch.train import checkpoint as ckpt
+
+    root = os.path.join(tmpdir, "recipe_transformer")
+    data, save_dir = os.path.join(root, "data"), os.path.join(root, "ckpts")
+    os.makedirs(data)
+    secs = {}
+    t0 = time.perf_counter()
+    corpus = write_corpus(data, dict(TRANSFORMER_CORPUS), seed=7)
+    with open(os.path.join(data, "test.json"), "w") as f, open(os.path.join(data, "valid.json")) as g:
+        f.write(g.read())  # the decode split: the valid utterances
+    cmvn = write_global_cmvn(data)
+    secs["corpus_and_cmvn"] = time.perf_counter() - t0
+    recipe = copy.deepcopy(TRANSFORMER_RECIPE)
+    recipe["dataset"].update(data=data, feature_type="device_fbank", global_cmvn_stats_path=cmvn,
+                             max_tokens=TRANSFORMER_MAX_TOKENS)
+    recipe["checkpoint"].update(save_dir=save_dir, save_interval=0)
+    recipe["optimization"]["max_epoch"] = 1
+    cfg_path = os.path.join(root, "recipe.json")
+    with open(cfg_path, "w") as f:
+        json.dump(recipe, f)
+    args = ["--config", cfg_path]
+    cfg = load_config_dict(recipe)
+    task = setup_task(cfg)
+    V, mcfg = len(task.dictionary), task.build_model_config()[1]
+    layers = mcfg.encoder_layers
+    with open(os.path.join(lm_dir, "model_cfg.json")) as f:
+        lm_cfg = json.load(f)["config"]
+    if V != CORPUS["UNITS"] + 3 or lm_cfg["vocab_size"] != V:  # the units, <pad>, </s>, <unk>
+        raise AssertionError(f"V = {V}, the LM's {lm_cfg['vocab_size']}")
+    del task
+    widths = {k: getattr(mcfg, k) for k in (
+        "encoder_layer_type", "encoder_pos_type", "encoder_embed_dim", "encoder_ffn_dim", "encoder_layers",
+        "encoder_heads", "decoder_embed_dim", "decoder_layers", "share_decoder_input_output_embed", "dropout")}
+    log(f"recipe transformer: corpus {corpus}; {secs}; V = {V}; {widths}")
+
+    # train: epoch 1, then a second main resuming for epoch 2
+    kernels = {"fbank": fbank_fused, "rel_attention": ak.rel_attention,
+               "rel_attention_train_fwd": ak.rel_attention_train_fwd,
+               "rel_attention_train_bwd": ak.rel_attention_train_bwd}
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    rec = dict(steps=0, micro=0, step_events=[], losses=[], valid_batches=0, valid_s=[], wer=[])
+    make_step, make_valid, validate = train_cli.make_train_step, train_cli.make_valid_step, train_cli.validate
+
+    def counted_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, gen, *rest):
+            e = [ev(), ev()]
+            e[0].record()
+            state, m = step(state, batch, gen, *rest)
+            e[1].record()
+            rec["steps"] += 1
+            rec["micro"] += batch["prev_output_tokens"].shape[0]
+            rec["step_events"].append(e)
+            rec["losses"].append(m["loss"])
+            return state, m
+        return run
+
+    def counted_valid(*a, **kw):
+        valid = make_valid(*a, **kw)
+
+        def run(state, mb):
+            rec["valid_batches"] += 1
+            return valid(state, mb)
+        return run
+
+    def timed_validate(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = validate(*a, **kw)
+        rec["valid_s"].append(time.perf_counter() - t)
+        rec["wer"].append(stats.get("wer"))
+        return stats
+
+    patches = [(train_cli, "make_train_step", counted_step), (train_cli, "make_valid_step", counted_valid),
+               (train_cli, "validate", timed_validate)]
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        t0 = time.perf_counter()
+        train_cli.main(args, device=dev)
+        secs["train_epoch1"] = time.perf_counter() - t0
+        n1 = rec["steps"]
+        t0 = time.perf_counter()
+        stats = train_cli.main(args + ["optimization.max_epoch=2",
+                                       "checkpoint.write_checkpoints_asynchronously=true"], device=dev)
+        secs["train_epoch2_resumed"] = time.perf_counter() - t0
+    finally:
+        for mod, name, _ in patches:
+            setattr(mod, name, {"make_train_step": make_step, "make_valid_step": make_valid,
+                                "validate": validate}[name])
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated()
+    n, nv, micro = rec["steps"], rec["valid_batches"], rec["micro"]
+    train_launches = {name: f.launches for name, f in kernels.items()}
+    # a microbatch: B10, B2 and B3 a layer; a valid batch: the valid step
+    # and the greedy WER decode, each B10 and B1 a layer
+    want = {"fbank": micro + 2 * nv, "rel_attention": 2 * layers * nv,
+            "rel_attention_train_fwd": layers * micro, "rel_attention_train_bwd": layers * micro}
+    if train_launches != want or n1 == 0 or n == n1:
+        raise AssertionError(f"recipe transformer train launches {train_launches}, want {want} ({micro} "
+                             f"microbatches, {nv} valid batches); steps {n1} then {n}")
+    losses = torch.stack(rec["losses"]).tolist()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"recipe transformer train losses {losses}")
+    tree, host = ckpt.load_checkpoint_state(os.path.join(save_dir, "checkpoint_last"))
+    if int(tree["step"]) != n or host["iterator"]["epoch"] != 3 or host["iterator"]["iterations_in_epoch"]:
+        raise AssertionError(f"after the resume: step {int(tree['step'])} of {n}, iterator {host['iterator']}")
+    names = sorted(os.listdir(save_dir))
+    if not {"checkpoint_best", "checkpoint_last", "model_cfg.json"} <= set(names):
+        raise AssertionError(f"checkpoints {names}")
+    step_ms = [e[0].elapsed_time(e[1]) for e in rec["step_events"]]
+    n_params = sum(int(np.prod(v.shape)) for v in ckpt.flatten_tree(tree["params"]).values())
+    log(f"recipe transformer train on {card}: {n} steps ({n1} in epoch 1, then resumed), {micro} "
+        f"microbatches, step ms {[round(x, 1) for x in step_ms]}, {nv} valid batches in {rec['valid_s']} s, "
+        f"WER {rec['wer']}, peak memory {train_peak / 2**30:.2f} GiB, {n_params:,} params, losses "
+        f"{[round(x, 3) for x in losses]}, launches {train_launches}; {stats}")
+    torch.cuda.empty_cache()
+
+    # the fp32 comparisons run the model with absolute positions (JAX's
+    # default; the trained weights without the relative leaves): the
+    # relative attention's kernels take bf16 alone, and on the card nothing
+    # else runs it (they are held in situ below)
+    abs_cfg = copy.deepcopy(cfg)
+    abs_cfg.model["encoder_pos_type"] = "abs"
+    cpu_steps = compare_train_steps_card_cpu(dev, abs_cfg, without_relative_leaves(tree), "transformer")
+    torch.cuda.empty_cache()
+    in_situ = hold_attention_in_situ(dev, cfg, tree, layers)
+    torch.cuda.empty_cache()
+
+    # decode the test split at the yaml's beam, alone and with the LM
+    calls = []
+    run_async = BeamSearchDecoder.decode_async
+
+    def counted_async(self, batch, *a, **kw):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                handle = run_async(self, batch, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        calls.append((tuple(batch["src_frames"].shape), syncs))
+        return handle
+
+    class Elapsed(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("Recognized"):
+                rec["elapsed"] = record.args[1]
+
+    handler = Elapsed()
+    logging.getLogger("espresso_tpu_torch.recognize").addHandler(handler)
+    decodes = {}
+    audio_s = corpus["valid"]["audio_s"]
+    try:
+        BeamSearchDecoder.decode_async = counted_async
+        for tag, extra in (("beam", ["generation.lm_weight=0.0"]), ("beam_lm", [f"generation.lm_path={lm_dir}"])):
+            out_dir = os.path.join(root, f"decode_{tag}")
+            for f in kernels.values():
+                f.launches = 0
+            calls.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = speech_recognize.main(args + extra + ["dataset.gen_subset=test",
+                                                        f"generation.results_path={out_dir}"], device=dev)
+            torch.cuda.synchronize()
+            secs[f"decode_{tag}"] = time.perf_counter() - t0
+            files = sorted(os.listdir(out_dir))
+            syncs = sum(s for _, s in calls)
+            counts = {name: f.launches for name, f in kernels.items()}
+            want = {"fbank": len(calls), "rel_attention": layers * len(calls), "rel_attention_train_fwd": 0,
+                    "rel_attention_train_bwd": 0}
+            if files != ["aligned_results.txt", "cer", "decoded_results.txt", "wer"] \
+                    or res["num_utts"] != TRANSFORMER_CORPUS["valid"] or counts != want or syncs:
+                raise AssertionError(f"recipe transformer {tag} decode: files {files}, result {res}, launches "
+                                     f"{counts} (want {want}), host syncs {calls}")
+            decodes[tag] = dict(result=res, batches=[s for s, _ in calls], host_syncs=syncs, launches=counts,
+                                elapsed_s=rec["elapsed"], rtfx=audio_s / rec["elapsed"],
+                                peak_bytes=torch.cuda.max_memory_allocated(),
+                                wer_file=open(os.path.join(out_dir, "wer")).read().strip())
+            log(f"recipe transformer {tag} decode on {card}: {res}, batches {decodes[tag]['batches']} in "
+                f"{rec['elapsed']:.3f} s, RTFx {audio_s / rec['elapsed']:.2f}, host syncs {syncs}, launches "
+                f"{counts}, peak memory {decodes[tag]['peak_bytes'] / 2**30:.2f} GiB; {decodes[tag]['wer_file']}")
+    finally:
+        BeamSearchDecoder.decode_async = run_async
+        logging.getLogger("espresso_tpu_torch.recognize").removeHandler(handler)
+    del tree
+    torch.cuda.empty_cache()
+    # the seeded model's output layer untied (fc_out, x LSTM_SEEDED_PEAK): a
+    # random tied one scores the step's input token highest and ends its
+    # hypotheses on eos after a token or two
+    untied = copy.deepcopy(abs_cfg)
+    untied.model["share_decoder_input_output_embed"] = False
+    sub = compare_beam_card_cpu(dev, untied, lm_dir, "transformer")
+    torch.cuda.empty_cache()
+    return dict(
+        corpus=corpus, vocab=V, widths=widths, params=n_params, stage_s=secs, steps=n, steps_epoch1=n1,
+        microbatches=micro, train_ms_per_step=statistics.mean(step_ms), step_ms=step_ms,
+        valid_batches=nv, valid_s=rec["valid_s"], valid_wer=rec["wer"], losses=losses,
+        train_peak_bytes=train_peak, launches=dict(train=train_launches, **{
+            tag: d["launches"] for tag, d in decodes.items()}),
+        decodes=decodes, card_vs_cpu_steps=cpu_steps, card_vs_cpu_beam=sub, in_situ=in_situ, card=card,
     )
 
 
@@ -3501,8 +4023,13 @@ def main() -> int:
     phase("recipe LSTM encoder-decoder")
     with tempfile.TemporaryDirectory() as lstm_tmp:
         recipe_lstm_path = run_recipe_lstm(dev, lstm_tmp, card, recipe_lm_stage["lm_dir"])
-    lm_tmp.cleanup()
     print(json.dumps({"recipe_lstm": recipe_lstm_path}))
+    torch.cuda.empty_cache()
+    phase("recipe transformer encoder-decoder")
+    with tempfile.TemporaryDirectory() as transformer_tmp:
+        recipe_transformer_path = run_recipe_transformer(dev, transformer_tmp, card, recipe_lm_stage["lm_dir"])
+    lm_tmp.cleanup()
+    print(json.dumps({"recipe_transformer": recipe_transformer_path}))
     torch.cuda.empty_cache()
     phase("long utterances")
     long_utt = run_long_utterances(dev)
@@ -3580,6 +4107,16 @@ def main() -> int:
             # microbatch, two a valid batch) and its beam and beam_lm decodes
             **({f"recipe_lstm_{tag}_launches": v for tag, v in recipe_lstm_path["fbank_launches"].items()}
                if name == "fbank" else {}),
+            # the transformer encoder-decoder's recipe: its train runs (B10 a
+            # microbatch and two a valid batch, B2 and B3 a layer a
+            # microbatch, B1 a layer a valid step and a greedy decode), its
+            # beam and beam_lm decodes (B10 a batch, B1 a layer a batch), and
+            # B1/B2/B3 held in situ
+            **{f"recipe_transformer_{tag}_launches": counts[name]
+               for tag, counts in recipe_transformer_path["launches"].items() if counts.get(name)},
+            **({"recipe_transformer_in_situ_max_abs_err":
+                recipe_transformer_path["in_situ"]["max_abs_err"][name]}
+               if name in recipe_transformer_path["in_situ"]["max_abs_err"] else {}),
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

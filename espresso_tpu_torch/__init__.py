@@ -10,8 +10,9 @@ layout and names so each module's counterpart is easy to find:
   conformer pieces, conv frontend, positional tables, LSTM gates and
   sequence layers, Bahdanau and Luong attention, flax-style batch norm and
   dropout)
-- ``espresso_tpu_torch.models``  : Conformer encoder, Transducer model, the
-  LSTM attention encoder-decoder, the LSTM LM
+- ``espresso_tpu_torch.models``  : the conformer or transformer encoder, the
+  Transducer model, the transformer and LSTM attention encoder-decoders,
+  the LSTM LM
 - ``espresso_tpu_torch.decode``  : batched transducer greedy and beam
   decoding; the encoder-decoder's greedy and beam decoding and its adapters
 - ``espresso_tpu_torch.train``   : the train step (adam, clip, overflow skip,

@@ -34,10 +34,15 @@ import numpy as np
 import torch
 from torch import nn
 
-# flax submodule name -> port submodule name, by the name of the parent
+# flax submodule name -> port submodule name, by the name of the parent (a
+# pattern the whole parent name matches)
 _RENAMES = {
+    "": {r"declayer(\d+)": r"decoder_layers.\1"},
     "conv": {r"Conv_(\d+)": r"convs.\1", r"BatchNorm_(\d+)": r"norms.\1"},
     "encoder": {r"layer(\d+)": r"layers.\1"},
+    # the transformer encoder layer's auto-named FFN (a conformer layer has
+    # no Dense directly under it)
+    r"layer\d+": {"Dense_0": "fc1", "Dense_1": "fc2"},
     "ffn1": {"LayerNorm_0": "layer_norm", "Dense_0": "fc1", "Dense_1": "fc2"},
     "ffn2": {"LayerNorm_0": "layer_norm", "Dense_0": "fc1", "Dense_1": "fc2"},
     "conv_module": {
@@ -104,12 +109,18 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
             yield prefix + (name,), value
 
 
+def _renames(parent: str, table: Mapping[str, Any], empty):
+    """The entry of ``table`` whose pattern the flax name ``parent`` matches
+    whole, else ``empty``."""
+    return next((v for k, v in table.items() if re.fullmatch(k, parent)), empty)
+
+
 def port_key(path: Tuple[str, ...]) -> str:
     """flax path (module names..., leaf) -> port state_dict key."""
     out = []
     for i, name in enumerate(path[:-1]):
         parent = path[i - 1] if i > 0 else ""
-        for pat, repl in _RENAMES.get(parent, {}).items():
+        for pat, repl in _renames(parent, _RENAMES, {}).items():
             new = re.sub(f"^{pat}$", repl, name)
             if new != name:
                 name = new
@@ -141,7 +152,7 @@ def flax_path(key: str, leaf: str) -> Tuple[str, ...]:
     i = 0
     while i < len(parts):
         rest = ".".join(parts[i:])
-        for rx, flax_name in _INVERSE.get(out[-1] if out else "", []):
+        for rx, flax_name in _renames(out[-1] if out else "", _INVERSE, ()):
             m = rx.match(rest)
             if m:
                 out.append(m.expand(flax_name))

@@ -74,15 +74,21 @@
 //      [128 j'] (W[q, k - q + 63] = ds[q, k]), dq_v += W p_win and the dp
 //      window += W^T q_v (W read MN-major). Consecutive key tiles' windows
 //      overlap by 64 rows, so the upper half is carried into the next
-//      tile's lower half and each row of dp gets one paired f32 atomic add a
-//      block (dp zeroed by the caller);
+//      tile's lower half and each row of the block's dp band (the rows its
+//      windows cover) is stored once, into a scratch of a band a block;
+//   1b. dp = the sum of the bands over (b, query tile) in a fixed order
+//      (`rel_attention_train_bwd_dp_kernel`), so dp is the same bits at
+//      every run;
 //   2. key pass, a block per 64 keys of (b, h), rows = keys: s^T = k q_u^T,
 //      dw^T = v g^T, bd^T from X [128 j'][64 q] = p_win q_v^T (bd^T[k, q] =
 //      X[k - q + 63, q]), w and ds from the statistics (staged in shared
 //      memory per query tile); dv += bf16(w_used)^T g and dk += bf16(ds)^T
 //      q_u with A in registers.
-// Both passes recompute the scores, ~10 GFLOP a call in all; dp sums over
-// (b, query tile) by atomics, in an order that changes from run to run.
+// Both passes recompute the scores, ~10 GFLOP a call in all. dp summed over
+// (b, query tile) by f32 atomics would sum in an order that changes from run
+// to run (the position projections' weights then part in their last bits
+// between two runs of one seed); the bands and their fixed-order sum cost
+// ~42 MB of traffic more at the train shape.
 // What holds it back: latency, not bandwidth or products; each key tile's
 // steps (products, barrier, skewed window, dropout hash and exp of 32
 // elements a thread, products) run one after another on 8 warps an SM.
@@ -272,20 +278,36 @@ __device__ inline void store_rows(bf16* out, size_t row_stride, int col0, const 
                    pack_bf16(c[4 * n + 2 * hh], c[4 * n + 2 * hh + 1]), ok[hh]);
 }
 
-// dp rows j0 + 16 warp + g + 8 hh of head h += the lane's accumulator rows;
-// rows outside [0, 2T-1) add zeros into a row inside, so no branch reads
-// wgmma's registers
-__device__ inline void add_dp(float* dp, const float (&c)[32], int j0, int T, int D, int h,
-                              const int (&qr)[2], int q) {
+// band rows r0 + 16 warp + g + 8 hh, head h's columns = the lane's
+// accumulator rows. A block's band holds every row its dp windows cover (dp
+// row T - 64 - q0 + r, some outside [0, 2T-1), which the sum skips), each
+// stored once, unconditionally, so no branch reads wgmma's registers
+__device__ inline void store_dp(float* band, const float (&c)[32], int r0, int D, int h,
+                                const int (&qr)[2], int q) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int j = j0 + qr[hh];
-    const bool ok = j >= 0 && j < 2 * T - 1;
-    float* row = dp + (size_t)(ok ? j : 0) * D + h * TILE + 2 * q;
+    float* row = band + (size_t)(r0 + qr[hh]) * D + h * TILE + 2 * q;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
-      atomic_add2(row + 8 * n, ok ? c[4 * n + 2 * hh] : 0.f, ok ? c[4 * n + 2 * hh + 1] : 0.f);
+      *reinterpret_cast<float2*>(row + 8 * n) = make_float2(c[4 * n + 2 * hh], c[4 * n + 2 * hh + 1]);
   }
+}
+
+// dp [2T-1, D] = the sum of the bands over b, then the query tile, in that
+// order: a thread a column of one dp row (query tile qt's band starts at dp
+// row T - 64 - 64 qt and holds (nq + 1) * 64 rows)
+__global__ void rel_attention_train_bwd_dp_kernel(const float* __restrict__ bands,
+                                                  float* __restrict__ dp, int B, int T, int D) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x, j = blockIdx.y;
+  if (c >= D) return;
+  const int nq = (T + TILE - 1) / TILE, rows = (nq + 1) * TILE;
+  float acc = 0.f;
+  for (int b = 0; b < B; ++b)
+    for (int qt = 0; qt < nq; ++qt) {
+      const int r = j - (T - TILE - TILE * qt);
+      if (r >= 0 && r < rows) acc += bands[((size_t)(b * nq + qt) * rows + r) * D + c];
+    }
+  dp[(size_t)j * D + c] = acc;
 }
 
 // the operands of both passes: q+u, q+v, k, v, g as [D, T, B] (box 64 x 64
@@ -306,9 +328,9 @@ struct Args {
 // tiles: the softmax statistics m, 1/l and sum_k dw w of each row (online,
 // one rescale a tile). Pass 2: ds per key tile, dq_u += ds k (A = ds in
 // registers), dq_v += W p_win and dp_win += W^T q_v, where W [64 q][128 j']
-// is ds written skewed (W[q, k - q + 63] = ds[q, k]); dp's window is added
-// into dp by paired f32 atomics. The statistics go to `stats` for the key
-// pass.
+// is ds written skewed (W[q, k - q + 63] = ds[q, k]); dp's windows go to
+// the block's band of `dp_bands` ([B, nq, (nq + 1) * 64, D]). The
+// statistics go to `stats` for the key pass.
 // ---------------------------------------------------------------------------
 
 struct QLayout {
@@ -325,7 +347,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 rel_attention_train_bwd_q_kernel(const __grid_constant__ Maps maps,
                                  const uint8_t* __restrict__ key_valid,
                                  const int* __restrict__ seed, bf16* __restrict__ dqu,
-                                 bf16* __restrict__ dqv, float* __restrict__ dp,
+                                 bf16* __restrict__ dqv, float* __restrict__ dp_bands,
                                  float* __restrict__ stats, Args args) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -493,9 +515,10 @@ rel_attention_train_bwd_q_kernel(const __grid_constant__ Maps maps,
   }
 
   // ---- pass 2: ds, dq_u, dq_v, dp. The window of key tile kt covers rows
-  // j0 .. j0 + 127 of dp, that of kt + 1 rows j0 + 64 ..: the upper half
-  // (dpn) is carried into the next tile's lower half (dpc), so that each
-  // row of dp gets one atomic add a block
+  // j0 .. j0 + 127 of dp (band rows k0 .. k0 + 127), that of kt + 1 rows
+  // j0 + 64 ..: the upper half (dpn) is carried into the next tile's lower
+  // half (dpc), so that each band row is stored once
+  float* band = dp_bands + (size_t)(b * gridDim.x + blockIdx.x) * (nk + 1) * TILE * D;
   float oqu[32], oqv[32], dpc[32];
   zero(oqu);
   zero(oqv);
@@ -558,11 +581,11 @@ rel_attention_train_bwd_q_kernel(const __grid_constant__ Maps maps,
     wgmma_wait<0>();
     named_sync(1, THREADS);
     if (t == 0) refill(it + S);
-    add_dp(dp, dpc, j0, T, D, h, qr, f.q);
+    store_dp(band, dpc, k0, D, h, qr, f.q);
 #pragma unroll
     for (int i = 0; i < 32; ++i) dpc[i] = dpn[i];
   }
-  add_dp(dp, dpc, j0 + TILE, T, D, h, qr, f.q);
+  store_dp(band, dpc, nk * TILE, D, h, qr, f.q);
   int rows[2];
   bool ok[2];
 #pragma unroll
@@ -805,16 +828,17 @@ int rel_attention_train_fwd_bf16(const void* q_u, const void* q_v, const void* k
 }
 
 // The inputs as above plus g [B, T, H*64] bf16; outputs dq_u, dq_v, dk, dv
-// [B, T, H*64] bf16 and dp [2T-1, H*64] f32 (zeroed: the query pass adds
-// into it); stats: [3, B, H, T] f32 scratch (m, 1/l, sum dw w of each row).
+// [B, T, H*64] bf16 and dp [2T-1, H*64] f32; dp_bands: [B, nq, (nq + 1) *
+// 64, H*64] f32 scratch (nq = ceil(T / 64): each query block's dp band);
+// stats: [3, B, H, T] f32 scratch (m, 1/l, sum dw w of each row).
 // tmap_specs: 6 x 9 int64, the tensor maps of q_u, q_v, k, v, g and p as
 // ops/attention_kernels.py::train_bwd_tmap_specs builds them ({rank, dims[3]
-// innermost first, strides[2] in bytes, box[3]}). Two launches on `stream`,
-// in order.
+// innermost first, strides[2] in bytes, box[3]}). Three launches on
+// `stream`, in order: the query pass, the bands' sum, the key pass.
 int rel_attention_train_bwd_bf16(const void* q_u, const void* q_v, const void* k,
                                  const void* v, const void* p, const void* key_valid,
                                  const void* seed, const void* g, void* dq_u, void* dq_v,
-                                 void* dk, void* dv, void* dp, void* stats,
+                                 void* dk, void* dv, void* dp, void* dp_bands, void* stats,
                                  const long long* tmap_specs, int B, int T, int H, float scale,
                                  int use_dropout, uint32_t thresh, float inv_keep, int device,
                                  void* stream) {
@@ -851,8 +875,13 @@ int rel_attention_train_bwd_bf16(const void* q_u, const void* q_v, const void* k
   const dim3 grid((T + bwd::TILE - 1) / bwd::TILE, H, B);
   bwd::rel_attention_train_bwd_q_kernel<<<grid, bwd::THREADS, smem_q, s>>>(
       maps, static_cast<const uint8_t*>(key_valid), static_cast<const int*>(seed),
-      static_cast<bf16*>(dq_u), static_cast<bf16*>(dq_v), static_cast<float*>(dp),
+      static_cast<bf16*>(dq_u), static_cast<bf16*>(dq_v), static_cast<float*>(dp_bands),
       static_cast<float*>(stats), args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int D = H * bwd::TILE;
+  bwd::rel_attention_train_bwd_dp_kernel<<<dim3((D + 127) / 128, 2 * T - 1), 128, 0, s>>>(
+      static_cast<const float*>(dp_bands), static_cast<float*>(dp), B, T, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bwd::rel_attention_train_bwd_k_kernel<<<grid, bwd::THREADS, smem_k, s>>>(

@@ -4,10 +4,12 @@ search drives.
 Counterpart of ``espresso_tpu/decode/api.py`` (:23-101, :151-164): each
 model's decode state is an explicit tuple of tensors, and a beam reorder is
 one ``index_select`` a leaf along the leaf's batch(+beam) axis.
-``LSTMDecoderAdapter`` drives ``SpeechLSTMModel``, ``LMAdapter`` the LSTM
+``LSTMDecoderAdapter`` drives ``SpeechLSTMModel``,
+``TransformerDecoderAdapter`` ``SpeechTransformerModel`` (its state the
+per-layer caches, a step at the loop's step index), ``LMAdapter`` the LSTM
 LM fused by shallow fusion (the LM's plain step, as JAX's adapter runs
-it). The transformer decoder and the transformer LM are not ported;
-``make_adapter`` raises for them, naming ROADMAP queue A. JAX's
+it). The transformer LM is not ported; ``make_adapter`` raises for it,
+naming ROADMAP queue A. JAX's
 ``shard_for_decode`` spreads a decode over several devices and waits with
 the rest of ``parallel/``.
 """
@@ -21,6 +23,7 @@ import torch
 from espresso_tpu_torch.models.base import EncoderOut
 from espresso_tpu_torch.models.lstm_lm import LSTMLanguageModel
 from espresso_tpu_torch.models.speech_lstm import SpeechLSTMModel
+from espresso_tpu_torch.models.speech_transformer import SpeechTransformerModel
 
 
 def repeat_encoder_out(enc: EncoderOut, beam: int) -> EncoderOut:
@@ -58,6 +61,24 @@ class LSTMDecoderAdapter:
         return _reorder_lstm(state, idx)
 
 
+class TransformerDecoderAdapter:
+    """The transformer decoder's per-layer caches: {"self": {"k", "v"
+    [BK, S, H, Dh]}, "cross": {"k_static", "v_static" [BK, T, H, Dh]}}."""
+
+    def __init__(self, model: SpeechTransformerModel):
+        self.model = model
+
+    def init_state(self, enc: EncoderOut, batch_k: int, max_len: int):
+        return self.model.init_cache(enc, max_len)
+
+    def step(self, tokens, state, enc, step_idx: int):
+        return self.model.decode_step(tokens, step_idx, state, enc)
+
+    def reorder(self, state, idx):
+        return [{part: {k: x.index_select(0, idx) for k, x in leaves.items()}
+                 for part, leaves in layer.items()} for layer in state]
+
+
 class LMAdapter:
     """The LSTM LM for shallow fusion: its carry (h, c), each [L, BK, H]."""
 
@@ -78,12 +99,14 @@ class LMAdapter:
 def make_adapter(model):
     if isinstance(model, SpeechLSTMModel):
         return LSTMDecoderAdapter(model)
+    if isinstance(model, SpeechTransformerModel):
+        return TransformerDecoderAdapter(model)
     if isinstance(model, LSTMLanguageModel):
         return LMAdapter(model)
     name = type(model).__name__
     if "Transformer" in name:
         raise NotImplementedError(
-            f"no incremental adapter for {name}: the transformer decoder and LM are not ported "
+            f"no incremental adapter for {name}: the transformer LM is not ported "
             "(ROADMAP queue A item 2)"
         )
     raise TypeError(f"no incremental adapter for {name}")

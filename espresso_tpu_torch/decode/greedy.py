@@ -9,7 +9,9 @@ padded frame count; here the loop reads whether every row has finished once
 every ``CHECK_EVERY`` steps (one host sync) and stops there, which changes
 no hypothesis: a finished row only emits pad. ``decode(batch)`` returns a
 list per utterance of one ``{"tokens", "score"}``, tokens up to the first
-eos. The transformer decoder is not ported (ROADMAP queue A item 2).
+eos. The speech LSTM steps its carry; the transformer its per-layer caches
+(``init_cache`` for ``max_len`` steps, ``decode_step`` at the loop's step
+index), as JAX's ``is_transformer`` branch does.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from espresso_tpu_torch.models.speech_lstm import SpeechLSTMModel
+from espresso_tpu_torch.models.speech_transformer import SpeechTransformerModel
 
 CHECK_EVERY = 16
 
@@ -31,10 +34,10 @@ def max_decode_len(max_len_a: float, max_len_b: int, T: int) -> int:
 
 class SimpleGreedyDecoder:
     def __init__(self, model, dictionary, max_len_a: float = 0.0, max_len_b: int = 200):
-        if not isinstance(model, SpeechLSTMModel):
+        if not isinstance(model, (SpeechLSTMModel, SpeechTransformerModel)):
             raise NotImplementedError(
-                f"greedy decoding of {type(model).__name__}: only the speech LSTM's is ported "
-                "(the transformer decoder is ROADMAP queue A item 2)"
+                f"greedy decoding of {type(model).__name__}: only the attention encoder-decoders' "
+                "is ported (ROADMAP queue A item 2)"
             )
         self.model = model
         self.eos = dictionary.eos()
@@ -49,14 +52,21 @@ class SimpleGreedyDecoder:
         B = src_frames.shape[0]
         max_len = max_decode_len(self.max_len_a, self.max_len_b, src_frames.shape[1])
         enc = model.encode(src_frames, src_lengths)
-        state = model.init_decoder_carry(B, dtype=enc.encoder_out.dtype)
+        transformer = isinstance(model, SpeechTransformerModel)
+        if transformer:
+            state = model.init_cache(enc, max_len)
+        else:
+            state = model.init_decoder_carry(B, dtype=enc.encoder_out.dtype)
         dev = src_frames.device
         tok = torch.full((B,), self.eos, dtype=torch.int32, device=dev)
         finished = torch.zeros((B,), dtype=torch.bool, device=dev)
         score = torch.zeros((B,), dtype=torch.float32, device=dev)
         out = []
         for step in range(max_len):
-            logits, state, _ = model.decode_step(tok, state, enc)
+            if transformer:
+                logits, state, _ = model.decode_step(tok, step, state, enc)
+            else:
+                logits, state, _ = model.decode_step(tok, state, enc)
             lprobs = torch.log_softmax(logits.float(), dim=-1)
             nxt = torch.argmax(lprobs, dim=-1)
             tok_score = lprobs.gather(1, nxt[:, None])[:, 0]

@@ -282,7 +282,9 @@ class TransducerBeamSearchDecoder:
         bps: List[tuple] = []
 
         for t in range(T_enc):
-            enc_t = enc_proj[:, t, None].expand(B, K, J).reshape(BK, J)
+            # a copy at any B (at B = 1 the reshape alone is a stride-0 view,
+            # which the joint kernel refuses)
+            enc_t = enc_proj[:, t, None].expand(B, K, J).reshape(BK, J).contiguous()
             keep_old = ~(t < enc.src_lengths)  # inactive utterances keep their beam
             pool_scores = torch.full((B, K), NEG_INF, device=dev)
             pool_hash = ints[:, 0].reshape(B, K).contiguous()

@@ -40,6 +40,8 @@ class TransducerConfig:
     vocab_size: int = 0
     encoder: SpeechTransformerConfig = field(
         default_factory=lambda: SpeechTransformerConfig(
+            encoder_layer_type="conformer",
+            encoder_pos_type="relative",
             encoder_embed_dim=512,
             encoder_ffn_dim=2048,
             encoder_layers=16,

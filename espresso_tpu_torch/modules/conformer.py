@@ -1,7 +1,9 @@
-"""Conformer encoder layer (macaron FFN + rel-pos MHSA + depthwise conv).
+"""Encoder layers: the conformer (macaron FFN + MHSA + depthwise conv) and
+the pre-norm transformer layer.
 
 Counterpart of ``espresso_tpu/modules/conformer.py`` (FeedForwardModule,
-ConvolutionModule, ConformerEncoderLayer, conformer.py:22-138):
+ConvolutionModule, ConformerEncoderLayer, conformer.py:22-138;
+TransformerEncoderLayer, :141-190). The conformer:
 FFN(x0.5) -> MHSA(+rel-pos) -> ConvModule(pointwise -> GLU -> masked
 depthwise k=31 -> batch norm -> swish -> pointwise) -> FFN(x0.5) -> final
 LayerNorm -> output masked. Activations stay [B, T, D]; the depthwise conv
@@ -12,6 +14,11 @@ after its output projection (conformer.py:33-37), on the attention weights
 (in the kernel) and after the attention block (:120-121), and after the
 conv module's last projection (:74-75); the batch norm follows flax
 (``modules/batch_norm.py``).
+
+The transformer layer: self_attn_layer_norm -> self-attention -> dropout ->
+residual; final_layer_norm -> fc1 (flax ``Dense_0``) -> relu -> dropout ->
+fc2 (``Dense_1``) -> dropout -> residual; its output is not masked. Either
+layer's attention is relative (the table passed in) or plain.
 """
 
 from __future__ import annotations
@@ -84,11 +91,12 @@ class ConformerEncoderLayer(nn.Module):
         num_heads: int,
         depthwise_kernel_size: int = 31,
         dropout: float = 0.0,
+        use_relative_pos: bool = True,
     ):
         super().__init__()
         self.ffn1 = FeedForwardModule(embed_dim, ffn_dim, dropout)
         self.self_attn_layer_norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.self_attn = MultiheadAttention(embed_dim, num_heads, dropout)
+        self.self_attn = MultiheadAttention(embed_dim, num_heads, dropout, use_relative_pos)
         self.attn_dropout = Dropout(dropout)
         self.conv_module = ConvolutionModule(embed_dim, depthwise_kernel_size, dropout)
         self.ffn2 = FeedForwardModule(embed_dim, ffn_dim, dropout)
@@ -98,7 +106,7 @@ class ConformerEncoderLayer(nn.Module):
         self,
         x: torch.Tensor,  # [B, T, D]
         padding_mask: Optional[torch.Tensor],  # [B, T] True = valid
-        rel_pos: torch.Tensor,  # [2T-1, D]
+        rel_pos: Optional[torch.Tensor] = None,  # [2L-1, D], or None
     ) -> torch.Tensor:
         x = x + 0.5 * self.ffn1(x)
         h = self.self_attn_layer_norm(x)
@@ -107,3 +115,33 @@ class ConformerEncoderLayer(nn.Module):
         x = x + self.conv_module(x, padding_mask)
         x = x + 0.5 * self.ffn2(x)
         return _mask_rows(self.final_layer_norm(x), padding_mask)
+
+
+class TransformerEncoderLayer(nn.Module):
+    def __init__(
+        self,
+        embed_dim: int,
+        ffn_dim: int,
+        num_heads: int,
+        dropout: float = 0.0,
+        use_relative_pos: bool = False,
+    ):
+        super().__init__()
+        self.self_attn_layer_norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.self_attn = MultiheadAttention(embed_dim, num_heads, dropout, use_relative_pos)
+        self.final_layer_norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.fc1 = nn.Linear(embed_dim, ffn_dim)
+        self.fc2 = nn.Linear(ffn_dim, embed_dim)
+        self.dropout = Dropout(dropout)
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, T, D]
+        padding_mask: Optional[torch.Tensor],  # [B, T] True = valid
+        rel_pos: Optional[torch.Tensor] = None,  # [2L-1, D], or None
+    ) -> torch.Tensor:
+        h = self.self_attn_layer_norm(x)
+        h, _ = self.self_attn(h, h, h, rel_pos, key_padding_mask=padding_mask)
+        x = x + self.dropout(h)
+        h = self.dropout(F.relu(self.fc1(self.final_layer_norm(x))))
+        return x + self.dropout(self.fc2(h))

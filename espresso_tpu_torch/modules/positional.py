@@ -1,9 +1,10 @@
-"""Relative sinusoidal positional table.
+"""Sinusoidal positional tables, absolute and relative.
 
-Counterpart of ``espresso_tpu/modules/positional.py``
-(``relative_sinusoidal_positions`` and ``RelativePositionalEmbedding``,
-espnet RelPositionalEncoding layout). Only the sinusoidal table is ported;
-the learned table waits for a later slice.
+Counterpart of ``espresso_tpu/modules/positional.py``:
+``sinusoidal_positions`` (the fairseq table: sin and cos halves) and
+``relative_sinusoidal_positions`` / ``RelativePositionalEmbedding`` (the
+espnet RelPositionalEncoding layout, interleaved columns). Both are built
+in float64. The learned table and rotary positions wait for a later slice.
 """
 
 from __future__ import annotations
@@ -13,6 +14,21 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+
+def sinusoidal_positions(length: int, dim: int, offset: int = 0) -> np.ndarray:
+    """[length, dim] float64 table of positions offset .. offset+length-1
+    (fairseq: sin on the first half, cos on the second, freq_k =
+    10000^(-k / (half - 1)); an odd dim gets a zero last column)."""
+    half = dim // 2
+    emb_scale = math.log(10000.0) / (half - 1) if half > 1 else 1.0
+    inv_freq = np.exp(np.arange(half, dtype=np.float64) * -emb_scale)
+    pos = np.arange(offset, offset + length, dtype=np.float64)[:, None]
+    args = pos * inv_freq[None, :]
+    table = np.concatenate([np.sin(args), np.cos(args)], axis=1)
+    if dim % 2 == 1:
+        table = np.concatenate([table, np.zeros((length, 1))], axis=1)
+    return table
 
 
 def relative_sinusoidal_positions(length: int, dim: int) -> np.ndarray:
@@ -48,3 +64,21 @@ class RelativePositionalEmbedding(nn.Module):
         L = min(length, self.max_size)
         center = self.max_size - 1
         return self.table[center - (L - 1) : center + L]
+
+
+class SinusoidalPositions(nn.Module):
+    """The fairseq table's first ``rows`` rows as a float32 buffer
+    (non-persistent, like the relative table); ``forward(length)`` returns
+    its first ``length`` rows, growing the table from the host past them."""
+
+    def __init__(self, embed_dim: int, rows: int):
+        super().__init__()
+        self.embed_dim = embed_dim
+        table = sinusoidal_positions(rows, embed_dim)
+        self.register_buffer("table", torch.from_numpy(table.astype(np.float32)), persistent=False)
+
+    def forward(self, length: int) -> torch.Tensor:
+        if length > self.table.shape[0]:
+            table = sinusoidal_positions(length, self.embed_dim).astype(np.float32)
+            self.table = torch.from_numpy(table).to(self.table.device, self.table.dtype)
+        return self.table[:length]

@@ -368,7 +368,7 @@ def _train_lib() -> ctypes.CDLL:
     # pointers, then B, T, H, scale, use_dropout, thresh, inv_keep, device, stream
     tail = [I, I, I, F, I, ctypes.c_uint32, F, I, P]
     lib.rel_attention_train_fwd_bf16.argtypes = [P] * 8 + tail
-    lib.rel_attention_train_bwd_bf16.argtypes = [P] * 15 + tail
+    lib.rel_attention_train_bwd_bf16.argtypes = [P] * 16 + tail
     lib.rel_attention_train_fwd_bf16.restype = I
     lib.rel_attention_train_bwd_bf16.restype = I
     return lib
@@ -423,6 +423,14 @@ def rel_attention_train_fwd(q_u, q_v, k, v, p, key_valid, seed, H, scale, rate):
     return out
 
 
+def dp_band_elements(B: int, T: int, D: int) -> int:
+    """The backward's dp scratch, in f32 elements: a band of (nq + 1) * 64
+    rows of D for each of the B * nq query blocks (nq = ceil(T / 64)), the
+    dp rows T - 64 - 64 qt .. of query tile qt's windows."""
+    nq = -(-T // HEAD_DIM)
+    return B * nq * (nq + 1) * HEAD_DIM * D
+
+
 def rel_attention_train_bwd(q_u, q_v, k, v, p, key_valid, seed, g, H, scale, rate):
     """The train backward: (dq_u, dq_v, dk, dv) [B, T, D] bf16 and dp
     [2T-1, D] f32 summed over the batch. On the card T up to
@@ -443,15 +451,18 @@ def rel_attention_train_bwd(q_u, q_v, k, v, p, key_valid, seed, g, H, scale, rat
         )
     tail = _train_launch_args(q_u, seed, H, scale, rate)
     dqu, dqv, dk, dv = (torch.empty_like(q_u) for _ in range(4))
-    # the query pass adds each block's dp window into dp by atomics, and
-    # leaves each row's softmax statistics (m, 1/l, sum dw w) for the key pass
-    dp = torch.zeros(2 * T - 1, D, dtype=torch.float32, device=q_u.device)
+    # the query pass stores each block's dp windows into its band (every
+    # band row once), which a fixed-order sum adds into dp, and leaves each
+    # row's softmax statistics (m, 1/l, sum dw w) for the key pass
+    dp = torch.empty(2 * T - 1, D, dtype=torch.float32, device=q_u.device)
+    bands = torch.empty(dp_band_elements(B, T, D), dtype=torch.float32, device=q_u.device)
     stats = torch.empty(3, B, H, T, dtype=torch.float32, device=q_u.device)
     specs = (ctypes.c_longlong * 54)(*sum(train_bwd_tmap_specs(B, T, D), []))
     rc = _train_lib().rel_attention_train_bwd_bf16(
         q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
         key_valid.data_ptr(), seed.data_ptr(), g.data_ptr(), dqu.data_ptr(), dqv.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dp.data_ptr(), stats.data_ptr(), ctypes.addressof(specs),
+        dk.data_ptr(), dv.data_ptr(), dp.data_ptr(), bands.data_ptr(), stats.data_ptr(),
+        ctypes.addressof(specs),
         *tail,
     )
     if rc != 0:

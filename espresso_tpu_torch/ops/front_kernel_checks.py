@@ -73,6 +73,53 @@ def check_fbank(a: Tensors, num_mel_bins: int = 80, sample_rate: float = 16000.0
     return {"log": log_err, "linear": lin_err}
 
 
+def fbank_float64(
+    waveforms: torch.Tensor, num_samples: torch.Tensor, sample_rate: float = 16000.0,
+    num_mel_bins: int = 80,
+) -> torch.Tensor:
+    """``fbank_plain``'s composition in float64 on the inputs' device, with
+    the same tables (rounded to f32, as JAX's function defines them): the
+    function itself, near exactly, for holding the kernel and the plain
+    version each against it. Returns [B, T, M] float64 log-mel frames."""
+    B, S = waveforms.shape
+    window, shift, padded, T = fk._geometry(S, sample_rate)
+    tab = {k: v.double() for k, v in fk._tables(
+        waveforms.device, window, padded, num_mel_bins, float(sample_rate)).items()}
+    x = waveforms.double()
+    need = (T + 2) * shift
+    if S < need:
+        x = torch.nn.functional.pad(x, (0, need - S))
+    chunks = x[:, :need].reshape(B, T + 2, shift)
+    parts = [chunks[:, :T], chunks[:, 1 : T + 1]]
+    if window > 2 * shift:
+        parts.append(chunks[:, 2 : T + 2, : window - 2 * shift])
+    frames = torch.cat(parts, -1)[:, :, :window]
+    frames = frames - frames.mean(-1, keepdim=True)
+    offset = torch.cat([frames[..., :1], frames[..., :-1]], -1)
+    frames = (frames - fk.PREEMPHASIS * offset) * tab["window"]
+    re, im = frames @ tab["cos"], frames @ tab["sin"]
+    mel = (re * re + im * im) @ tab["mel_t"]
+    return torch.log(torch.clamp(mel, min=fk._EPS))
+
+
+def fbank_error_sources(a: Tensors, num_mel_bins: int = 80, sample_rate: float = 16000.0) -> Dict[str, float]:
+    """The kernel and the plain version each against :func:`fbank_float64`
+    on the bins within 70 dB of their frame's peak: the worst log error of
+    each, and of the two against each other. Raises if the kernel is past
+    FBANK_LOG_TOL from the float64 function."""
+    out, lengths = fk.fbank_fused(a["waveforms"], a["num_samples"], sample_rate, num_mel_bins)
+    plain, _ = fk.fbank_plain(a["waveforms"], a["num_samples"], sample_rate, num_mel_bins)
+    ref = fbank_float64(a["waveforms"], a["num_samples"], sample_rate, num_mel_bins)
+    T = out.shape[1]
+    valid = (torch.arange(T, device=out.device)[None, :] < lengths[:, None])[..., None]
+    loud = (ref - ref.amax(-1, keepdim=True) >= -DB70) & valid
+    err = lambda x, r: (x.double() - r.double()).abs().masked_select(loud).max().item()
+    res = {"kernel_vs_f64": err(out, ref), "plain_vs_f64": err(plain, ref), "kernel_vs_plain": err(out, plain)}
+    if not res["kernel_vs_f64"] < FBANK_LOG_TOL:
+        raise AssertionError(f"fbank at {sample_rate} Hz against the float64 function: {res}")
+    return res
+
+
 def int8_inputs(M: int, K: int, N: int, seed: int, dev, dtype=torch.float32) -> Tensors:
     """x [M, K] at a LayerNorm-like scale (row 0 all zero, to take the scale
     floor), and a [K, N] f32 weight quantized per output channel; ``w_q`` is

@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional
 
 import espresso_tpu_torch.models.lstm_lm  # noqa: F401 — populate the model registry
 import espresso_tpu_torch.models.speech_lstm  # noqa: F401
+import espresso_tpu_torch.models.speech_transformer  # noqa: F401
 import espresso_tpu_torch.models.transducer  # noqa: F401
 from espresso_tpu_torch.config import EspressoConfig
 from espresso_tpu_torch.data.dataset import AsrDataset

@@ -124,16 +124,33 @@ def test_train_backward_matches_jax_vjp(T, rate):
         _assert_close(leaf.grad, w, f"autograd {name}")
 
 
-def test_train_mode_attention_takes_only_square_self_attention():
+def test_train_mode_attention_takes_only_square_self_attention(monkeypatch):
+    """In train mode only square relative self-attention without an
+    additive mask or weights reaches the train kernels; a mask or a
+    non-square call takes the plain path (at dropout 0 the eval-mode
+    result)."""
+    from espresso_tpu_torch.modules import attention
+
+    calls = []
+
+    def recorded(*args):
+        calls.append(args[0].shape)
+        return kernels.rel_attention_train(*args)
+
+    monkeypatch.setattr(attention, "rel_attention_train", recorded)
     mha = MultiheadAttention(D, H, dropout=0.1).train()
     x = torch.randn(B, 6, D)
     rel = torch.randn(11, D)
     out, _ = mha(x, x, x, rel)
-    assert out.shape == (B, 6, D)
-    with pytest.raises(NotImplementedError):
-        mha(x, x, x, rel, attn_mask=torch.zeros(6, 6))
-    with pytest.raises(NotImplementedError):
-        mha(x[:, :3], x, x, rel)
+    assert out.shape == (B, 6, D) and len(calls) == 1
+    mha.dropout.rate = 0.0
+    mask = torch.where(torch.rand(6, 6) < 0.7, 0.0, -1e8)
+    for args, kw in (((x, x, x, rel), dict(attn_mask=mask)), ((x[:, :3], x, x, rel), {})):
+        with torch.no_grad():
+            got, _ = mha.train()(*args, **kw)
+            want, _ = mha.eval()(*args, **kw)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert len(calls) == 1
 
 
 # two conformer layers whose relative table is clipped below the length:

@@ -239,6 +239,7 @@ def _small_model(dev, pred_embed=128):
     cfg = TransducerConfig(
         feat_dim=80, vocab_size=1024,
         encoder=SpeechTransformerConfig(
+            encoder_layer_type="conformer", encoder_pos_type="relative",
             encoder_embed_dim=256, encoder_ffn_dim=1024, encoder_layers=2, encoder_heads=4,
             depthwise_conv_kernel_size=31,
         ),
@@ -458,6 +459,24 @@ def test_rel_attention_train_bwd_kernel_at_tiling_edges(dev, B, T, rate):
     from espresso_tpu_torch.ops import train_kernel_checks as tc
 
     tc.check_attention_train(tc.attention_train_inputs(B, T, seed=T + B, dev=dev), H, rate)
+
+
+@pytest.mark.parametrize("B,T", [(16, 256), (2, 1500)])
+def test_rel_attention_train_bwd_kernel_is_deterministic(dev, B, T):
+    """B3 twice on the same inputs (the train shape, and past B2's
+    shared-memory rows), rate 0.1: every output bit for bit, dp too (each
+    query block stores its dp band; the bands are summed in a fixed order,
+    no atomics)."""
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    a = tc.attention_train_inputs(B, T, seed=B + T, dev=dev)
+    args = (a["q_u"], a["q_v"], a["k"], a["v"], a["p"], a["key_valid"], a["seed"], a["g"], H,
+            ak.HEAD_DIM ** -0.5, 0.1)
+    first, second = ak.rel_attention_train_bwd(*args), ak.rel_attention_train_bwd(*args)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq_u", "dq_v", "dk", "dv", "dp"), first, second):
+        assert torch.equal(x, y), name
 
 
 # the redesigned B2's edges (64-row query and key tiles, the [128 j'] skew
@@ -831,6 +850,35 @@ def test_optimizer_step_on_the_card_matches_the_cpu(dev, name):
         torch.testing.assert_close(s_gpu[k], s_cpu[k], rtol=1e-5, atol=1e-6, msg=k)
 
 
+def test_beam_decode_of_one_utterance_runs_the_kernels(dev):
+    """The AES beam at B = 1 (the hub's one WAV, a CLI batch of one): the
+    joint kernel's per-frame input is a copy (at B = 1 a reshape alone is a
+    stride-0 view, which the kernel refused); the utterance's top-1 score
+    within 1 % of the same decode through the plain versions."""
+    from espresso_tpu_torch.data.dictionary import AsrDictionary
+    from espresso_tpu_torch.decode import transducer_beam
+
+    model = _small_model(dev)
+    g = torch.Generator().manual_seed(3)
+    batch = {"src_frames": torch.randn(1, 160, 80, generator=g).to(dev, torch.bfloat16),
+             "src_lengths": torch.tensor([160], device=dev)}
+    beam = dict(beam_size=4, expansion_beta=2, expansion_gamma=2.3)
+    dic = AsrDictionary(enable_bos=True)
+    before = dk.fused_joint_topk.launches
+    got = transducer_beam.TransducerBeamSearchDecoder(model, dic, **beam).decode(batch)
+    assert dk.fused_joint_topk.launches > before and len(got) == 1 and len(got[0]) == 4
+    plain = [(transducer_beam, f.__name__, getattr(dk, f.__name__ + "_reference")) for f in dk.KERNELS]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in plain]
+    try:
+        for m, n, fn in plain:
+            setattr(m, n, fn)
+        want = transducer_beam.TransducerBeamSearchDecoder(model, dic, **beam).decode(batch)
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    assert abs(got[0][0]["score"] - want[0][0]["score"]) <= 0.01 * abs(want[0][0]["score"])
+
+
 def _speech_lstm(seed, **over):
     """A small attention encoder-decoder (a 2-layer frontend, a 2-layer
     bi-LSTM of 32, a 2-layer decoder of 32, Bahdanau attention 16, V = 61,
@@ -923,3 +971,93 @@ def test_speech_lstm_beam_with_lm_on_the_card_matches_the_cpu(dev):
         for w, g in zip(want, got):
             np.testing.assert_array_equal(g["tokens"], w["tokens"])
             assert abs(g["score"] - w["score"]) <= 1e-4 * abs(w["score"])
+
+
+def _speech_transformer(seed, **over):
+    """A small transformer encoder-decoder (a 2-layer frontend, 2 encoder
+    layers with relative positions and 2 decoder layers of 128, 2 heads of
+    64, V = 61, dropout 0) from a seeded init, and seeded frames and
+    lengths."""
+    from espresso_tpu_torch.models.speech_transformer import SpeechTransformerConfig, SpeechTransformerModel
+
+    torch.manual_seed(seed)
+    kw = dict(feat_dim=16, vocab_size=61, conv_channels=(4, 8), conv_kernel_sizes=((3, 3), (3, 3)),
+              conv_strides=((2, 2), (2, 2)), encoder_embed_dim=128, encoder_ffn_dim=256, encoder_layers=2,
+              encoder_heads=2, decoder_embed_dim=128, decoder_ffn_dim=256, decoder_layers=2,
+              decoder_heads=2, dropout=0.0, encoder_pos_type="relative")
+    model = SpeechTransformerModel(SpeechTransformerConfig(**{**kw, **over}))
+    g = torch.Generator().manual_seed(seed)
+    return model, torch.randn(3, 80, 16, generator=g), torch.tensor([80, 61, 23])
+
+
+def test_speech_transformer_encoder_runs_the_attention_kernels(dev):
+    """The transformer encoder's relative self-attention on the card in
+    bf16: one B1 launch a layer in eval, the output within 0.05 (a few bf16
+    ulps after two layers) of the same encoder through the plain version;
+    one B2 and one B3 launch a layer in a train step's forward and
+    backward."""
+    from espresso_tpu_torch.modules import attention
+    from espresso_tpu_torch.ops import attention_kernels as ak
+
+    model, frames, lengths = _speech_transformer(4)
+    model = model.to(dev, torch.bfloat16).eval()
+    x, n = frames.to(dev, torch.bfloat16), lengths.to(dev)
+    before = ak.rel_attention.launches
+    with torch.no_grad():
+        got = model.encode(x, n)
+    torch.cuda.synchronize()
+    assert ak.rel_attention.launches == before + 2
+    attention.rel_attention, kernel = ak.rel_attention_reference, attention.rel_attention
+    try:
+        with torch.no_grad():
+            want = model.encode(x, n)
+    finally:
+        attention.rel_attention = kernel
+    valid = got.encoder_padding_mask[..., None]
+    err = ((got.encoder_out.float() - want.encoder_out.float()) * valid).abs().max().item()
+    assert err <= 0.05, err
+    fwd, bwd = ak.rel_attention_train_fwd.launches, ak.rel_attention_train_bwd.launches
+    model.train()
+    model.encode(x, n).encoder_out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (ak.rel_attention_train_fwd.launches - fwd, ak.rel_attention_train_bwd.launches - bwd) == (2, 2)
+
+
+def test_speech_transformer_beam_with_lm_on_the_card_matches_the_cpu(dev):
+    """The transformer with absolute positions (no kernel: the relative
+    attention's take bf16 alone) through the beam search (K = 5,
+    eos_factor 1.5, lenpen 0.6) fused with an LSTM LM at 0.4, fp32, on the
+    card and on the CPU: the same n-best tokens, scores to 1e-4 relative;
+    the card's loop (its caches written in place, reordered by gathers)
+    makes no host sync."""
+    from espresso_tpu_torch.decode.beam_search import BeamSearchDecoder
+    from espresso_tpu_torch.models.lstm_lm import LSTMLanguageModel, LSTMLMConfig
+
+    model, frames, lengths = _speech_transformer(5, encoder_pos_type="abs",
+                                                 share_decoder_input_output_embed=False)
+    with torch.no_grad():
+        model.fc_out.weight.mul_(4.0)
+    torch.manual_seed(6)
+    lm = LSTMLanguageModel(LSTMLMConfig(vocab_size=61, embed_dim=16, hidden_size=24, out_embed_dim=24,
+                                        num_layers=2, dropout=0.0))
+    dic = type("D", (), {"eos": lambda self: 2, "pad": lambda self: 1})()
+    out = []
+    for d in (torch.device("cpu"), dev):
+        dec = BeamSearchDecoder(model.to(d).eval(), dic, beam_size=5, max_len_b=15, eos_factor=1.5,
+                                len_penalty=0.6, lm=lm.to(d).eval(), lm_weight=0.4)
+        batch = {"src_frames": frames.to(d), "src_lengths": lengths.to(d)}
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                handle = dec.decode_async(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            out.append(dec.collect(handle))
+        else:
+            out.append(dec.decode(batch))
+    for want, got in zip(*out):
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g["tokens"], w["tokens"])
+            assert abs(g["score"] - w["score"]) <= 1e-4 * abs(w["score"])
+    assert max(len(h[0]["tokens"]) for h in out[0]) > 1

@@ -408,6 +408,7 @@ def _tiny_step(feature_cfg=None):
 
     torch.manual_seed(0)
     enc = SpeechTransformerConfig(
+        encoder_layer_type="conformer", encoder_pos_type="relative",
         encoder_embed_dim=64, encoder_ffn_dim=128, encoder_layers=2, encoder_heads=2,
         depthwise_conv_kernel_size=7, dropout=0.0,
     )

@@ -27,6 +27,7 @@ def test_lstm_kernel_layout_is_an_invertible_permutation(H, L):
     cfg = TransducerConfig(
         feat_dim=8, vocab_size=16,
         encoder=SpeechTransformerConfig(
+            encoder_layer_type="conformer", encoder_pos_type="relative",
             encoder_embed_dim=32, encoder_ffn_dim=32, encoder_layers=1, encoder_heads=2,
         ),
         pred_embed_dim=H, pred_hidden_size=H, pred_layers=L, joint_dim=32,
@@ -177,6 +178,56 @@ def test_train_bwd_tmap_boxes_stay_in_one_utterance_and_head(B, T, H):
             ref[ok] = p[j[ok], h * 64:(h + 1) * 64]
             assert torch.equal(rows, ref)
 
+
+
+@pytest.mark.parametrize("B,T", [(2, 37), (1, 64), (2, 130), (1, 1)])
+def test_train_bwd_dp_bands_sum_to_the_plain_dp(B, T):
+    """B3's query pass stores each block's dp windows into its band: key
+    tile kt's lower window half at band rows 64 kt + r (carried), the last
+    tile's upper half at 64 nq + r, band row r standing for dp row T - 64 -
+    64 qt + r; each band row is stored once. Summed over (b, query tile) in
+    that order (``rel_attention_train_bwd_dp_kernel``), the bands give the
+    plain version's dp = sum over b, q, k of dbd[q, k] q_v[q] at row T - 1 +
+    k - q; the scratch is ``dp_band_elements`` long."""
+    torch.manual_seed(T)
+    d = ak.HEAD_DIM
+    nq = -(-T // 64)
+    rows = (nq + 1) * 64
+    dbd = torch.randn(B, T, T, dtype=torch.float64)
+    qv = torch.randn(B, T, d, dtype=torch.float64)
+    want = torch.zeros(2 * T - 1, d, dtype=torch.float64)
+    for b in range(B):
+        for q in range(T):
+            want[T - 1 - q:2 * T - 1 - q] += dbd[b, q, :, None] * qv[b, q]
+    bands = torch.full((B, nq, rows, d), float("nan"), dtype=torch.float64)
+    for b in range(B):
+        for qt in range(nq):
+            q0 = 64 * qt
+            stored = torch.zeros(rows, dtype=torch.int64)
+            carry = torch.zeros(64, d, dtype=torch.float64)
+            for kt in range(nq):
+                k0 = 64 * kt
+                win = torch.zeros(128, d, dtype=torch.float64)  # window rows j' of dp rows j0 + j'
+                for r in range(64):
+                    for c in range(64):
+                        q, k = q0 + r, k0 + c
+                        if q < T and k < T:
+                            win[c - r + 63] += dbd[b, q, k] * qv[b, q]
+                bands[b, qt, k0:k0 + 64] = carry + win[:64]
+                stored[k0:k0 + 64] += 1
+                carry = win[64:]
+            bands[b, qt, 64 * nq:] = carry
+            stored[64 * nq:] += 1
+            assert torch.equal(stored, torch.ones(rows, dtype=torch.int64))
+    got = torch.zeros(2 * T - 1, d, dtype=torch.float64)
+    for j in range(2 * T - 1):
+        for b in range(B):
+            for qt in range(nq):
+                r = j - (T - 64 - 64 * qt)
+                if 0 <= r < rows:
+                    got[j] += bands[b, qt, r]
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert ak.dp_band_elements(B, T, d) == bands.numel()
 
 # ---------------------------------------------------------------------------
 # rel_attention (B1): its tiles, the skew of its bd window and its shared

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax_o0
+from jax_o0 import jit_o0
 from espresso_tpu.decode.transducer_beam import (
     TransducerBeamSearchDecoder as JaxBeamDecoder,
 )
@@ -117,7 +119,7 @@ def test_lstm_lm_matches_jax(one_thread, share):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
         carry_j = jlm.apply(variables, 3, method="init_carry")
         carry_t = lm.init_carry(3)
-        step = jax.jit(lambda tok, carry: jlm.apply(variables, tok, carry, method="decode_step"))
+        step = jax_o0.jit(lambda tok, carry: jlm.apply(variables, tok, carry, method="decode_step"))
         for u in range(2):
             lj, carry_j = step(jnp.asarray(toks[:, u]), carry_j)
             lt, carry_t = lm.decode_step(torch.from_numpy(toks[:, u]).long(), carry_t)
@@ -203,10 +205,11 @@ def test_lm_fused_beam_decode_matches_jax(setup, monkeypatch, fused_kernel, pref
     s = setup
     kw = dict(prefix_alpha=prefix_alpha, max_num_expansions_per_step=n_exp, lm_weight=LM_WEIGHT)
     batch = {"src_frames": s["frames"], "src_lengths": LENS}
-    want = JaxBeamDecoder(
-        s["jmodel"], _dictionaries()[0], fused_kernel=fused_kernel, lm=s["jlm"],
-        lm_variables=s["lm_vars"], **BEAM, **kw,
-    ).decode(s["variables"], batch)
+    with jit_o0():
+        want = JaxBeamDecoder(
+            s["jmodel"], _dictionaries()[0], fused_kernel=fused_kernel, lm=s["jlm"],
+            lm_variables=s["lm_vars"], **BEAM, **kw,
+        ).decode(s["variables"], batch)
     decoder = _decoder(s, lm=s["lm"], **kw)
     if fused_kernel == "interpret":
         monkeypatch.setattr(transducer_beam, "lstm_step_reorder", _bf16_lm_step(decoder))

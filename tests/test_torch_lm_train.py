@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_o0
 from espresso_tpu.cli import prep as jax_prep
 from espresso_tpu.config import EspressoConfig as JaxConfig
 from espresso_tpu.criterions import build_criterion as jax_build_criterion
@@ -266,7 +267,7 @@ def jax_steps():
         jcfg.optimization.ema_validate = use_ema
         valid[use_ema] = jax.device_get(jax_trainer.make_valid_step(jlm, criterion, jcfg)(state, mb0))
     state = state.replace(ema_params=jax.tree_util.tree_map(jnp.copy, params))
-    step = jax.jit(jax_trainer.make_train_step(jlm, criterion, optimizer, jcfg, ema_decay=EMA))
+    step = jax_o0.jit(jax_trainer.make_train_step(jlm, criterion, optimizer, jcfg, ema_decay=EMA))
     out = []
     for _ in range(2):
         state, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(1))
@@ -353,7 +354,7 @@ def test_lm_stage_clis_end_to_end(corpus, tmp_path, source):
     params = jax.tree_util.tree_map(jnp.asarray, raw["params"])
     state = jax_trainer.TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
                                    opt_state=None, ema_params=None, overflow_count=None)
-    valid = jax.jit(jax_trainer.make_valid_step(jlm, criterion, jcfg))
+    valid = jax_o0.jit(jax_trainer.make_valid_step(jlm, criterion, jcfg))
     nll = tokens = 0.0
     for spec in jds.make_batch_specs(max_tokens=None, max_sentences=32, shuffle=False):
         stats = valid(state, {k: jnp.asarray(v) for k, v in jds.collate(spec).items() if isinstance(v, np.ndarray)})

@@ -51,6 +51,7 @@ def _one_torch_thread():
 
 def _port_model():
     enc = SpeechTransformerConfig(
+        encoder_layer_type="conformer", encoder_pos_type="relative",
         encoder_embed_dim=D, encoder_ffn_dim=FFN, encoder_layers=2, encoder_heads=H,
         depthwise_conv_kernel_size=K, dropout=0.0,
     )

@@ -62,6 +62,19 @@ LSTM_TINY = [
     "model.attention_dim=12", "optimization.lr=0.005", "optimization.clip_norm=2.0",
     "common.dtype=float32", "task.scheduled_sampling=true", "task.scheduled_sampling_probs=0.8",
 ]
+# speech_transformer_wsj (transformer_librispeech.yaml's criterion and
+# relative positions) narrowed: a 2-layer frontend (4x subsampling), one
+# encoder layer and two decoder layers of 16, ffn 32, 2 heads
+TRANSFORMER_TINY = [
+    "dataset.max_tokens=400", "dataset.num_batch_buckets=1", "dataset.feat_dim=12",
+    "criterion.name=label_smoothed_cross_entropy_v2", "criterion.label_smoothing=0.1",
+    "model.name=speech_transformer_wsj", "model.encoder_pos_type=relative", "model.conv_channels=(4,8)",
+    "model.conv_kernel_sizes=((3,3),(3,3))", "model.conv_strides=((2,2),(2,2))",
+    "model.encoder_embed_dim=16", "model.encoder_ffn_dim=32", "model.encoder_layers=1",
+    "model.encoder_heads=2", "model.decoder_embed_dim=16", "model.decoder_ffn_dim=32",
+    "model.decoder_layers=2", "model.decoder_heads=2", "optimization.lr=0.005",
+    "optimization.clip_norm=2.0", "common.dtype=float32",
+]
 # what each family's speech_recognize and hub take beside the data, the
 # checkpoint directory and the feature width: the transducer decodes the
 # average of its 2 epoch checkpoints at beam 2, the encoder-decoder its
@@ -70,7 +83,11 @@ DECODE = {
     "transducer": {"checkpoint.restore_file": "checkpoint_avg", "generation.beam": 2},
     "lstm": {"dataset.max_tokens": 100000, "dataset.num_batch_buckets": 1, "generation.beam": 3,
              "generation.eos_factor": 1.2, "generation.max_len_b": 12},
+    "transformer": {"dataset.max_tokens": 100000, "dataset.num_batch_buckets": 1, "generation.beam": 3,
+                    "generation.eos_factor": 1.5, "generation.max_len_b": 12},
 }
+# the encoder-decoders' train arguments
+ENC_DEC_TINY = {"lstm": LSTM_TINY, "transformer": TRANSFORMER_TINY}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -333,17 +350,17 @@ def _jax_recognizer(monkeypatch, raw):
     return jax_rec.main
 
 
-@pytest.mark.parametrize("family", ["transducer", "lstm"])
+@pytest.mark.parametrize("family", ["transducer", "lstm", "transformer"])
 def test_recipe_end_to_end_on_the_port(tmp_path, monkeypatch, family):
     """prep (asr_prep_json from scp and text files) -> the train CLI with
     WER validation -> speech_recognize -> the four result files; the hub's
     transcribe on two utterances gives the CLI's hypotheses. The conformer
     transducer trains 2 epochs and decodes from the average of its 2 epoch
-    checkpoints. The attention encoder-decoder (``LSTM_TINY``) trains 2
-    updates with scheduled sampling and decodes alone and fused with an
-    LSTM LM; JAX's speech_recognize (``_jax_recognizer``) on the same
-    checkpoints writes the same four files byte for byte and returns the
-    same numbers."""
+    checkpoints. The attention encoder-decoders (``LSTM_TINY`` with
+    scheduled sampling, ``TRANSFORMER_TINY``) train 2 updates and decode
+    alone and fused with an LSTM LM; JAX's speech_recognize
+    (``_jax_recognizer``) on the same checkpoints writes the same four
+    files byte for byte and returns the same numbers."""
     from espresso_tpu_torch import hub
     from espresso_tpu_torch.cli import average_checkpoints, speech_recognize, train
     from espresso_tpu_torch.train import checkpoint as ckpt
@@ -368,7 +385,7 @@ def test_recipe_end_to_end_on_the_port(tmp_path, monkeypatch, family):
                                   "--output", f"{d}/ckpt/checkpoint_avg"])
         lm_runs = [{}]
     else:
-        stats = train.main(args + LSTM_TINY + ["optimization.max_update=2"], device="cpu")
+        stats = train.main(args + ENC_DEC_TINY[family] + ["optimization.max_update=2"], device="cpu")
         raw = ckpt.load_raw_checkpoint(f"{d}/ckpt/checkpoint_last")
         assert int(raw["step"]) == 2
         _write_lm(d)
@@ -383,7 +400,7 @@ def test_recipe_end_to_end_on_the_port(tmp_path, monkeypatch, family):
         assert res["num_utts"] == 4 and 0.0 <= res["wer"]
         assert sorted(os.listdir(f"{d}/dec{i}")) == files
         assert open(f"{d}/dec{i}/wer").read().startswith("WER: ")
-        if family == "lstm":
+        if family != "transducer":
             assert jax_main(dec + [f"generation.results_path={d}/jax{i}"]) == res, lm
             for name in files:
                 assert open(f"{d}/dec{i}/{name}", "rb").read() == open(f"{d}/jax{i}/{name}", "rb").read(), (lm, name)

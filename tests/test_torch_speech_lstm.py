@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax_o0
+from jax_o0 import jit_o0
 from espresso_tpu.config import EspressoConfig as JaxConfig
 from espresso_tpu.criterions import build_criterion as jax_build_criterion
 from espresso_tpu.decode.beam_search import BeamSearchDecoder as JaxBeamSearch
@@ -174,7 +176,7 @@ def test_encoder_and_teacher_forced_logits_match_jax(small, over):
     params = variables["params"]["decoder"]
     assert ("fc_out" in params) != over.get("share_decoder_input_output_embed", False)
     assert ("attention" in params) == (over["attention_type"] != "none")
-    want, jenc = jax.jit(jmodel.apply)(variables, frames, LENS, prev)
+    want, jenc = jax_o0.jit(jmodel.apply)(variables, frames, LENS, prev)
     with torch.no_grad():
         got, enc = model(_t(frames), _t(LENS), _t(prev).long())
     np.testing.assert_array_equal(enc.src_lengths.numpy(), np.asarray(jenc.src_lengths))
@@ -238,7 +240,7 @@ def test_scheduled_sampling_decoder_matches_jax_given_its_coins(small):
                                         enc.encoder_padding_mask, False, ss_prob)
         return jnp.moveaxis(logits, 0, 1)
 
-    want = jax.jit(lambda v, p, c, ss: jmodel.apply(v, p, c, ss, method=jax_decode))(
+    want = jax_o0.jit(lambda v, p, c, ss: jmodel.apply(v, p, c, ss, method=jax_decode))(
         variables, prev, coin, jnp.float32(ss))
     with torch.no_grad():
         enc = model.encode(_t(frames), _t(LENS))
@@ -343,7 +345,7 @@ def train_run():
             out.append((lv, size, logging, vjp(dlogits)[0]))
         return out, new_stats
 
-    run = jax.jit(losses_and_grads)
+    run = jax_o0.jit(losses_and_grads)
     tmap = jax.tree_util.tree_map
     b1, b2 = 0.9, 0.999
     result = {}
@@ -407,7 +409,8 @@ def test_greedy_decoder_matches_jax(small):
     utterance's tokens up to its first eos, and its score."""
     jmodel, variables, model, frames, _, _ = small
     batch = {"src_frames": frames, "src_lengths": LENS}
-    want = JaxGreedy(jmodel, _Dictionary(), max_len_b=12).decode(variables, batch)
+    with jit_o0():
+        want = JaxGreedy(jmodel, _Dictionary(), max_len_b=12).decode(variables, batch)
     got = SimpleGreedyDecoder(model, _Dictionary(), max_len_b=12).decode({k: _t(v) for k, v in batch.items()})
     assert any(EOS not in h[0]["tokens"] and len(h[0]["tokens"]) for h in want)
     for g, w in zip(got, want):
@@ -444,7 +447,8 @@ def test_beam_search_matches_jax(small, fused):
     jdec = JaxBeamSearch(jmodel, _Dictionary(), **opts, **jx)
     if fused:
         jdec.lm_variables = lm_vars
-    want = jdec.decode(variables, batch, prefix_tokens=prefix)
+    with jit_o0():
+        want = jdec.decode(variables, batch, prefix_tokens=prefix)
     got = BeamSearchDecoder(model, _Dictionary(), **opts, **px).decode(
         {k: _t(v) for k, v in batch.items()}, prefix_tokens=None if prefix is None else _t(prefix))
     for b, (g, w) in enumerate(zip(got, want)):
@@ -505,7 +509,7 @@ def test_bf16_paths_match_jax_at_librispeech_width():
         logits, enc = model(tframes, _t(lens), prev)
     jmodel = JaxModel(JaxConfigLSTM(**kw))
     jvars = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), variables)  # numpy casts, no compile
-    want_logits, want_enc = jax.device_get(jax.jit(
+    want_logits, want_enc = jax.device_get(jax_o0.jit(
         lambda v, x, p: (lambda o: (o[0], o[1].encoder_out))(jmodel.apply(v, x, lens, p))
     )(jvars, jnp.asarray(frames).astype(jnp.bfloat16), prev.numpy().astype(np.int32)))
     valid = enc.encoder_padding_mask.numpy()[..., None]

@@ -134,6 +134,7 @@ def _configs():
 
 def _port_model(dropout=0.0):
     enc = SpeechTransformerConfig(
+        encoder_layer_type="conformer", encoder_pos_type="relative",
         encoder_embed_dim=D, encoder_ffn_dim=FFN, encoder_layers=2, encoder_heads=H,
         depthwise_conv_kernel_size=K, dropout=dropout,
     )

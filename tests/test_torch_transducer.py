@@ -21,6 +21,7 @@ from torch import nn
 import jax
 import jax.numpy as jnp
 
+import jax_o0
 from espresso_tpu.data.dictionary import AsrDictionary as JaxDictionary
 from espresso_tpu.decode.transducer_greedy import (
     TransducerGreedyDecoder as JaxGreedyDecoder,
@@ -78,6 +79,7 @@ def _jax_config():
 
 def _port_config():
     enc = SpeechTransformerConfig(
+        encoder_layer_type="conformer", encoder_pos_type="relative",
         encoder_embed_dim=D, encoder_ffn_dim=FFN, encoder_layers=2,
         encoder_heads=H, depthwise_conv_kernel_size=K,
     )
@@ -105,7 +107,7 @@ def setup():
     rng = np.random.default_rng(0)
     frames = rng.standard_normal((B, T, F)).astype(np.float32)
     jmodel = JaxTransducerModel(_jax_config())
-    variables = jmodel.init(
+    variables = jax_o0.jit(jmodel.init)(
         jax.random.PRNGKey(0), jnp.asarray(frames), jnp.asarray(LENS),
         jnp.zeros((B, 2), jnp.int32),
     )
@@ -175,6 +177,30 @@ def test_encoder_matches(setup, monkeypatch):
         enc.encoder_out.numpy(), np.asarray(j.encoder_out), rtol=TOL, atol=TOL
     )
 
+
+def test_encoder_depends_on_padding_as_jax_does(setup, monkeypatch):
+    """The batch padded by 8 more zero frames: the valid frames' encoder
+    output moves, in both packages alike (the conv frontend's last valid
+    frames see its own activations past the length, which more padding
+    turns from "SAME" zeros into frames of their own; attention spreads the
+    change over every frame). The port at the longer padding within TOL of
+    JAX; the move of each the same within 2 TOL, and far above it."""
+    monkeypatch.setenv("ESPRESSO_FUSED_ATTN", "off")
+    jmodel, variables, model, frames = setup
+    longer = np.concatenate([frames, np.zeros((B, 8, F), np.float32)], 1)
+    encode = jax_o0.jit(lambda v, x: jmodel.apply(v, x, jnp.asarray(LENS), method="encode").encoder_out)
+    want = {T_: np.asarray(encode(variables, jnp.asarray(x))) for T_, x in ((T, frames), (T + 8, longer))}
+    with torch.no_grad():
+        got = {T_: model.encode(torch.from_numpy(x), torch.from_numpy(LENS)).encoder_out.numpy()
+               for T_, x in ((T, frames), (T + 8, longer))}
+    np.testing.assert_allclose(got[T + 8], want[T + 8], rtol=TOL, atol=TOL)
+    n = want[T].shape[1]
+    valid = (np.arange(n)[None, :] < np.asarray(model.encode(torch.from_numpy(frames), torch.from_numpy(LENS))
+                                                  .src_lengths)[:, None])[..., None]
+    move_jax = (want[T + 8][:, :n] - want[T]) * valid
+    move_port = (got[T + 8][:, :n] - got[T]) * valid
+    np.testing.assert_allclose(move_port, move_jax, atol=2 * TOL)
+    assert np.abs(move_jax).max() > 100 * TOL
 
 def test_pred_step_and_joint_match(setup):
     jmodel, variables, model, _ = setup

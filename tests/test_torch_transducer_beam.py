@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax_o0
+from jax_o0 import jit_o0
 from espresso_tpu.data.dictionary import AsrDictionary as JaxDictionary
 from espresso_tpu.decode.transducer_beam import INV31 as JAX_INV31
 from espresso_tpu.decode.transducer_beam import (
@@ -71,6 +73,7 @@ def _configs():
     pcfg = TransducerConfig(
         feat_dim=F, vocab_size=V,
         encoder=SpeechTransformerConfig(
+            encoder_layer_type="conformer", encoder_pos_type="relative",
             encoder_embed_dim=D, encoder_ffn_dim=FFN, encoder_layers=1, encoder_heads=H,
             depthwise_conv_kernel_size=CK,
         ),
@@ -93,7 +96,7 @@ def setup():
     frames = rng.standard_normal((B, T, F)).astype(np.float32)
     jcfg, pcfg = _configs()
     jmodel = JaxTransducerModel(jcfg)
-    variables = jmodel.init(
+    variables = jax_o0.jit(jmodel.init)(
         jax.random.PRNGKey(0), jnp.asarray(frames), jnp.asarray(LENS), jnp.zeros((B, 2), jnp.int32)
     )
     variables = _perturb(jax.device_get(variables), rng)
@@ -119,7 +122,8 @@ def _decode_both(setup, monkeypatch, fused_kernel="off", **kw):
     jmodel, variables, model, frames = setup
     jd, pd = _dictionaries()
     batch = {"src_frames": frames, "src_lengths": LENS}
-    want = JaxBeamDecoder(jmodel, jd, fused_kernel=fused_kernel, **BEAM, **kw).decode(variables, batch)
+    with jit_o0():
+        want = JaxBeamDecoder(jmodel, jd, fused_kernel=fused_kernel, **BEAM, **kw).decode(variables, batch)
     got = TransducerBeamSearchDecoder(model, pd, **BEAM, **kw).decode(batch)
     return got, want
 
