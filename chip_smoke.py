@@ -45,7 +45,9 @@ eleven Hopper kernels:
    ``scaled_dot_product_attention``, beside B2 its forward with dropout,
    beside B3 its backward, beside B10 cuFFT's ``rfft`` of the
    valid frames alone; for B3 and B5 also every kernel the call runs and
-   the split by kernel; for B8 the wrapper's host time a call);
+   the split by kernel; for B8 the wrapper's host time a call); B5 twice
+   on the same inputs at the flagship and at V = 5,003, all four outputs
+   bit for bit (its partial sums in slots, summed in a fixed order);
 3. builds the flagship model (16 conformer layers, d=512, ffn 2048, 8 heads,
    depthwise kernel 31, relative positions, batch norm; 2x512 LSTM
    prediction net, joint 512, V=1024) from a seeded init in bf16, and
@@ -122,8 +124,9 @@ eleven Hopper kernels:
    ``transcribe`` against ``speech_recognize`` on the same inputs; every
    kernel's launches per step, valid batch and decode batch asserted; one
    test WAV decoded alone at two paddings (bf16 on the card, fp32 on the
-   CPU) and the train CLI run twice from one seed for 3 updates, each
-   logging where its two runs part; prints the ``recipe_cli`` JSON line;
+   CPU) and the train CLI run twice from one seed for 3 updates, every
+   parameter bit-equal after every update or the script fails
+   (``train_reproducibility``); prints the ``recipe_cli`` JSON line;
 10. runs the LSTM attention encoder-decoder's recipe (``run_recipe_lstm``,
    ``lstm_librispeech.yaml``) at ``speech_conv_lstm_librispeech``'s full
    width on a seeded 40 + 8 utterance WAV corpus through the front (B10):
@@ -147,7 +150,19 @@ eleven Hopper kernels:
    LM stage trained (no host sync while a batch is launched), a 2-utterance
    fp32 beam_lm decode of a seeded model card against CPU; the launches of
    B1, B2, B3 and B10 asserted; prints the ``recipe_transformer`` JSON line;
-12. encodes and trains 2 layers of the flagship on utterances past its
+12. runs the Transformer-CTC recipe (``run_recipe_transformer_ctc``,
+   ``transformer_ctc_librispeech.yaml``) at ``transformer_ctc_librispeech``'s
+   full width (12 transformer encoder layers with relative positions, d
+   512, ``fc_out`` to V = 5,004) on the same corpus: ``cli.train.main``
+   (update_freq 4) with its greedy WER validation, SIGTERM in epoch 2 and
+   a resume, the train CLI twice from one seed bit for bit, two fp32 train
+   steps card against CPU, B1, B2 and B3 held in situ, ``speech_recognize``
+   with the prefix beam at beam 10 alone and with the LM (the same
+   hypotheses: the search never reads it; no host sync while a batch is
+   launched), the hub against ``speech_recognize``, a seeded fp32 prefix
+   beam card against CPU; the launches of B1, B2, B3 and B10 asserted;
+   prints the ``recipe_transformer_ctc`` JSON line;
+13. encodes and trains 2 layers of the flagship on utterances past its
    relative table (T' = 1500).
 
 Any failure raises (nonzero exit) before the result lines. Prints the
@@ -930,6 +945,12 @@ def check_train_kernels(dev) -> dict:
         log(f"rnnt joint kernels B={B} T'={T} U={U} V={V} blank={blank}: max_abs_err {errs}")
         lp_err = max(lp_err, errs["lp_blank"], errs["lp_label"], errs["lse"])
         bwd_err = max(bwd_err, errs["g_enc"], errs["g_dec"], errs["g_W"], errs["g_b"])
+    # B5's sums in a fixed order: two launches bit-equal in all four outputs
+    # at the flagship and at V = 5003
+    for B, T, U, V, blank in RNNT_SHAPES[:2]:
+        tc.check_rnnt_joint_bwd_repeats(tc.rnnt_inputs(B, T, U, 512, V, seed=V + T, dev=dev,
+                                                       blank=blank), blank)
+        log(f"rnnt_joint_bwd B={B} T'={T} U={U} V={V}: two launches bit-equal")
     B, T, U, V, blank = RNNT_SHAPES[0]
     r = tc.rnnt_inputs(B, T, U, 512, V, seed=V + T, dev=dev, blank=blank)
     ja = (r["enc_proj"], r["dec_proj"], r["fc_kernel"], r["fc_bias"], r["targets"])
@@ -960,7 +981,7 @@ def check_train_kernels(dev) -> dict:
         plain_calls=2,
     ))
     bwd_fn = lambda: rk.rnnt_joint_bwd(*ja, lse, ob, ol, blank)
-    # the wrapper's whole device time (its zero fills included) and the
+    # the wrapper's whole device time (the slots' sum included) and the
     # split by kernel; a yardstick: the three products alone through cuBLAS
     row["ms_all_kernels"] = device_ms(bwd_fn)
     row["cublas_products_ms"] = rnnt_bwd_cublas_ms(B, T, U1, J, V, dev)
@@ -2173,6 +2194,56 @@ def write_corpus(root: str, splits=None, units: int = CORPUS["UNITS"], seed: int
     return out
 
 
+def prep_recipe_data(root: str, data: str, splits: dict, seed: int = 0):
+    """Stages 1-2 of run.sh through the port's ``prep``: a seeded WAV corpus
+    (``write_corpus``) turned into the Kaldi data directories run.sh starts
+    from (wav.scp, the BPE token text, utt2num_frames, and the BPE model's
+    unit inventory), then ``prep asr_prep_json`` for each split and ``prep
+    text2vocabulary`` over the train split's units into ``data``, the
+    valid split copied as ``test``, and the global CMVN. Returns (the
+    corpus, the CMVN path, seconds of the corpus and of prep)."""
+    import contextlib as cl
+    import io
+    import json
+    import os
+
+    from espresso_tpu_torch.cli import prep
+
+    t0 = time.perf_counter()
+    corpus = write_corpus(data, splits, seed=seed)
+    units = os.path.join(root, "units.txt")
+    with open(units, "w") as f:
+        f.writelines(f"u{i:04d}\n" for i in range(CORPUS["UNITS"]))
+    for split in splits:
+        with open(os.path.join(data, f"{split}.json")) as f:
+            manifest = json.load(f)
+        kdir = os.path.join(root, split)
+        os.makedirs(kdir)
+        for name, key in (("wav.scp", "wave"), ("token_text", "token_text"), ("utt2num_frames", "utt2num_frames")):
+            with open(os.path.join(kdir, name), "w") as f:
+                f.writelines(f"{u} {e[key]}\n" for u, e in manifest.items())
+        os.remove(os.path.join(data, f"{split}.json"))
+    os.remove(os.path.join(data, "dict.txt"))
+    secs = {"corpus": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    for split in splits:
+        kdir = os.path.join(root, split)
+        prep.main(["asr_prep_json", "--wave-files", f"{kdir}/wav.scp", "--token-text-files",
+                   f"{kdir}/token_text", "--utt2num-frames-files", f"{kdir}/utt2num_frames",
+                   "--output", os.path.join(data, f"{split}.json")])
+    with open(os.path.join(data, "test.json"), "w") as f, open(os.path.join(data, "valid.json")) as g:
+        f.write(g.read())  # the decode split: the valid utterances
+    out = io.StringIO()
+    with cl.redirect_stdout(out):
+        prep.main(["text2vocabulary", "--skip-ncols", "1", "--vocabsize", str(CORPUS["UNITS"]),
+                   "--vocab", units, os.path.join(root, "train", "token_text")])
+    with open(os.path.join(data, "dict.txt"), "w") as f:
+        f.write(out.getvalue())
+    cmvn = write_global_cmvn(data)
+    secs["prep"] = time.perf_counter() - t0
+    return corpus, cmvn, secs
+
+
 def write_global_cmvn(root: str, split: str = "train") -> str:
     """Global CMVN stats of the split's host fbank, as run.sh stage 2
     computes them: every utterance of the manifest read and framed on the
@@ -2618,7 +2689,10 @@ CLI_LAYERS = 8
 
 def encoded_frames(T: int, enc_cfg) -> int:
     """The encoder's output length for T input frames: each conv layer of
-    the frontend maps T to (T + (k - 1) // 2 + k // 2 - k) // stride + 1."""
+    the frontend maps T to (T + (k - 1) // 2 + k // 2 - k) // stride + 1
+    (``enc_cfg`` the encoder's config, or a model's that holds it as
+    ``encoder``)."""
+    enc_cfg = getattr(enc_cfg, "encoder", enc_cfg)
     for (kt, _), (st, _) in zip(enc_cfg.conv_kernel_sizes, enc_cfg.conv_strides):
         T = (T + (kt - 1) // 2 + kt // 2 - kt) // st + 1
     return T
@@ -2681,13 +2755,14 @@ def decode_at_paddings(dev, cfg, task, tree, wav: str) -> dict:
     return out
 
 
-def train_reproducibility(dev, args, base_dir: str) -> dict:
+def train_reproducibility(dev, args, base_dir: str, tag: str = "recipe CLI") -> dict:
     """The recipe's train CLI twice from one seed for REPRO_STEPS updates
     (no checkpoint written, the valid pass skipped): each update's loss and
     gradient norm, and after
     each update the parameters; the first update where the runs differ and,
     at it, the loss's difference and the parameters that differ (by flax
-    path, the largest first)."""
+    path, the largest first). Raises if the runs differ in any bit of any
+    parameter after any update, or took other numbers of updates."""
     import os
 
     from espresso_tpu_torch.bridge import flax_paths
@@ -2736,7 +2811,9 @@ def train_reproducibility(dev, args, base_dir: str) -> dict:
                    differing_params=len(diffs), of_params=len(names["params"]), largest=diffs[:12],
                    smallest=diffs[-6:])
         break
-    log(f"recipe CLI train twice from one seed for {REPRO_STEPS} updates (queue C item 3): {out}")
+    log(f"{tag} train twice from one seed for {REPRO_STEPS} updates: {out}")
+    if out["first_differing_step"] is not None or len(a) != len(b) or len(a) != REPRO_STEPS:
+        raise AssertionError(f"{tag}: two train runs from one seed differ: {out}")
     return out
 
 
@@ -2766,15 +2843,13 @@ def recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
     batch, finite losses, the update count and iterator position after the
     resume, V = 5,004 and the four result files. Returns the recipe_cli
     numbers."""
-    import contextlib as cl
-    import io
     import json
     import logging
     import os
     import signal
 
     from espresso_tpu_torch import hub
-    from espresso_tpu_torch.cli import average_checkpoints, prep, speech_recognize
+    from espresso_tpu_torch.cli import average_checkpoints, speech_recognize
     from espresso_tpu_torch.cli import train as train_cli
     from espresso_tpu_torch.decode.transducer_beam import TransducerBeamSearchDecoder
     from espresso_tpu_torch.features.fbank_kernels import fbank_fused
@@ -2786,41 +2861,8 @@ def recipe_clis(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
     data, save_dir = os.path.join(root, "data"), os.path.join(root, "ckpts")
     os.makedirs(data)
     secs = {}
-    t0 = time.perf_counter()
-    corpus = write_corpus(data, {"train": CLI_CORPUS["train"], "valid": CLI_CORPUS["valid"]})
-    # the Kaldi data directories run.sh starts from: wav.scp, the BPE token
-    # text, utt2num_frames, and the BPE model's unit inventory
-    units = os.path.join(root, "units.txt")
-    with open(units, "w") as f:
-        f.writelines(f"u{i:04d}\n" for i in range(CORPUS["UNITS"]))
-    for split in ("train", "valid"):
-        with open(os.path.join(data, f"{split}.json")) as f:
-            manifest = json.load(f)
-        kdir = os.path.join(root, split)
-        os.makedirs(kdir)
-        for name, key in (("wav.scp", "wave"), ("token_text", "token_text"), ("utt2num_frames", "utt2num_frames")):
-            with open(os.path.join(kdir, name), "w") as f:
-                f.writelines(f"{u} {e[key]}\n" for u, e in manifest.items())
-        os.remove(os.path.join(data, f"{split}.json"))
-    os.remove(os.path.join(data, "dict.txt"))
-    secs["corpus"] = time.perf_counter() - t0
-    # stages 1-2
-    t0 = time.perf_counter()
-    for split in ("train", "valid"):
-        kdir = os.path.join(root, split)
-        prep.main(["asr_prep_json", "--wave-files", f"{kdir}/wav.scp", "--token-text-files",
-                   f"{kdir}/token_text", "--utt2num-frames-files", f"{kdir}/utt2num_frames",
-                   "--output", os.path.join(data, f"{split}.json")])
-    with open(os.path.join(data, "test.json"), "w") as f, open(os.path.join(data, "valid.json")) as g:
-        f.write(g.read())  # the decode split: the valid utterances
-    out = io.StringIO()
-    with cl.redirect_stdout(out):
-        prep.main(["text2vocabulary", "--skip-ncols", "1", "--vocabsize", str(CORPUS["UNITS"]),
-                   "--vocab", units, os.path.join(root, "train", "token_text")])
-    with open(os.path.join(data, "dict.txt"), "w") as f:
-        f.write(out.getvalue())
-    cmvn = write_global_cmvn(data)
-    secs["prep"] = time.perf_counter() - t0
+    corpus, cmvn, prep_secs = prep_recipe_data(root, data, dict(CLI_CORPUS))
+    secs.update(prep_secs)
     recipe = copy.deepcopy(RECIPE)
     recipe["dataset"].update(data=data, global_cmvn_stats_path=cmvn)
     recipe["checkpoint"]["save_dir"] = save_dir
@@ -3170,7 +3212,7 @@ def compare_train_steps_card_cpu(dev, cfg, tree, tag: str = "LSTM") -> dict:
 
     cfg = copy.deepcopy(cfg)
     cfg.common.dtype = "float32"
-    cfg.model["dropout"] = 0.0
+    model_section(cfg)["dropout"] = 0.0
     # the card's and the CPU's generators draw other SpecAugment masks
     cfg.dataset.specaugment_config = None
     task, mb = recipe_sub_batch(dev, cfg, LSTM_CPU_ROWS)
@@ -3202,10 +3244,10 @@ def compare_train_steps_card_cpu(dev, cfg, tree, tag: str = "LSTM") -> dict:
     return res
 
 
-def seeded_model(task, seed: int):
+def seeded_model(task, seed: int, peak: float = LSTM_SEEDED_PEAK):
     """The task's model on the CPU, fp32, from torch's seeded init at
-    LeCun's scale (1/sqrt(fan-in)) with the output layer x LSTM_SEEDED_PEAK,
-    so that the decoder's choices are not near-ties."""
+    LeCun's scale (1/sqrt(fan-in)) with the output layer x ``peak``, so
+    that the decoder's choices are not near-ties."""
     from espresso_tpu_torch.registry import MODELS
 
     base, mcfg = task.build_model_config()
@@ -3214,8 +3256,15 @@ def seeded_model(task, seed: int):
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("weight") and p.ndim > 1 and "embed" not in name:
-                p.mul_(3 ** 0.5 * (LSTM_SEEDED_PEAK if "fc_out" in name else 1.0))
+                p.mul_(3 ** 0.5 * (peak if "fc_out" in name else 1.0))
     return model.eval()
+
+
+def model_section(cfg) -> dict:
+    """The dict of the model's own options in ``cfg.model``: its
+    ``encoder`` section for an encoder-only model (``model.encoder.*``),
+    else the section itself."""
+    return cfg.model["encoder"] if isinstance(cfg.model.get("encoder"), dict) else cfg.model
 
 
 def compare_beam_card_cpu(dev, cfg, lm_dir: str, tag: str = "LSTM") -> dict:
@@ -3581,7 +3630,7 @@ def without_relative_leaves(tree):
     return {"params": prune(tree["params"]), "batch_stats": tree["batch_stats"]}
 
 
-def hold_attention_in_situ(dev, cfg, tree, layers: int) -> dict:
+def hold_attention_in_situ(dev, cfg, tree, layers: int, tag: str = "transformer") -> dict:
     """Every B1, B2 and B3 call of the recipe's model (the trained
     checkpoint's weights, bf16 compute) held against its plain version on
     its own inputs: the encoder in eval on TRANSFORMER_B1_ROWS test
@@ -3646,7 +3695,7 @@ def hold_attention_in_situ(dev, cfg, tree, layers: int) -> dict:
         raise AssertionError(f"in-situ attention calls {calls} for {layers} layers, loss {m['loss'].item()}")
     res = dict(max_abs_err={k: max(v) for k, v in errs.items()}, calls=calls, T_enc_b1=T_enc,
                T_enc_b23=encoded_frames(T, task.build_model_config()[1]))
-    log(f"recipe transformer in-situ B1/B2/B3 against their plain versions: {res}")
+    log(f"recipe {tag} in-situ B1/B2/B3 against their plain versions: {res}")
     return res
 
 
@@ -3894,6 +3943,464 @@ def recipe_transformer(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
     )
 
 
+# the Transformer-CTC recipe, examples/asr_librispeech/
+# transformer_ctc_librispeech.yaml, written out (tests/test_torch_ctc.py
+# holds the two equal)
+CTC_RECIPE = {
+    "task": {"name": "speech_recognition_espresso"},
+    "criterion": {"name": "ctc_loss"},
+    "model": {"name": "transformer_ctc_librispeech", "encoder": {"encoder_pos_type": "relative"}},
+    "dataset": {"feat_dim": 80, "max_tokens": 22000, "num_batch_buckets": 10, "max_source_positions": 3600,
+                "max_target_positions": 200,
+                "specaugment_config": "{'time_warp_W': 0, 'freq_mask_F': 27, 'freq_mask_N': 2, "
+                                      "'time_mask_pm': 0.04, 'time_mask_ps': 0.04}"},
+    "optimizer": {"name": "adam"},
+    "lr_scheduler": {"name": "tri_stage", "warmup_updates": 2750, "hold_steps": 101250, "decay_steps": 175000},
+    "optimization": {"lr": [0.001], "clip_norm": 2.0, "max_epoch": 100, "update_freq": [8]},
+    "generation": {"beam": 10},
+    "checkpoint": {"save_dir": "ckpts_transformer_ctc", "best_checkpoint_metric": "wer"},
+}
+# the phase's cuts of CTC_RECIPE: the transformer phase's seeded WAV corpus
+# (TRANSFORMER_CORPUS, seed 7) through the on-device front; frame batches of
+# TRANSFORMER_MAX_TOKENS and update_freq CTC_UPDATE_FREQ (the yaml's 8 would
+# make ~5 updates an epoch of this corpus), so that one epoch takes at least
+# CTC_MIN_UPDATES updates (11 of 4 microbatches); SIGTERM after
+# CTC_SIGTERM_AFTER updates and a resume to the epoch's end and its valid
+# pass; the epoch checkpoints off (checkpoint_best and checkpoint_last stay)
+CTC_UPDATE_FREQ, CTC_MIN_UPDATES, CTC_SIGTERM_AFTER = 4, 10, 6
+# the decodes run the recipe's model from a seeded init with its output
+# layer x CTC_SEEDED_PEAK ("checkpoint_seeded", beside the trained
+# checkpoints): the prefix search's host cost grows with the tokens of a
+# frame that pass its 1e-5 pruning, all 5,004 for a random model (50,040
+# extensions a frame at beam 10), ~8 at this peak; the model 11 updates
+# old, peaked as far, emits blank at every frame (empty hypotheses, on an
+# H100)
+CTC_SEEDED_PEAK = 20.0
+# where a microbatch's time goes: the criterion's forward and backward and
+# the loss's alone, on the test split's first CTC_TIMED_ROWS utterances
+CTC_TIMED_ROWS = 3
+# the card-against-CPU prefix beam: each rank's tokens equal, each score
+# within 1e-4 relative (the log-probs' sums of ~100 frames in f32, the
+# encoder's sums in other orders)
+CTC_BEAM_SCORE_RTOL = 1e-4
+
+
+def run_recipe_transformer_ctc(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
+    """``recipe_transformer_ctc`` with the CLIs' log lines on stderr beside
+    this script's log."""
+    with contextlib.redirect_stdout(sys.stderr):
+        return recipe_transformer_ctc(dev, tmpdir, card, lm_dir)
+
+
+def seeded_checkpoint(task, path: str, seed: int, peak: float) -> None:
+    """The weights of ``seeded_model(task, seed, peak)`` as the checkpoint
+    ``path`` (params and batch statistics)."""
+    from espresso_tpu_torch.train import checkpoint as ckpt
+
+    ckpt.save_checkpoint_state(path, ckpt.flatten_tree(ckpt.flax_variables(seeded_model(task, seed, peak))), {})
+
+
+def time_ctc_loss(dev, cfg, tree) -> dict:
+    """Where a CTC microbatch's time goes, on the test split's first
+    CTC_TIMED_ROWS utterances through the trained model (bf16, train mode):
+    the criterion's forward and backward, and ``ctc_loss``'s forward and
+    backward alone on the same logits, each by CUDA events (the mean of 3
+    after a warm-up), and the device operations one loss forward and
+    backward launches (``torch.profiler``: kernels, copies and fills)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from espresso_tpu_torch.ops.ctc import ctc_loss
+
+    task, mb = recipe_sub_batch(dev, cfg, CTC_TIMED_ROWS)
+    model = trained_model(task, tree, dev).to(torch.bfloat16).train()
+    crit = task.build_criterion()
+    batch = {k: mb[k] for k in ("src_lengths", "target", "tgt_lengths", "weight")}
+    batch["src_frames"] = mb["src_frames"].to(torch.bfloat16)
+    with torch.no_grad():
+        logits, enc = model(batch["src_frames"], batch["src_lengths"])
+    blank = task.dictionary.blank()
+
+    def microbatch():
+        model.zero_grad(set_to_none=True)
+        crit(model, batch)[0].backward()
+
+    def loss_alone():
+        x = logits.detach().requires_grad_()
+        ctc_loss(x, enc.src_lengths, batch["target"], batch["tgt_lengths"], blank=blank).sum().backward()
+
+    def events_ms(fn, n: int = 3) -> float:
+        fn()
+        torch.cuda.synchronize()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        for _ in range(n):
+            fn()
+        e[1].record()
+        torch.cuda.synchronize()
+        return e[0].elapsed_time(e[1]) / n
+
+    micro_ms, loss_ms = events_ms(microbatch), events_ms(loss_alone)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss_alone()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    res = dict(rows=CTC_TIMED_ROWS, T_enc=int(logits.shape[1]), U_max=int(batch["tgt_lengths"].max()),
+               microbatch_ms=micro_ms, ctc_loss_ms=loss_ms, ctc_loss_share=loss_ms / micro_ms,
+               ctc_loss_device_ops=sum(e.count for e in ops),
+               ctc_loss_device_ms=sum(e.self_device_time_total for e in ops) / 1e3)
+    log(f"recipe transformer CTC a microbatch, criterion forward and backward against the loss's alone: {res}")
+    del model
+    return res
+
+
+def compare_ctc_beam_card_cpu(dev, cfg, beam: int) -> dict:
+    """A 2-utterance fp32 prefix beam decode (``beam``) of the recipe's
+    model from a seeded init (``seeded_model`` at CTC_SEEDED_PEAK, absolute
+    positions) on the card and on the CPU, from the same frames: each
+    utterance's n-best equal rank by rank in its tokens, every score within
+    CTC_BEAM_SCORE_RTOL, relative, the top-1 of more than one token; and the
+    tokens a frame that pass the search's pruning."""
+    from espresso_tpu_torch.decode.ctc_decoder import CTCPrefixBeamSearchDecoder
+
+    cfg = copy.deepcopy(cfg)
+    cfg.common.dtype = "float32"
+    task, mb = recipe_sub_batch(dev, cfg, 2)
+    cpu_model = seeded_model(task, seed=19, peak=CTC_SEEDED_PEAK)
+    batch = {"src_frames": mb["src_frames"].float(), "src_lengths": mb["src_lengths"]}
+    out = []
+    for where, model in ((dev, copy.deepcopy(cpu_model).to(dev)), (torch.device("cpu"), cpu_model)):
+        dec = CTCPrefixBeamSearchDecoder(model, task.dictionary, beam_size=beam)
+        t0 = time.perf_counter()
+        handle = dec.decode_async({k: v.to(where) for k, v in batch.items()})
+        lp = handle[0].cpu()
+        hyps = dec.collect(handle)
+        out.append((hyps, time.perf_counter() - t0, lp))
+        del model
+    (card, card_s, lp), (cpu, cpu_s, _) = out
+    passing = (lp >= math.log(1e-5)).sum(-1).float()
+    rel = max(abs(g["score"] - w["score"]) / abs(w["score"]) for gb, wb in zip(card, cpu) for g, w in zip(gb, wb))
+    res = dict(nbest_equal=[[list(map(int, h["tokens"])) for h in gb] == [list(map(int, h["tokens"])) for h in wb]
+                            for gb, wb in zip(card, cpu)],
+               nbest_sizes=[len(gb) for gb in card], nbest_score_rel_diff=rel,
+               top1_lengths=[len(gb[0]["tokens"]) for gb in card],
+               tokens_passing_pruning_a_frame=passing[passing > 0].mean().item(), card_s=card_s, cpu_s=cpu_s)
+    log(f"recipe transformer CTC 2-utterance fp32 prefix beam ({beam}) of a seeded model, card vs CPU: {res}")
+    if not (all(res["nbest_equal"]) and rel <= CTC_BEAM_SCORE_RTOL and min(res["top1_lengths"]) > 1):
+        raise AssertionError(f"the CTC prefix beam on the card disagrees with the CPU: {res}")
+    return res
+
+
+def recipe_transformer_ctc(dev, tmpdir: str, card: str, lm_dir: str) -> dict:
+    """The Transformer-CTC recipe (transformer_ctc_librispeech.yaml,
+    ``CTC_RECIPE``) through the port's entry points at the full width of
+    transformer_ctc_librispeech (12 transformer encoder layers with
+    relative positions, d 512, ffn 2048, 8 heads, ``fc_out`` to V = 5,004),
+    bf16 on fp32 masters: the transformer phase's seeded WAV corpus through
+    ``prep`` (``prep_recipe_data``) and the on-device front;
+    ``cli.train.main`` with its valid pass (loss, greedy
+    WER) and checkpoints for one epoch, SIGTERM after CTC_SIGTERM_AFTER
+    updates, then a second ``main`` resuming from checkpoint_last to the
+    epoch's end with asynchronous writes; ``average_checkpoints`` of the
+    SIGTERM checkpoint and the last, decoded greedily (beam 1) through
+    ``speech_recognize``; two train runs from one seed bit for
+    bit (``train_reproducibility``); two fp32 train steps card against CPU
+    (absolute positions: the relative attention's kernels take bf16
+    alone); B1, B2 and B3 held against their plain versions in situ;
+    ``speech_recognize`` of the test split with the prefix beam at the
+    yaml's beam 10, alone and with the LM the "recipe LM stage" trained in
+    ``lm_dir`` (which the search takes and never reads, as JAX's: the same
+    hypotheses), on seeded weights with the output layer peaked
+    (``seeded_checkpoint``); a microbatch's time against the loss's
+    (``time_ctc_loss``); the hub's ``transcribe`` on two WAVs against
+    ``speech_recognize``'s hypotheses; a seeded fp32 prefix beam card
+    against CPU. Asserts the launches of B10 (a microbatch, two a valid
+    batch, one a decode batch), B1 (a layer per valid-step and
+    greedy-decode batch and per decode batch), B2 and B3 (a layer a
+    microbatch), finite losses, the update counts and iterator positions,
+    the result files; counts the host syncs of each decode batch's launch
+    and fails on any. Returns the numbers."""
+    import json
+    import logging
+    import os
+    import shutil
+    import signal
+    import warnings
+
+    from espresso_tpu_torch import hub
+    from espresso_tpu_torch.cli import average_checkpoints, speech_recognize
+    from espresso_tpu_torch.cli import train as train_cli
+    from espresso_tpu_torch.config import load_config_dict
+    from espresso_tpu_torch.decode.ctc_decoder import CTCPrefixBeamSearchDecoder
+    from espresso_tpu_torch.features.fbank_kernels import fbank_fused
+    from espresso_tpu_torch.ops import attention_kernels as ak
+    from espresso_tpu_torch.tasks import setup_task
+    from espresso_tpu_torch.train import checkpoint as ckpt
+
+    root = os.path.join(tmpdir, "recipe_transformer_ctc")
+    data, save_dir = os.path.join(root, "data"), os.path.join(root, "ckpts")
+    os.makedirs(data)
+    corpus, cmvn, secs = prep_recipe_data(root, data, dict(TRANSFORMER_CORPUS), seed=7)
+    recipe = copy.deepcopy(CTC_RECIPE)
+    recipe["dataset"].update(data=data, feature_type="device_fbank", global_cmvn_stats_path=cmvn,
+                             max_tokens=TRANSFORMER_MAX_TOKENS)
+    recipe["checkpoint"].update(save_dir=save_dir, save_interval=0)
+    recipe["optimization"].update(max_epoch=1, update_freq=[CTC_UPDATE_FREQ])
+    cfg_path = os.path.join(root, "recipe.json")
+    with open(cfg_path, "w") as f:
+        json.dump(recipe, f)
+    args = ["--config", cfg_path]
+    cfg = load_config_dict(recipe)
+    task = setup_task(cfg)
+    V, mcfg = len(task.dictionary), task.build_model_config()[1]
+    layers = mcfg.encoder.encoder_layers
+    if V != CORPUS["UNITS"] + 4:  # the units, <pad>, </s>, <unk> and the blank (bos)
+        raise AssertionError(f"V = {V}")
+    del task
+    widths = {k: getattr(mcfg.encoder, k) for k in (
+        "encoder_layer_type", "encoder_pos_type", "encoder_embed_dim", "encoder_ffn_dim", "encoder_layers",
+        "encoder_heads", "dropout")}
+    log(f"recipe transformer CTC: corpus {corpus}; {secs}; V = {V}; {widths}")
+
+    # train: SIGTERM in epoch 1, then a second main resuming
+    kernels = {"fbank": fbank_fused, "rel_attention": ak.rel_attention,
+               "rel_attention_train_fwd": ak.rel_attention_train_fwd,
+               "rel_attention_train_bwd": ak.rel_attention_train_bwd}
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    rec = dict(steps=0, micro=0, step_events=[], losses=[], valid_batches=0, valid_s=[], wer=[])
+    make_step, make_valid, validate = train_cli.make_train_step, train_cli.make_valid_step, train_cli.validate
+
+    def counted_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, gen, *rest):
+            e = [ev(), ev()]
+            e[0].record()
+            state, m = step(state, batch, gen, *rest)
+            e[1].record()
+            rec["steps"] += 1
+            rec["micro"] += batch["prev_output_tokens"].shape[0]
+            rec["step_events"].append(e)
+            rec["losses"].append(m["loss"])
+            if rec["steps"] == CTC_SIGTERM_AFTER and not rec.get("sigterm"):
+                rec["sigterm"] = True
+                signal.raise_signal(signal.SIGTERM)
+            return state, m
+        return run
+
+    def counted_valid(*a, **kw):
+        valid = make_valid(*a, **kw)
+
+        def run(state, mb):
+            rec["valid_batches"] += 1
+            return valid(state, mb)
+        return run
+
+    def timed_validate(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = validate(*a, **kw)
+        rec["valid_s"].append(time.perf_counter() - t)
+        rec["wer"].append(stats.get("wer"))
+        return stats
+
+    patches = [(train_cli, "make_train_step", counted_step), (train_cli, "make_valid_step", counted_valid),
+               (train_cli, "validate", timed_validate)]
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        t0 = time.perf_counter()
+        train_cli.main(args, device=dev)
+        secs["train_until_sigterm"] = time.perf_counter() - t0
+        tree, host = ckpt.load_checkpoint_state(os.path.join(save_dir, "checkpoint_last"))
+        want_it = {"epoch": 1, "iterations_in_epoch": CTC_SIGTERM_AFTER}
+        if not rec.get("sigterm") or rec["valid_s"] or int(tree["step"]) != CTC_SIGTERM_AFTER \
+                or any(host["iterator"][k] != v for k, v in want_it.items()):
+            raise AssertionError(f"SIGTERM checkpoint: step {int(tree['step'])}, iterator {host['iterator']}, "
+                                 f"valid passes {rec['valid_s']}; want {CTC_SIGTERM_AFTER} and {want_it}")
+        del tree
+        shutil.copytree(os.path.join(save_dir, "checkpoint_last"), os.path.join(save_dir, "checkpoint_sigterm"))
+        t0 = time.perf_counter()
+        stats = train_cli.main(args + ["checkpoint.write_checkpoints_asynchronously=true"], device=dev)
+        secs["train_resumed"] = time.perf_counter() - t0
+    finally:
+        for mod, name, _ in patches:
+            setattr(mod, name, {"make_train_step": make_step, "make_valid_step": make_valid,
+                                "validate": validate}[name])
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated()
+    n, nv, micro = rec["steps"], rec["valid_batches"], rec["micro"]
+    train_launches = {name: f.launches for name, f in kernels.items()}
+    # a microbatch: B10, B2 and B3 a layer; a valid batch: the valid step
+    # and the greedy WER decode, each B10 and B1 a layer
+    want = {"fbank": micro + 2 * nv, "rel_attention": 2 * layers * nv,
+            "rel_attention_train_fwd": layers * micro, "rel_attention_train_bwd": layers * micro}
+    if train_launches != want or n < CTC_MIN_UPDATES or not rec["valid_s"]:
+        raise AssertionError(f"recipe transformer CTC train launches {train_launches}, want {want} ({micro} "
+                             f"microbatches, {nv} valid batches); {n} updates")
+    losses = torch.stack(rec["losses"]).tolist()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"recipe transformer CTC train losses {losses}")
+    tree, host = ckpt.load_checkpoint_state(os.path.join(save_dir, "checkpoint_last"))
+    if int(tree["step"]) != n or host["iterator"]["epoch"] != 2 or host["iterator"]["iterations_in_epoch"]:
+        raise AssertionError(f"after the resume: step {int(tree['step'])} of {n}, iterator {host['iterator']}")
+    names = sorted(os.listdir(save_dir))
+    if not {"checkpoint_best", "checkpoint_last", "model_cfg.json"} <= set(names):
+        raise AssertionError(f"checkpoints {names}")
+    step_ms = [e[0].elapsed_time(e[1]) for e in rec["step_events"]]
+    n_params = sum(int(np.prod(v.shape)) for v in ckpt.flatten_tree(tree["params"]).values())
+    # the average of the SIGTERM checkpoint and the last, decoded greedily
+    # (the generator at beam 1) through speech_recognize
+    t0 = time.perf_counter()
+    pair = [os.path.join(save_dir, f"checkpoint_{n}") for n in ("sigterm", "last")]
+    average_checkpoints.main(["--inputs", *pair, "--output", os.path.join(save_dir, "checkpoint_avg")])
+    trees = [ckpt.flatten_tree(ckpt.load_raw_checkpoint(p)["params"]) for p in pair + [
+        os.path.join(save_dir, "checkpoint_avg")]]
+    if any(not np.array_equal(((trees[0][k].astype(np.float64) + trees[1][k]) / 2).astype(np.float32),
+                              trees[2][k]) for k in trees[2]):
+        raise AssertionError("checkpoint_avg is not the mean of its two inputs")
+    del trees
+    greedy_dir = os.path.join(root, "decode_greedy")
+    greedy = speech_recognize.main(args + ["checkpoint.restore_file=checkpoint_avg", "generation.beam=1",
+                                           "dataset.gen_subset=test", f"generation.results_path={greedy_dir}"],
+                                   device=dev)
+    if sorted(os.listdir(greedy_dir)) != ["aligned_results.txt", "cer", "decoded_results.txt", "wer"] \
+            or greedy["num_utts"] != TRANSFORMER_CORPUS["valid"]:
+        raise AssertionError(f"recipe transformer CTC greedy decode of checkpoint_avg: {greedy}")
+    secs["average_and_greedy_decode"] = time.perf_counter() - t0
+    log(f"recipe transformer CTC train on {card}: {n} updates (SIGTERM after {CTC_SIGTERM_AFTER}, then "
+        f"resumed), {micro} microbatches, step ms "
+        f"{[round(x, 1) for x in step_ms]}, {nv} valid batches in {rec['valid_s']} s, WER {rec['wer']}, "
+        f"peak memory {train_peak / 2**30:.2f} GiB, {n_params:,} params, losses "
+        f"{[round(x, 3) for x in losses]}, launches {train_launches}; {stats}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    repro = train_reproducibility(dev, args, root, "recipe transformer CTC")
+    secs["reproducibility"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # the fp32 comparisons run the model with absolute positions (the
+    # trained weights without the relative leaves): the relative
+    # attention's kernels take bf16 alone (they are held in situ below)
+    abs_cfg = copy.deepcopy(cfg)
+    model_section(abs_cfg)["encoder_pos_type"] = "abs"
+    cpu_steps = compare_train_steps_card_cpu(dev, abs_cfg, without_relative_leaves(tree), "transformer CTC")
+    torch.cuda.empty_cache()
+    in_situ = hold_attention_in_situ(dev, cfg, tree, layers, "transformer CTC")
+    torch.cuda.empty_cache()
+    breakdown = time_ctc_loss(dev, cfg, tree)
+    del tree
+    torch.cuda.empty_cache()
+
+    # decode the test split at the yaml's beam, alone and with the LM, with
+    # the seeded peaked weights
+    task = setup_task(cfg)
+    seeded_checkpoint(task, os.path.join(save_dir, "checkpoint_seeded"), 23, CTC_SEEDED_PEAK)
+    del task
+    dec_args = args + ["checkpoint.restore_file=checkpoint_seeded"]
+    calls = []
+    run_async = CTCPrefixBeamSearchDecoder.decode_async
+
+    def counted_async(self, batch, *a, **kw):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                handle = run_async(self, batch, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        calls.append((tuple(batch["src_frames"].shape), syncs))
+        return handle
+
+    class Elapsed(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("Recognized"):
+                rec["elapsed"] = record.args[1]
+
+    handler = Elapsed()
+    logging.getLogger("espresso_tpu_torch.recognize").addHandler(handler)
+    decodes, hyps = {}, {}
+    audio_s = corpus["valid"]["audio_s"]
+    try:
+        CTCPrefixBeamSearchDecoder.decode_async = counted_async
+        for tag, extra in (("beam", []), ("beam_lm", [f"generation.lm_path={lm_dir}", "generation.lm_weight=0.4"])):
+            out_dir = os.path.join(root, f"decode_{tag}")
+            for f in kernels.values():
+                f.launches = 0
+            calls.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = speech_recognize.main(dec_args + extra + ["dataset.gen_subset=test",
+                                                            f"generation.results_path={out_dir}"], device=dev)
+            torch.cuda.synchronize()
+            secs[f"decode_{tag}"] = time.perf_counter() - t0
+            files = sorted(os.listdir(out_dir))
+            syncs = sum(s for _, s in calls)
+            counts = {name: f.launches for name, f in kernels.items()}
+            want = {"fbank": len(calls), "rel_attention": layers * len(calls), "rel_attention_train_fwd": 0,
+                    "rel_attention_train_bwd": 0}
+            if files != ["aligned_results.txt", "cer", "decoded_results.txt", "wer"] \
+                    or res["num_utts"] != TRANSFORMER_CORPUS["valid"] or counts != want or syncs:
+                raise AssertionError(f"recipe transformer CTC {tag} decode: files {files}, result {res}, "
+                                     f"launches {counts} (want {want}), host syncs {calls}")
+            with open(os.path.join(out_dir, "decoded_results.txt")) as f:
+                hyps[tag] = f.read()
+            decodes[tag] = dict(result=res, batches=[s for s, _ in calls], host_syncs=syncs, launches=counts,
+                                elapsed_s=rec["elapsed"], rtfx=audio_s / rec["elapsed"],
+                                peak_bytes=torch.cuda.max_memory_allocated(),
+                                wer_file=open(os.path.join(out_dir, "wer")).read().strip())
+            log(f"recipe transformer CTC {tag} decode on {card}: {res}, batches {decodes[tag]['batches']} in "
+                f"{rec['elapsed']:.3f} s, RTFx {audio_s / rec['elapsed']:.2f}, host syncs {syncs}, launches "
+                f"{counts}, peak memory {decodes[tag]['peak_bytes'] / 2**30:.2f} GiB; {decodes[tag]['wer_file']}")
+    finally:
+        CTCPrefixBeamSearchDecoder.decode_async = run_async
+        logging.getLogger("espresso_tpu_torch.recognize").removeHandler(handler)
+    lines = [line.rstrip("\n").partition(" ") for line in hyps["beam"].splitlines()]
+    if hyps["beam"] != hyps["beam_lm"] or not all(h for _, _, h in lines):
+        raise AssertionError("the prefix beam's hypotheses moved with the LM, which it does not read, or "
+                             f"one is empty: {hyps}")
+
+    # the hub on two WAVs against speech_recognize on a manifest of the same
+    t0 = time.perf_counter()
+    with open(os.path.join(data, "test.json")) as f:
+        test = json.load(f)
+    utts = sorted(test)[:2]
+    with open(os.path.join(data, "hub.json"), "w") as f:
+        json.dump({f"hub_utt{i:06d}": {"wave": test[u]["wave"]} for i, u in enumerate(utts)}, f)
+    hub_dir = os.path.join(root, "decode_hub")
+    speech_recognize.main(dec_args + ["dataset.gen_subset=hub", f"generation.results_path={hub_dir}"],
+                          device=dev)
+    batching = {f"dataset.{k}": v for k, v in recipe["dataset"].items() if k != "specaugment_config"}
+    asr = hub.from_pretrained(save_dir, data_dir=data, beam=CTC_RECIPE["generation"]["beam"], device=dev,
+                              **batching, **{"checkpoint.restore_file": "checkpoint_seeded"})
+    got = asr.transcribe([test[u]["wave"] for u in utts])
+    secs["hub"] = time.perf_counter() - t0
+    with open(os.path.join(hub_dir, "decoded_results.txt")) as f:
+        cli = dict(line.rstrip("\n").partition(" ")[::2] for line in f)
+    want_hub = [cli[f"hub_utt{i:06d}"] for i in range(len(utts))]
+    if got != want_hub or not all(got):
+        raise AssertionError(f"CTC hub {got} != the CLI's {want_hub}, or empty")
+    log(f"recipe transformer CTC hub: {utts} -> {got}, the CLI's hypotheses")
+    del asr
+    torch.cuda.empty_cache()
+    sub = compare_ctc_beam_card_cpu(dev, abs_cfg, CTC_RECIPE["generation"]["beam"])
+    torch.cuda.empty_cache()
+    return dict(
+        corpus=corpus, vocab=V, widths=widths, params=n_params, stage_s=secs, steps=n,
+        microbatches=micro, update_freq=CTC_UPDATE_FREQ, train_ms_per_step=statistics.mean(step_ms),
+        step_ms=step_ms, valid_batches=nv, valid_s=rec["valid_s"], valid_wer=rec["wer"], losses=losses,
+        train_peak_bytes=train_peak, launches=dict(train=train_launches, **{
+            tag: d["launches"] for tag, d in decodes.items()}),
+        decodes=decodes, reproducibility=repro, card_vs_cpu_steps=cpu_steps, card_vs_cpu_beam=sub,
+        in_situ=in_situ, microbatch_breakdown=breakdown, card=card,
+    )
+
+
 def compare_train_step(dev) -> dict:
     """One step of a 2-utterance sub-batch at dropout 0 from one init,
     through the kernels and through the plain versions: the loss and the
@@ -4028,8 +4535,13 @@ def main() -> int:
     phase("recipe transformer encoder-decoder")
     with tempfile.TemporaryDirectory() as transformer_tmp:
         recipe_transformer_path = run_recipe_transformer(dev, transformer_tmp, card, recipe_lm_stage["lm_dir"])
-    lm_tmp.cleanup()
     print(json.dumps({"recipe_transformer": recipe_transformer_path}))
+    torch.cuda.empty_cache()
+    phase("recipe transformer CTC")
+    with tempfile.TemporaryDirectory() as ctc_tmp:
+        recipe_ctc_path = run_recipe_transformer_ctc(dev, ctc_tmp, card, recipe_lm_stage["lm_dir"])
+    lm_tmp.cleanup()
+    print(json.dumps({"recipe_transformer_ctc": recipe_ctc_path}))
     torch.cuda.empty_cache()
     phase("long utterances")
     long_utt = run_long_utterances(dev)
@@ -4117,6 +4629,15 @@ def main() -> int:
             **({"recipe_transformer_in_situ_max_abs_err":
                 recipe_transformer_path["in_situ"]["max_abs_err"][name]}
                if name in recipe_transformer_path["in_situ"]["max_abs_err"] else {}),
+            # the Transformer-CTC recipe: its train runs (B10 a microbatch and
+            # two a valid batch, B2 and B3 a layer a microbatch, B1 a layer a
+            # valid step and a greedy decode), its prefix-beam decodes alone
+            # and with the LM (B10 a batch, B1 a layer a batch), and B1/B2/B3
+            # held in situ
+            **{f"recipe_transformer_ctc_{tag}_launches": counts[name]
+               for tag, counts in recipe_ctc_path["launches"].items() if counts.get(name)},
+            **({"recipe_transformer_ctc_in_situ_max_abs_err": recipe_ctc_path["in_situ"]["max_abs_err"][name]}
+               if name in recipe_ctc_path["in_situ"]["max_abs_err"] else {}),
             **extra,
         })
     log(f"chip_smoke {time.perf_counter() - t_start:.1f} s in all")

@@ -19,8 +19,14 @@ products alone and ``scaled_dot_product_attention``'s backward at B3's
 shape and its forward with the same dropout at B2's. With ``--train-step``
 it times the flagship train step instead (``chip_smoke.run_train``: 10
 steps after a warm-up, host clock, then a profiled step), so that repeated
-runs of two checkouts in turns resolve the step's spread. Then the card's name and power limit. Exits nonzero
-without a card.
+runs of two checkouts in turns resolve the step's spread. With
+``--peak-memory`` it prints the bytes one B5 call allocates above what was
+allocated before it (its outputs and its workspace) at the flagship lattice
+(T'=256) and at the transducer recipe's lattice budget
+(``conformer_transducer_librispeech.yaml``'s max_tokens 590,000 cells:
+B=16, T'=365, U1=101), then the flagship train step's peak allocated bytes
+(``chip_smoke.run_train``). Then the card's name and power limit. Exits
+nonzero without a card.
 """
 
 from __future__ import annotations
@@ -61,6 +67,27 @@ def main() -> int:
         t = cs.run_train(dev)
         print(json.dumps({"train_ms_per_step": t["ms_per_step"],
                           "profile": {k: v for k, v in t["profile"].items() if k != "top_kernels"}}))
+        print(cs.card_line())
+        return 0
+    if "--peak-memory" in sys.argv[1:]:
+        row = {}
+        for T in (256, 365):
+            r = tc.rnnt_inputs(16, T, 100, 512, 1024, seed=1024 + T, dev=dev, blank=0)
+            ja = (r["enc_proj"], r["dec_proj"], r["fc_kernel"], r["fc_bias"], r["targets"])
+            lpb, lpl, lse = rk.rnnt_joint_lp_reference(*ja, 0)
+            ob, ol = tc.occupancy_grads(r, lpb, lpl)
+            rk.rnnt_joint_bwd(*ja, lse, ob, ol, 0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            out = rk.rnnt_joint_bwd(*ja, lse, ob, ol, 0)
+            torch.cuda.synchronize()
+            row[f"rnnt_joint_bwd_T{T}_call_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+            del r, ja, lpb, lpl, lse, ob, ol, out
+            torch.cuda.empty_cache()
+        t = cs.run_train(dev)
+        row.update(train_peak_gb=t["peak_gb"], train_ms_per_step=t["ms_per_step"])
+        print(json.dumps(row))
         print(cs.card_line())
         return 0
     yardsticks = "--yardsticks" in sys.argv[1:]

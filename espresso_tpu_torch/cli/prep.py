@@ -11,7 +11,7 @@ subcommands, arguments and IO formats (host code, numpy only):
   * ``binarize``         — LM text into an mmap int32 token stream
     ({prefix}.bin/.idx, ``data/indexed_dataset.py``), byte for byte JAX's
   * ``estimate_state_prior`` (hybrid) is not ported and raises (ROADMAP
-    queue A item 5)
+    queue A item 2)
 
 Usage: ``python -m espresso_tpu_torch.cli.prep <subcommand> [args]``.
 """
@@ -212,7 +212,7 @@ def compute_wer(argv):
 def estimate_state_prior(argv):
     raise NotImplementedError(
         "prep estimate_state_prior: the hybrid task's state prior is not ported (ROADMAP queue A "
-        "item 5)"
+        "item 2)"
     )
 
 

@@ -6,7 +6,9 @@ checkpoint (``train/checkpoint.py``; its ``params`` tree loads through
 (for the transducer greedy at a beam of at most 1, else the AES beam
 search; for the attention encoder-decoder the beam search of
 ``decode/beam_search.py``; each fused with an LSTM LM from
-``generation.lm_path``), and writes ``decoded_results.txt``,
+``generation.lm_path``; for a CTC model its greedy decoder at a beam of at
+most 1, else the prefix beam search of ``decode/ctc_decoder.py``, which
+takes the LM unread, as JAX's does), and writes ``decoded_results.txt``,
 ``wer``, ``cer`` and ``aligned_results.txt`` as JAX writes them, with the
 "Recognized N utterances" throughput line. The decode is pipelined one
 deep: the next batch's search is launched (``decode_async``) before the

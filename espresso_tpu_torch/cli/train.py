@@ -25,9 +25,8 @@ each epoch's rate from ``tools/scheduled_sampling.py``, :399-408 and
 
 ``main(argv=None, device="cuda")`` runs on the card unless the caller asks
 for the CPU (``device="cpu"``, as the tests do). Not ported, and refused:
-several devices (``config.check_single_device``, ROADMAP queue A item 6),
-the adafactor and composite optimizers (item 4) and the hybrid task's
-state prior (item 5).
+several devices (``config.check_single_device``, ROADMAP queue A item 3)
+and the hybrid task's state prior (item 2).
 
 Usage:
     python -m espresso_tpu_torch.cli.train --config cfg.yaml dataset.data=DIR \\

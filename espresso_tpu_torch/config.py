@@ -5,17 +5,17 @@ recipe path carries, with the same names and defaults: every section and
 field that ``examples/asr_librispeech/conformer_transducer_librispeech.yaml``
 names, ``DatasetConfig``, ``DistributedConfig`` and ``GenerationConfig``
 whole, the ``common`` fields the CLIs read (logging sinks, ``profile``),
-the optimization fields the train and valid steps read, the optimizer
-fields of the ported optimizers, ``LRSchedulerConfig`` whole,
-``CheckpointConfig``, the task's name and ``autoregressive``, the
-criterion's name and the cross-entropy criteria's smoothing fields, and the
-``model`` section as a dict; ``load_config_dict``, ``parse_config``
+the optimization fields the train and valid steps read, ``OptimizerConfig``
+whole (the composite optimizer's ``groups`` too), ``LRSchedulerConfig``
+whole, ``CheckpointConfig``, the task's name and ``autoregressive``, the
+criterion's name, the cross-entropy criteria's smoothing fields and the CTC
+criterion's, and the ``model`` section as a dict; ``load_config_dict``, ``parse_config``
 (``[--config file.yaml] key.path=value ...``; PyYAML is imported only for
 a YAML file, a ``.json`` file is read without it; every key set is
 recorded in ``cfg._explicit_keys``),
 ``apply_saved_model_cfg`` and ``config_to_dict``. A key of the reference
-that the port does not carry (the other criteria's and tasks' fields, the
-composite optimizer's ``groups``) raises ``KeyError``; a ``distributed`` setting that asks for more than one
+that the port does not carry (the other criteria's and tasks' fields)
+raises ``KeyError``; a ``distributed`` setting that asks for more than one
 device raises ``NotImplementedError`` in ``check_single_device``.
 
 Usage:
@@ -65,7 +65,7 @@ class DistributedConfig:
 def check_single_device(dcfg: DistributedConfig) -> None:
     """Raise ``NotImplementedError`` where ``dcfg`` asks for more than one
     device: meshes, FSDP, pipeline and sequence parallelism, bmuf/slowmo,
-    several processes (ROADMAP queue A item 6)."""
+    several processes (ROADMAP queue A item 3)."""
     asks = [
         (dcfg.data_parallel_size not in (-1, 1), f"data_parallel_size={dcfg.data_parallel_size}"),
         (dcfg.model_parallel_size > 1, f"model_parallel_size={dcfg.model_parallel_size}"),
@@ -79,7 +79,7 @@ def check_single_device(dcfg: DistributedConfig) -> None:
     if what:
         raise NotImplementedError(
             f"distributed {', '.join(what)}: the port runs on one card; meshes, bmuf/slowmo, "
-            "pipeline and sequence parallelism are not ported (ROADMAP queue A item 6)"
+            "pipeline and sequence parallelism are not ported (ROADMAP queue A item 3)"
         )
 
 
@@ -214,6 +214,10 @@ class OptimizerConfig:
     adam_eps: float = 1e-8
     weight_decay: float = 0.0
     momentum: float = 0.0  # sgd/nag
+    # composite optimizer (fairseq/optim/composite.py): per-param-group
+    # settings keyed by top-level parameter name prefix, e.g.
+    # groups: {encoder: {name: adam, lr_scale: 0.1}, default: {name: adam}}
+    groups: Optional[Dict[str, Any]] = None
 
 
 @dataclass
@@ -261,6 +265,8 @@ class CriterionSection:
     label_smoothing: float = 0.0
     smoothing_type: str = "uniform"  # uniform | unigram | temporal
     unigram_pseudo_count: float = 1.0
+    # ctc
+    zero_infinity: bool = True
     # the lattice-free fused RNNT loss; only the fused path is ported
     fused_transducer: bool = True
 

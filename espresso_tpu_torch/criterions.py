@@ -11,7 +11,10 @@ Counterpart of ``espresso_tpu/criterions.py``, for ``build_criterion``
   encoder-decoder's teacher-forced forward ``model(src_frames,
   src_lengths, prev_output_tokens, ss_prob=)`` (criterions.py:37-60;
   ``ss_prob`` < 1 turns scheduled sampling on), or on a language-model
-  batch, one without ``src_frames``, through ``model(prev_output_tokens)``.
+  batch, one without ``src_frames``, through ``model(prev_output_tokens)``;
+* ``ctc_loss``: ``CTCCriterion`` (criterions.py:133-172) on an
+  encoder-only model's logits (``models/encoder_models.py``) through
+  ``ops/ctc.py``.
 
 A criterion is ``criterion(model, batch) -> (loss, sample_size,
 logging)``; the model's train or eval mode decides dropout and batch
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from espresso_tpu_torch.config import CriterionSection
+from espresso_tpu_torch.ops.ctc import ctc_loss
 from espresso_tpu_torch.ops.losses import (
     cross_entropy_loss,
     label_smoothed_cross_entropy,
@@ -100,6 +104,39 @@ class LabelSmoothedCrossEntropyV2(CECriterionBase):
             pad_index=self.pad,
             unigram_probs=unigram,
         )
+
+
+@CRITERIONS.register("ctc_loss")
+class CTCCriterion:
+    """CTC over an encoder-only model's logits, summed over the batch with
+    each utterance's weight. blank = bos; EOS is stripped from the targets
+    (to pad) and ``tgt_lengths`` reduced by the count stripped;
+    ``sample_size`` is the weighted target tokens, at least 1."""
+
+    logging_keys = ("loss", "ntokens")
+
+    def __init__(self, cfg: CriterionSection, dictionary):
+        self.cfg = cfg
+        self.pad = dictionary.pad()
+        self.eos = dictionary.eos()
+        self.blank = dictionary.blank()
+
+    def __call__(
+        self, model, batch: Dict[str, torch.Tensor], ss_prob: float = 1.0
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        logits, enc = model(batch["src_frames"], batch["src_lengths"])
+        target = batch["target"]
+        is_eos = target == self.eos
+        target = torch.where(is_eos, self.pad, target)
+        tgt_lengths = batch["tgt_lengths"] - is_eos.sum(1).to(batch["tgt_lengths"].dtype)
+        losses = ctc_loss(
+            logits, enc.src_lengths, target, tgt_lengths, blank=self.blank,
+            zero_infinity=self.cfg.zero_infinity,
+        )
+        weight = batch["weight"]
+        loss = (losses * weight).sum()
+        ntokens = (tgt_lengths * weight).sum()
+        return loss, ntokens.clamp(min=1), {"loss": loss, "ntokens": ntokens}
 
 
 @CRITERIONS.register("transducer_loss")

@@ -379,11 +379,6 @@ __device__ inline void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint64_
       : "memory");
 }
 
-// f32 pair added to global memory in one atomic (sm_90)
-__device__ inline void atomic_add2(float* p, float x, float y) {
-  atomicAdd(reinterpret_cast<float2*>(p), make_float2(x, y));
-}
-
 // a 32-bit global store under a predicate, without a branch: a value taken
 // from wgmma's registers inside a divergent branch makes ptxas serialize
 // every wgmma of the kernel, so epilogues store through a predicate

@@ -44,12 +44,12 @@
 //     (double-buffered), and, once both halves are there, adds glog_c .
 //     W_tile into its half of g_pre [64 x J/2] in registers (wgmma
 //     m64n(J/2)k16, B = the same W stage read MN-major). At the end of a
-//     tile g_pre is masked by pre > 0 and summed: over u into g_enc (the
-//     lane's two rows, then the 4 warps through shared memory two at a
-//     time, then one f32 atomic per (t, j) and tile), over the frames by a
-//     reduce-scatter across the 8 lanes of a frame group into registers
-//     that carry the sum over the block's consecutive tiles of one (b, u
-//     group) and are added into g_dec once per such run.
+//     tile g_pre is masked by pre > 0 and summed: over u into the tile's
+//     g_enc slot (the lane's two rows, then the 4 warps through shared
+//     memory two at a time, then one store per (t, j) and tile), over the
+//     frames by a reduce-scatter across the 8 lanes of a frame group into
+//     registers that carry the sum over the block's consecutive tiles of one
+//     (b, u group), a run, and are stored into the run's g_dec slot once.
 //   * cols (g_W, g_b): work units are (V tile, row tile) pairs, V tile
 //     slowest, so a block holds one or two V tiles of W (TMA) over its
 //     share. The producer warpgroup forms each unit's joint hidden and row
@@ -57,13 +57,27 @@
 //     tile (as above), write glog_c transposed ([64 v][64 rows], K-major)
 //     and add glog_c^T . pre into g_W^T [64 v x J/2] in registers (B = the
 //     joint hidden read MN-major), with glog summed into g_b in f32; both
-//     are added into the outputs by f32 atomics once per V tile and block.
+//     are stored into the block's slot for that V tile once per V tile.
+//   * sum (g_enc, g_dec, g_W, g_b): each output element adds its slots in a
+//     fixed order, so two launches on the same inputs are bit-equal: g_enc
+//     over the u groups of its frame, in order; g_dec over the blocks that
+//     hold a part of its run, in block order; g_W and g_b over the blocks
+//     that hold a part of its V tile, in block order. The schedule is fixed
+//     on the host (ops/rnnt_kernels.py::joint_bwd_schedule), so which
+//     blocks touch a run or a V tile is known from the block shares alone.
 // No epilogue reads or writes wgmma's registers in a divergent branch (it
 // selects instead): ptxas would serialise every wgmma of the kernel.
 // Together the kernels run four products of the logits' size (the logits
 // twice), against the TPU kernel's three; that keeps a [B T U1, V] buffer
-// out of memory. g_enc, g_dec, g_W and g_b sum partial sums by f32 atomics,
-// in an order that changes from run to run.
+// out of memory. No atomics: the slots (f32, in the workspace the wrapper
+// allocates, ops/rnnt_kernels.py::joint_bwd_workspace) are
+//   ws_enc [tiles, 8, J]                 a tile's g_enc rows, 8 frames
+//   ws_dec [grid_rows, runs_max, 8, J]   a block's run's g_dec rows
+//   ws_w   [grid_cols, segs_max, 64, J]  a block's V tile's g_W^T rows
+//   ws_b   [grid_cols, segs_max, 64]     a block's V tile's g_b
+// At the flagship (B=16, T'=256, U1=101, J=512, V=1024, 132 SMs: 6,656
+// tiles, runs_max 3, segs_max 2) that is 109.1 + 6.5 + 34.6 + 0.07 MB,
+// written once and read once by the sum kernel.
 //
 // What holds it back (chip_kernel_ablation.py, which times the kernels
 // with one part left out, on an H100 at the flagship): in the rows kernel,
@@ -74,8 +88,9 @@
 // producer warpgroup, which forms every joint hidden once per V tile.
 //
 // C entry: rnnt_joint_bwd_bf16(...) returns the CUDA error of the launches;
-// it launches on the given stream and does not synchronise. g_enc, g_dec,
-// g_W and g_b must be zero on entry.
+// it launches on the given stream and does not synchronise. The sum kernel
+// writes every element of g_enc, g_dec, g_W and g_b: they need not be zero
+// on entry.
 
 #include "rnnt_joint_common.cuh"
 #include <math.h>
@@ -239,8 +254,8 @@ rnnt_joint_bwd_rows_kernel(const __grid_constant__ CUtensorMap tm_w, const bf16*
                            const bf16* __restrict__ dec, const float* __restrict__ bias,
                            const int* __restrict__ tgt, const float* __restrict__ lse,
                            const float* __restrict__ ob, const float* __restrict__ ol,
-                           float* __restrict__ g_enc, float* __restrict__ g_dec, Tiles tl,
-                           int V, int blank) {
+                           float* __restrict__ ws_enc, float* __restrict__ ws_dec, Tiles tl,
+                           int V, int blank, int runs_max) {
   using L = RowsLayout<J>;
   constexpr int S = L::S, NV4 = J / 4, NKEEP = NV4 / 8;
   extern __shared__ uint8_t smem_raw[];
@@ -289,16 +304,17 @@ rnnt_joint_bwd_rows_kernel(const __grid_constant__ CUtensorMap tm_w, const bf16*
       int b = -1, ug = -1, ts = 0;
       if (i < hi) tile_of(tl, i, b, ug, ts);
       if ((b != seg_b || ug != seg_ug) && seg_b >= 0) {
-        // g_dec[b, u, :] of the run of tiles just ended: the lane's NKEEP
-        // sums over the run's frames
+        // the run of tiles just ended (run index b nu + ug = tile / nt): the
+        // lane's NKEEP sums over its frames into the block's slot for it
+        const long long run = (long long)seg_b * tl.nu + seg_ug - lo / tl.nt;
+        float* slot = ws_dec + ((size_t)blockIdx.x * runs_max + run) * (UT * J);
         const int gi = lane >> 2;
 #pragma unroll
         for (int k = 0; k < NKEEP; ++k) {
           const int idx = gi * NKEEP + k;  // half (J/8 each), then n8 block and element
           const int h = idx / (J / 8), rem = idx % (J / 8);
-          const int u = seg_ug * UT + 2 * warp + h;
           const int col = w * (J / 2) + 8 * (rem / 2) + 2 * q + (rem % 2);
-          if (u < tl.U1) atomicAdd(g_dec + ((size_t)seg_b * tl.U1 + u) * J + col, gd[k]);
+          slot[(2 * warp + h) * J + col] = gd[k];
           gd[k] = 0.f;
         }
       }
@@ -374,7 +390,8 @@ rnnt_joint_bwd_rows_kernel(const __grid_constant__ CUtensorMap tm_w, const bf16*
       // g_enc: the lane's two rows (u), then the 4 warps of the warpgroup in
       // shared memory, two at a time: warps 0 and 1 store into two buffers
       // (its scratch and, now that both warpgroups' products are done, its
-      // glog tile), warps 2 and 3 add theirs, and the sums go out by atomics
+      // glog tile), warps 2 and 3 add theirs, and the sums go to the tile's
+      // slot
       float ge[J / 8];
 #pragma unroll
       for (int k = 0; k < J / 8; ++k) ge[k] = vals[k] + vals[J / 8 + k];
@@ -401,12 +418,9 @@ rnnt_joint_bwd_rows_kernel(const __grid_constant__ CUtensorMap tm_w, const bf16*
         }
       }
       named_sync(3 + w, 128);
-      for (int x = wt; x < FT * (J / 2); x += 128) {
-        const int t = ts * FT + x / (J / 2);
-        if (t < tl.T)
-          atomicAdd(g_enc + ((size_t)b * tl.T + t) * J + w * (J / 2) + x % (J / 2),
-                    buf0[x] + buf1[x]);
-      }
+      float* slot = ws_enc + (size_t)i * (FT * J) + w * (J / 2);
+      for (int x = wt; x < FT * (J / 2); x += 128)
+        slot[(x / (J / 2)) * J + x % (J / 2)] = buf0[x] + buf1[x];
     }
   }
 }
@@ -422,7 +436,8 @@ struct ColsLayout {
   static constexpr uint32_t ring = w + J * 128;               // S x [64 x J] joint hidden
   static constexpr uint32_t glog = ring + RING_BYTES;         // 2 x [64 v][64 rows]
   static constexpr uint32_t info = glog + 2 * BOX;            // S x row data
-  static constexpr uint32_t bars = info + S * ROW_INFO;       // full[S], empty[S], wfull, wempty
+  static constexpr uint32_t bsum = info + S * ROW_INFO;       // 2 x [4 warps][32] f32 (g_b)
+  static constexpr uint32_t bars = bsum + 2 * 4 * 32 * 4;     // full[S], empty[S], wfull, wempty
   static constexpr uint32_t total = bars + (2 * S + 2) * 8;
 };
 
@@ -432,8 +447,8 @@ rnnt_joint_bwd_cols_kernel(const __grid_constant__ CUtensorMap tm_w, const bf16*
                            const bf16* __restrict__ dec, const float* __restrict__ bias,
                            const int* __restrict__ tgt, const float* __restrict__ lse,
                            const float* __restrict__ ob, const float* __restrict__ ol,
-                           float* __restrict__ g_wt, float* __restrict__ g_b, Tiles tl, int V,
-                           int blank) {
+                           float* __restrict__ ws_w, float* __restrict__ ws_b, Tiles tl, int V,
+                           int blank, int segs_max) {
   using L = ColsLayout<J>;
   constexpr int S = L::S, NV4 = J / 4;
   extern __shared__ uint8_t smem_raw[];
@@ -546,18 +561,20 @@ rnnt_joint_bwd_cols_kernel(const __grid_constant__ CUtensorMap tm_w, const bf16*
       wgmma_wait<0>();
       if (prev >= 0 && wt == 0) mbar_arrive(&empty[prev]);
       if (wt == 0) mbar_arrive(wempty);
-      // g_W^T rows v = 64 vt + 16 warp + g + 8 h, columns w J/2 + 8 j + 2 q + e;
-      // rows past V add zeros into row V - 1, so no branch reads gw
+      // the block's slot for this V tile: g_W^T rows vl = 16 warp + g + 8 h
+      // (v = 64 vt + vl; rows past V hold zeros, which the sum never reads),
+      // columns w J/2 + 8 j + 2 q + e; stored unconditionally, so no branch
+      // reads gw
+      float* sw = ws_w + ((size_t)blockIdx.x * segs_max + seg) * (VT * J) + w * (J / 2) + 2 * q;
 #pragma unroll
       for (int j = 0; j < J / 16; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int v = vt * VT + 16 * warp + g + 8 * h;
-          const bool ok = v < V;
-          atomic_add2(g_wt + (size_t)(ok ? v : V - 1) * J + w * (J / 2) + 8 * j + 2 * q,
-                      ok ? gw[4 * j + 2 * h] : 0.f, ok ? gw[4 * j + 2 * h + 1] : 0.f);
-        }
-      // g_b: the column sums over the 8 lanes of each column group
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(sw + (16 * warp + g + 8 * h) * J + 8 * j) =
+              make_float2(gw[4 * j + 2 * h], gw[4 * j + 2 * h + 1]);
+      // g_b: the column sums over the 8 lanes of each column group, then
+      // over the warpgroup's 4 warps in warp order (shared memory)
+      float* bs = reinterpret_cast<float*>(smem + L::bsum) + w * 128;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -566,9 +583,97 @@ rnnt_joint_bwd_cols_kernel(const __grid_constant__ CUtensorMap tm_w, const bf16*
           c += __shfl_xor_sync(0xffffffffu, c, 4);
           c += __shfl_xor_sync(0xffffffffu, c, 8);
           c += __shfl_xor_sync(0xffffffffu, c, 16);
-          const int v = vt * VT + w * 32 + 8 * j + 2 * q + e;
-          if (g == 0 && v < V) atomicAdd(g_b + v, c);
+          if (g == 0) bs[32 * warp + 8 * j + 2 * q + e] = c;
         }
+      named_sync(3 + w, 128);
+      if (wt < 32)
+        ws_b[((size_t)blockIdx.x * segs_max + seg) * VT + w * 32 + wt] =
+            ((bs[wt] + bs[32 + wt]) + bs[64 + wt]) + bs[96 + wt];
+      named_sync(3 + w, 128);  // read before the next V tile's sums are stored
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// sum: the slots into g_enc, g_dec, g_W^T and g_b, each element in a fixed
+// order
+// ---------------------------------------------------------------------------
+
+// the block whose share [n k / G, n (k + 1) / G) holds work item i
+__device__ inline int block_of(long long i, long long n, int G) {
+  int k = (int)(i * G / n);
+  while (n * (k + 1) / G <= i) ++k;
+  return k;
+}
+
+struct SumShape {
+  Tiles tl;
+  int B, J, V, grid_rows, grid_cols, runs_max, segs_max;
+};
+
+__device__ inline void add4(float4& a, const float* p) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  a.x += x.x;
+  a.y += x.y;
+  a.z += x.z;
+  a.w += x.w;
+}
+
+__global__ void __launch_bounds__(256)
+rnnt_joint_bwd_sum_kernel(const float* __restrict__ ws_enc, const float* __restrict__ ws_dec,
+                          const float* __restrict__ ws_w, const float* __restrict__ ws_b,
+                          float* __restrict__ g_enc, float* __restrict__ g_dec,
+                          float* __restrict__ g_wt, float* __restrict__ g_b, SumShape sh) {
+  const Tiles& tl = sh.tl;
+  const int J = sh.J, J4 = J / 4, NV = (sh.V + VT - 1) / VT;
+  const long long n_enc = (long long)sh.B * tl.T * J4, n_dec = (long long)sh.B * tl.U1 * J4;
+  const long long n_w = (long long)sh.V * J4, total = n_enc + n_dec + n_w + sh.V;
+  const long long units = tl.n * NV;
+  for (long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x; x < total;
+       x += (long long)gridDim.x * blockDim.x) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (x < n_enc) {
+      // g_enc[b, t, 4 j4 ..]: the u groups of frame t in order
+      const int j = (int)(x % J4) * 4;
+      const long long bt = x / J4;
+      const int t = (int)(bt % tl.T), b = (int)(bt / tl.T);
+      for (int ug = 0; ug < tl.nu; ++ug) {
+        const long long tile = ((long long)b * tl.nu + ug) * tl.nt + t / FT;
+        add4(a, ws_enc + (tile * FT + t % FT) * J + j);
+      }
+      *reinterpret_cast<float4*>(g_enc + bt * J + j) = a;
+    } else if (x < n_enc + n_dec) {
+      // g_dec[b, u, 4 j4 ..]: the blocks holding a part of run b nu + u / 8
+      // (tiles [run nt, run nt + nt)), in block order
+      const long long y = x - n_enc;
+      const int j = (int)(y % J4) * 4;
+      const long long bu = y / J4;
+      const int u = (int)(bu % tl.U1), b = (int)(bu / tl.U1);
+      const long long run = (long long)b * tl.nu + u / UT;
+      for (int k = block_of(run * tl.nt, tl.n, sh.grid_rows); k < sh.grid_rows; ++k) {
+        const long long lo = tl.n * k / sh.grid_rows;
+        if (lo >= (run + 1) * tl.nt) break;
+        const long long slot = (long long)k * sh.runs_max + run - lo / tl.nt;
+        add4(a, ws_dec + (slot * UT + u % UT) * J + j);
+      }
+      *reinterpret_cast<float4*>(g_dec + bu * J + j) = a;
+    } else {
+      // g_W^T[v, ..] and g_b[v]: the blocks holding a part of V tile v / 64
+      // (units [vt n, vt n + n)), in block order
+      const long long y = x - n_enc - n_dec;
+      const bool is_w = y < n_w;
+      const int v = (int)(is_w ? y / J4 : y - n_w), j = is_w ? (int)(y % J4) * 4 : 0;
+      const long long vt = v / VT;
+      float sb = 0.f;
+      for (int k = block_of(vt * tl.n, units, sh.grid_cols); k < sh.grid_cols; ++k) {
+        const long long lo = units * k / sh.grid_cols;
+        if (lo >= (vt + 1) * tl.n) break;
+        const long long slot = (long long)k * sh.segs_max + vt - lo / tl.n;
+        if (is_w) add4(a, ws_w + (slot * VT + v % VT) * J + j);
+        else sb += ws_b[slot * VT + v % VT];
+      }
+      if (is_w) *reinterpret_cast<float4*>(g_wt + (size_t)v * J + j) = a;
+      else g_b[v] = sb;
     }
   }
 }
@@ -576,8 +681,13 @@ rnnt_joint_bwd_cols_kernel(const __grid_constant__ CUtensorMap tm_w, const bf16*
 template <int J>
 int launch(const void* tmap_w, const bf16* enc, const bf16* dec, const float* bias,
            const int* tgt, const float* lse, const float* ob, const float* ol, float* g_enc,
-           float* g_dec, float* g_wt, float* g_b, Tiles tl, int V, int blank, int grid_rows,
-           int grid_cols, cudaStream_t s) {
+           float* g_dec, float* g_wt, float* g_b, float* ws, Tiles tl, int B, int V, int blank,
+           int grid_rows, int grid_cols, int runs_max, int segs_max, cudaStream_t s) {
+  // the workspace: ws_enc, ws_dec, ws_w, ws_b (see the header)
+  float* ws_enc = ws;
+  float* ws_dec = ws_enc + tl.n * FT * J;
+  float* ws_w = ws_dec + (size_t)grid_rows * runs_max * UT * J;
+  float* ws_b = ws_w + (size_t)grid_cols * segs_max * VT * J;
   CUtensorMap tm;
   memcpy(&tm, tmap_w, sizeof(tm));
   const int smem_r = RowsLayout<J>::total + 1024, smem_c = ColsLayout<J>::total + 1024;
@@ -588,11 +698,26 @@ int launch(const void* tmap_w, const bf16* enc, const bf16* dec, const float* bi
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_c);
   if (err != cudaSuccess) return (int)err;
   rnnt_joint_bwd_rows_kernel<J><<<grid_rows, NTHREADS, smem_r, s>>>(
-      tm, enc, dec, bias, tgt, lse, ob, ol, g_enc, g_dec, tl, V, blank);
+      tm, enc, dec, bias, tgt, lse, ob, ol, ws_enc, ws_dec, tl, V, blank, runs_max);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   rnnt_joint_bwd_cols_kernel<J><<<grid_cols, NTHREADS, smem_c, s>>>(
-      tm, enc, dec, bias, tgt, lse, ob, ol, g_wt, g_b, tl, V, blank);
+      tm, enc, dec, bias, tgt, lse, ob, ol, ws_w, ws_b, tl, V, blank, segs_max);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  SumShape sh;
+  sh.tl = tl;
+  sh.B = B;
+  sh.J = J;
+  sh.V = V;
+  sh.grid_rows = grid_rows;
+  sh.grid_cols = grid_cols;
+  sh.runs_max = runs_max;
+  sh.segs_max = segs_max;
+  const long long total = (long long)B * (tl.T + tl.U1) * (J / 4) + (long long)V * (J / 4) + V;
+  const long long want = (total + 255) / 256;
+  rnnt_joint_bwd_sum_kernel<<<(int)(want < 4096 ? want : 4096), 256, 0, s>>>(
+      ws_enc, ws_dec, ws_w, ws_b, g_enc, g_dec, g_wt, g_b, sh);
   return (int)cudaGetLastError();
 }
 
@@ -605,16 +730,19 @@ extern "C" {
 // ops/rnnt_kernels.py::joint_bwd_tmap_spec builds it.
 // enc [B, T, J], dec [B, U1, J], w [V, J]: bf16, contiguous; bias [V] f32;
 // tgt [B, U1] int32; lse, ob, ol [B, T, U1] f32; outputs g_enc [B, T, J],
-// g_dec [B, U1, J], g_wt [V, J] and g_b [V], f32, zeroed; all on card
-// `device`. J: 128, 256 or 512. The tiles: nu = ceil(U1 / 8) u groups and
-// nt = ceil(T / 8) frame groups per utterance; grid_rows and grid_cols
-// blocks (a block per SM, ops/rnnt_kernels.py::joint_bwd_schedule). Two
-// launches on `stream`.
+// g_dec [B, U1, J], g_wt [V, J] and g_b [V], f32 (any contents on entry);
+// ws, the f32 workspace of the slots (the header; its size
+// ops/rnnt_kernels.py::joint_bwd_workspace); all on card `device`. J: 128,
+// 256 or 512. The tiles: nu = ceil(U1 / 8) u groups and nt = ceil(T / 8)
+// frame groups per utterance; grid_rows and grid_cols blocks (a block per
+// SM), runs_max and segs_max slots a block (ops/rnnt_kernels.py::
+// joint_bwd_schedule). Three launches on `stream`.
 int rnnt_joint_bwd_bf16(const void* enc, const void* dec, const void* w, const void* bias,
                         const void* tgt, const void* lse, const void* ob, const void* ol,
-                        void* g_enc, void* g_dec, void* g_wt, void* g_b, const long long* tmap_spec,
-                        int B, int T, int U1, int J, int V, int blank, int nu, int nt,
-                        int grid_rows, int grid_cols, int device, void* stream) {
+                        void* g_enc, void* g_dec, void* g_wt, void* g_b, void* ws,
+                        const long long* tmap_spec, int B, int T, int U1, int J, int V, int blank,
+                        int nu, int nt, int grid_rows, int grid_cols, int runs_max, int segs_max,
+                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   alignas(64) unsigned char tmap[128];
@@ -638,8 +766,8 @@ int rnnt_joint_bwd_bf16(const void* enc, const void* dec, const void* w, const v
       static_cast<const float*>(bias), static_cast<const int*>(tgt),                        \
       static_cast<const float*>(lse), static_cast<const float*>(ob),                        \
       static_cast<const float*>(ol), static_cast<float*>(g_enc), static_cast<float*>(g_dec), \
-      static_cast<float*>(g_wt), static_cast<float*>(g_b), tl, V, blank, grid_rows,         \
-      grid_cols, (cudaStream_t)stream
+      static_cast<float*>(g_wt), static_cast<float*>(g_b), static_cast<float*>(ws), tl, B, V, \
+      blank, grid_rows, grid_cols, runs_max, segs_max, (cudaStream_t)stream
   switch (J) {
     case 128: return launch<128>(RNNT_BWD_ARGS);
     case 256: return launch<256>(RNNT_BWD_ARGS);

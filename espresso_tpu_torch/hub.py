@@ -6,8 +6,9 @@ data_dir)`` loads a train-CLI checkpoint (the model rebuilt from the saved
 wave paths, Kaldi rxfilenames or commands and returns text, decoding as
 ``cli/speech_recognize.py`` does (the feature front, then the task's
 generator: for a transducer its greedy or AES beam decoder, for the
-attention encoder-decoder the beam search at any beam). It runs on the
-card unless the caller asks for the CPU.
+attention encoder-decoder the beam search at any beam, for a CTC model its
+greedy decoder or prefix beam search). It runs on the card unless the
+caller asks for the CPU.
 
     import espresso_tpu_torch.hub as hub
     asr = hub.from_pretrained("ckpts", data_dir="data", beam=10)

@@ -12,7 +12,9 @@ hand-written CUDA C++ for ``sm_90a`` under ``csrc/``:
   recomputes the logits, forms ``glog = -softmax * (ob + ol)`` plus ``ob`` at
   the blank column and ``ol`` at the target column, and contracts it into
   ``g_enc`` [B, T, J], ``g_dec`` [B, U1, J], ``g_W`` [J, V] and ``g_b`` [V],
-  all f32.
+  all f32. Its blocks store partial sums into slots of a workspace, which a
+  third kernel sums in a fixed order: two launches on the same inputs are
+  bit-equal.
 
 The [B, T, U1, V] lattice is never written by either kernel. Both take any
 V (the ragged tail of the last V tile is masked). The loss built from them
@@ -134,22 +136,51 @@ def _lib(name: str) -> ctypes.CDLL:
     fn = getattr(lib, name + "_bf16")
     if name == "rnnt_joint_lp":
         fn.argtypes = [_P] * 8 + [_I] * 7 + [_P]  # B, T, U1, J, V, blank, device, stream
-    else:  # 12 tensors, the tensor map, B, T, U1, J, V, blank, the schedule, device, stream
-        fn.argtypes = [_P] * 13 + [_I] * 11 + [_P]
+    else:  # 13 tensors (the workspace last), the tensor map, B, T, U1, J, V, blank, the schedule, device, stream
+        fn.argtypes = [_P] * 14 + [_I] * 13 + [_P]
     fn.restype = _I
     return lib
 
 
+def _block_share(n: int, grid: int, k: int) -> range:
+    """The work items of block k of ``grid``: [n k / grid, n (k + 1) / grid)."""
+    return range(n * k // grid, n * (k + 1) // grid)
+
+
+def _slots(n: int, grid: int, group: int) -> int:
+    """The most groups of ``group`` consecutive work items that one block's
+    share meets (its slots in the workspace)."""
+    return max((sh[-1] // group) - (sh[0] // group) + 1
+               for sh in (_block_share(n, grid, k) for k in range(grid)))
+
+
 def joint_bwd_schedule(B: int, T: int, U1: int, V: int, n_sm: int) -> dict:
-    """The work split of ``rnnt_joint_bwd``'s two kernels: tiles of 8 values
+    """The work split of ``rnnt_joint_bwd``'s kernels: tiles of 8 values
     of u x 8 frames of one utterance, tile i = (b * nu + ug) * nt + ts; the
     rows kernel's blocks take contiguous shares of the tiles, the columns
-    kernel's of the (V tile, tile) units, V tile slowest; a block per SM."""
+    kernel's of the (V tile, tile) units, V tile slowest; a block per SM.
+    ``runs_max``: the most runs (the nt tiles of one (b, u group)) a rows
+    block meets; ``segs_max``: the most V tiles a columns block meets."""
     nu, nt = -(-U1 // TILE_U), -(-T // TILE_T)
     tiles = B * nu * nt
     units = tiles * -(-V // TILE_V)
-    return dict(nu=nu, nt=nt, tiles=tiles, units=units, grid_rows=min(tiles, n_sm),
-                grid_cols=min(units, n_sm))
+    grid_rows, grid_cols = min(tiles, n_sm), min(units, n_sm)
+    return dict(nu=nu, nt=nt, tiles=tiles, units=units, grid_rows=grid_rows,
+                grid_cols=grid_cols, runs_max=_slots(tiles, grid_rows, nt),
+                segs_max=_slots(units, grid_cols, tiles))
+
+
+def joint_bwd_workspace(sched: dict, J: int) -> dict:
+    """The f32 elements of ``rnnt_joint_bwd``'s slots (csrc/rnnt_joint_bwd.cu):
+    ws_enc [tiles, 8, J], ws_dec [grid_rows, runs_max, 8, J], ws_w
+    [grid_cols, segs_max, 64, J], ws_b [grid_cols, segs_max, 64], in that
+    order in one buffer."""
+    return dict(
+        enc=sched["tiles"] * TILE_T * J,
+        dec=sched["grid_rows"] * sched["runs_max"] * TILE_U * J,
+        w=sched["grid_cols"] * sched["segs_max"] * TILE_V * J,
+        b=sched["grid_cols"] * sched["segs_max"] * TILE_V,
+    )
 
 
 def joint_bwd_tmap_spec(J: int, V: int) -> list:
@@ -233,20 +264,22 @@ def rnnt_joint_bwd(enc_proj, dec_proj, fc_kernel, fc_bias, targets, lse, occb_n,
             raise ValueError(f"rnnt_joint_bwd: {arg} must be contiguous [B, T, U1] f32")
     tgt = _targets_u1(targets, U1).to(torch.int32)
     dev = enc_proj.device
-    # the kernels add their partial sums into these with atomics
-    g_enc = torch.zeros(B, T, J, device=dev)
-    g_dec = torch.zeros(B, U1, J, device=dev)
-    g_Wt = torch.zeros(V, J, device=dev)
-    g_b = torch.zeros(V, device=dev)
+    # the sum kernel writes every element of these from the slots in `ws`
+    g_enc = torch.empty(B, T, J, device=dev)
+    g_dec = torch.empty(B, U1, J, device=dev)
+    g_Wt = torch.empty(V, J, device=dev)
+    g_b = torch.empty(V, device=dev)
     bias = fc_bias.float()
     sched = joint_bwd_schedule(B, T, U1, V, torch.cuda.get_device_properties(dev).multi_processor_count)
+    ws = torch.empty(sum(joint_bwd_workspace(sched, J).values()), device=dev)
     spec = (ctypes.c_longlong * 9)(*joint_bwd_tmap_spec(J, V))
     rc = _lib("rnnt_joint_bwd").rnnt_joint_bwd_bf16(
         enc_proj.data_ptr(), dec_proj.data_ptr(), fc_kernel.data_ptr(),
         bias.data_ptr(), tgt.data_ptr(), lse.data_ptr(), occb_n.data_ptr(),
         occl_n.data_ptr(), g_enc.data_ptr(), g_dec.data_ptr(), g_Wt.data_ptr(),
-        g_b.data_ptr(), ctypes.addressof(spec), B, T, U1, J, V, blank, sched["nu"], sched["nt"],
-        sched["grid_rows"], sched["grid_cols"], dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        g_b.data_ptr(), ws.data_ptr(), ctypes.addressof(spec), B, T, U1, J, V, blank, sched["nu"],
+        sched["nt"], sched["grid_rows"], sched["grid_cols"], sched["runs_max"], sched["segs_max"],
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"rnnt_joint_bwd launch failed: CUDA error {rc}")

@@ -319,3 +319,26 @@ def check_rnnt_joint(a: Tensors, blank: int) -> Dict[str, float]:
             raise AssertionError(f"rnnt_joint_bwd {name}: max error {err} > {bound}")
         errs[name] = err
     return errs
+
+
+def check_rnnt_joint_bwd_repeats(a: Tensors, blank: int) -> None:
+    """Two ``rnnt_joint_bwd`` launches on the same inputs give the same bits
+    in all four outputs (its slots are summed in a fixed order). Between
+    them the freed memory is filled with NaN, so that a slot the sum reads
+    but no block stored would show."""
+    lp = rk.rnnt_joint_lp_reference(*_joint_args(a), blank)
+    ob, ol = occupancy_grads(a, lp[0], lp[1])
+    first = rk.rnnt_joint_bwd(*_joint_args(a), lp[2], ob, ol, blank)
+    torch.cuda.synchronize()
+    sched = rk.joint_bwd_schedule(*first[0].shape[:2], first[1].shape[1], first[3].shape[0],
+                                  torch.cuda.get_device_properties(first[0].device).multi_processor_count)
+    ws = sum(rk.joint_bwd_workspace(sched, first[0].shape[2]).values())
+    torch.full((ws + first[0].numel(),), float("nan"), device=first[0].device)
+    second = rk.rnnt_joint_bwd(*_joint_args(a), lp[2], ob, ol, blank)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("g_enc", "g_dec", "g_W", "g_b"), first, second):
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"rnnt_joint_bwd {name}: not finite on the second launch")
+        if not torch.equal(x, y):
+            raise AssertionError(f"rnnt_joint_bwd {name}: two launches differ by "
+                                 f"{(x - y).abs().max().item()}")

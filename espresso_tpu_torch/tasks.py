@@ -12,12 +12,15 @@ transducer, its greedy decoder (the valid pass's WER, a beam of at most 1)
 or its AES beam search, and for the cross-entropy criteria (the attention
 encoder-decoder) ``decode/greedy.py``'s greedy decoder (the valid pass's
 WER) or ``decode/beam_search.py``'s beam search, each fused with an LSTM LM
-through ``lm=`` / ``lm_weight=``.
+through ``lm=`` / ``lm_weight=``, and for ``ctc_loss`` (the encoder-only
+models) ``decode/ctc_decoder.py``'s greedy decoder (the valid pass's WER,
+a beam of at most 1) or its prefix beam search (which takes an LM and, as
+JAX's, never reads it).
 ``language_modeling_for_asr`` (tasks.py:414-461) trains the LSTM LM on
 ``{split}.bin``/``.idx`` token streams (``prep binarize``,
 ``data/indexed_dataset.py``) or, without them, ``{split}.txt``
-(``data/lm_dataset.py``); it validates by perplexity alone. The CTC
-decoders and the hybrid task are not ported.
+(``data/lm_dataset.py``); it validates by perplexity alone. The hybrid
+task is not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import logging
 import os
 from typing import Any, Dict, Optional
 
-import espresso_tpu_torch.models.lstm_lm  # noqa: F401 — populate the model registry
+import espresso_tpu_torch.models.encoder_models  # noqa: F401 — populate the model registry
+import espresso_tpu_torch.models.lstm_lm  # noqa: F401
 import espresso_tpu_torch.models.speech_lstm  # noqa: F401
 import espresso_tpu_torch.models.speech_transformer  # noqa: F401
 import espresso_tpu_torch.models.transducer  # noqa: F401
@@ -207,17 +211,13 @@ class SpeechRecognitionEspressoTask:
         return build_criterion(self.cfg.criterion, self)
 
     # -- decoding hooks (per-criterion decoders, reference :479-596) --------
-    def _refuse_ctc(self, what: str) -> None:
-        if self.cfg.criterion.name == "ctc_loss":
-            raise NotImplementedError(
-                f"{what} for criterion 'ctc_loss': the CTC decoders are not ported (ROADMAP "
-                "queue A item 2)"
-            )
-
     def build_valid_decoder(self, model):
-        """The valid pass's greedy WER decoder: the transducer's, else the
-        attention encoder-decoder's."""
-        self._refuse_ctc("the valid decoder")
+        """The valid pass's greedy WER decoder: the transducer's, CTC's,
+        else the attention encoder-decoder's."""
+        if self.cfg.criterion.name == "ctc_loss":
+            from espresso_tpu_torch.decode.ctc_decoder import CTCGreedyDecoder
+
+            return CTCGreedyDecoder(model, self.dictionary)
         if self.cfg.criterion.name == "transducer_loss":
             from espresso_tpu_torch.decode.transducer_greedy import TransducerGreedyDecoder
 
@@ -227,12 +227,19 @@ class SpeechRecognitionEspressoTask:
         return SimpleGreedyDecoder(model, self.dictionary)
 
     def build_generator(self, model, gen_cfg=None, lm=None, lm_weight=0.0):
-        """The inference decoder: for the transducer its greedy decoder at a
-        beam of at most 1, else its AES beam search; for the cross-entropy
-        criteria the beam search at any beam; ``lm`` fused at
-        ``lm_weight``."""
+        """The inference decoder: for the transducer and CTC their greedy
+        decoder at a beam of at most 1, else the AES beam search or the CTC
+        prefix beam search; for the cross-entropy criteria the beam search
+        at any beam; ``lm`` fused at ``lm_weight`` (CTC's takes it unread)."""
         gen_cfg = gen_cfg or self.cfg.generation
-        self._refuse_ctc("the generator")
+        if self.cfg.criterion.name == "ctc_loss":
+            from espresso_tpu_torch.decode import ctc_decoder
+
+            if gen_cfg.beam > 1:
+                return ctc_decoder.CTCPrefixBeamSearchDecoder(
+                    model, self.dictionary, beam_size=gen_cfg.beam, lm=lm, lm_weight=lm_weight
+                )
+            return ctc_decoder.CTCGreedyDecoder(model, self.dictionary)
         if self.cfg.criterion.name != "transducer_loss":
             from espresso_tpu_torch.decode.beam_search import BeamSearchDecoder
 

@@ -2,8 +2,10 @@
 accumulation, clip, overflow skip, the optimizer, EMA.
 
 Counterpart of ``espresso_tpu/train/trainer.py``: ``build_optimizer``
-(trainer.py:43-87: adam, adamw, adagrad, adadelta, adamax, sgd, nag and
-momentum, each the optax chain on flat tensors), ``make_device_feature_fn`` (:135-180),
+(trainer.py:43-132: adam, adamw, adagrad, adadelta, adamax, sgd, nag and
+momentum, each the optax chain on flat tensors; adafactor, its statistics
+per parameter in the flax layout; composite, per-group optimizers by
+top-level name), ``make_device_feature_fn`` (:135-180),
 ``make_train_step`` (:192-399), ``make_valid_step`` (:402-432) and
 ``create_train_state`` (:435-461). One step:
 
@@ -45,19 +47,20 @@ sums on the device.
 
 With ``task.scheduled_sampling`` a step takes the epoch's ``ss_prob``
 (trainer.py:272-290) and hands it to the criterion; the speech LSTM draws
-its coins from the step's generator. Not ported: the adafactor and
-composite optimizers (``build_optimizer`` raises, naming ROADMAP queue A
-item 4).
+its coins from the step's generator.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from espresso_tpu_torch import bridge
 from espresso_tpu_torch.config import EspressoConfig
 from espresso_tpu_torch.features.cmvn import GlobalCMVN
 from espresso_tpu_torch.features.fbank_kernels import fbank_fused
@@ -86,6 +89,33 @@ class OptState:
         return dict(self.__dict__)
 
 
+@dataclass
+class ParamBlock:
+    """One parameter in the flat buffer: its offset and torch shape, its
+    flax leaf name (``bridge.flax_leaves``: a kernel is held in the torch
+    layout) and the first key of its flax path (the top-level name)."""
+
+    offset: int
+    shape: Tuple[int, ...]
+    leaf: str
+    top: str
+
+    @property
+    def numel(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+
+def param_blocks(model: nn.Module) -> List[ParamBlock]:
+    """``model``'s parameters as blocks of its flat buffer, in parameter
+    order."""
+    leaves, (paths, _) = bridge.flax_leaves(model), bridge.flax_paths(model)
+    out, off = [], 0
+    for name, p in model.named_parameters():
+        out.append(ParamBlock(off, tuple(p.shape), leaves[name], paths[name][0]))
+        off += p.numel()
+    return out
+
+
 class Optimizer:
     """An optax chain of JAX's ``build_optimizer`` (trainer.py:43-87) on
     flat tensors: the named core transform (``direction``), then
@@ -99,18 +129,30 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.schedule = schedule
 
-    def init(self, params: torch.Tensor) -> OptState:
+    def init(self, params: torch.Tensor, blocks: Optional[Sequence[ParamBlock]] = None) -> OptState:
+        """The state of ``params``; ``blocks`` (``param_blocks``) names
+        their parameters, for the optimizers that keep a state per
+        parameter."""
         return OptState(
             count=torch.zeros((), dtype=torch.int32, device=params.device),
             **{name: torch.zeros_like(params) for name in self.slots},
         )
 
     def direction(
-        self, g: torch.Tensor, state: OptState, count: torch.Tensor
+        self, g: torch.Tensor, state: OptState, count: torch.Tensor, params: torch.Tensor
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(the core's update of ``g``, the new slots); ``count`` is the
         count of updates applied with this one."""
         raise NotImplementedError
+
+    def update(
+        self, g: torch.Tensor, state: OptState, params: torch.Tensor, count: torch.Tensor
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(the chain's update, added to the weights; the new slots)."""
+        upd, slots = self.direction(g, state, count, params)
+        if self.weight_decay > 0.0:
+            upd = upd + self.weight_decay * params
+        return upd * -self.schedule(state.count), slots
 
     @torch.no_grad()
     def step(
@@ -120,10 +162,8 @@ class Optimizer:
         on the device) holds; leave both as they were where it does not."""
         g = torch.where(apply, grads, 0.0)  # a skipped step may hold NaN
         count = state.count + 1
-        upd, slots = self.direction(g, state, count)
-        if self.weight_decay > 0.0:
-            upd = upd + self.weight_decay * params
-        new_params = params + upd * -self.schedule(state.count)
+        upd, slots = self.update(g, state, params, count)
+        new_params = params + upd
         params.copy_(torch.where(apply, new_params, params))
         for name, value in slots.items():
             old = getattr(state, name)
@@ -145,7 +185,7 @@ class Adam(Optimizer):
         super().__init__(weight_decay, schedule)
         self.b1, self.b2, self.eps = b1, b2, eps
 
-    def direction(self, g, state, count):
+    def direction(self, g, state, count, params):
         mu = (1 - self.b1) * g + self.b1 * state.mu
         nu = (1 - self.b2) * (g * g) + self.b2 * state.nu
         mu_hat = _bias_correction(mu, self.b1, count)
@@ -159,7 +199,7 @@ class Adagrad(Optimizer):
     slots = ("sum_of_squares",)
     eps = 1e-7
 
-    def direction(self, g, state, count):
+    def direction(self, g, state, count, params):
         ss = g * g + state.sum_of_squares
         inv = torch.where(ss > 0, torch.rsqrt(ss + self.eps), 0.0)
         return inv * g, {"sum_of_squares": ss}
@@ -171,7 +211,7 @@ class Adadelta(Optimizer):
     slots = ("e_g", "e_x")
     rho, eps = 0.9, 1e-6
 
-    def direction(self, g, state, count):
+    def direction(self, g, state, count, params):
         rho = self.rho
         e_g = (1 - rho) * (g * g) + rho * state.e_g
         upd = (torch.sqrt(state.e_x + self.eps) / torch.sqrt(e_g + self.eps)) * g
@@ -190,7 +230,7 @@ class Adamax(Optimizer):
         super().__init__(weight_decay, schedule)
         self.b1, self.b2 = b1, b2
 
-    def direction(self, g, state, count):
+    def direction(self, g, state, count, params):
         mu = (1 - self.b1) * g + self.b1 * state.mu
         nu = torch.maximum(g.abs() + self.eps, self.b2 * state.nu)
         return _bias_correction(mu, self.b1, count) / nu, {"mu": mu, "nu": nu}
@@ -199,7 +239,7 @@ class Adamax(Optimizer):
 class SGD(Optimizer):
     """``optax.identity()``: the gradient itself."""
 
-    def direction(self, g, state, count):
+    def direction(self, g, state, count, params):
         return g, {}
 
 
@@ -212,14 +252,164 @@ class Momentum(Optimizer):
         super().__init__(weight_decay, schedule)
         self.decay, self.nesterov = decay, nesterov
 
-    def direction(self, g, state, count):
+    def direction(self, g, state, count, params):
         trace = g + self.decay * state.trace
         return (g + self.decay * trace) if self.nesterov else trace, {"trace": trace}
 
 
+class Adafactor(Optimizer):
+    """``optax.adafactor(learning_rate=None)`` (optax 0.2.6), per parameter
+    in its flax layout (``bridge.to_flax_layout``: a kernel [in, out], a
+    convolution's [kh, kw, in, out]), so that the row and column statistics
+    are the ones JAX keeps: ``scale_by_factored_rms`` (decay 1 - t^-0.8,
+    eps 1e-30; factored over the two largest dims when the smaller of them
+    is at least 128, else a full second moment), ``clip_by_block_rms(1)``,
+    ``scale_by_param_block_rms(1e-3)`` and ``scale(-1)``. JAX's
+    ``build_optimizer`` then appends ``scale_by_schedule(-lr)``, as for every
+    optimizer, so the chain's sign flips twice and the update climbs the
+    gradient: the port computes what JAX computes (ROADMAP queue C,
+    reference faults). The slots ``v_row``, ``v_col`` and ``v`` hold each
+    parameter's statistics flat, in parameter order."""
+
+    slots = ("v_row", "v_col", "v")
+    decay_rate, eps, min_dim_size_to_factor, clip, min_scale = 0.8, 1e-30, 128, 1.0, 1e-3
+
+    def init(self, params, blocks=None):
+        if blocks is None:
+            raise ValueError("adafactor keeps statistics per parameter: init needs its parameter blocks")
+        # per block: (block, factored dims (d1, d0) or None, and the (slice,
+        # shape) of its v_row and v_col, or of its v, in their slots)
+        self.plan = []
+        sizes = dict.fromkeys(self.slots, 0)
+        for blk in blocks:
+            shape = tuple(bridge.to_flax_layout(blk.leaf, torch.empty(blk.shape, device="meta")).shape)
+            dims = self._factored_dims(shape)
+            if dims is None:
+                parts = {"v": shape}
+            else:
+                d1, d0 = dims
+                parts = {"v_row": tuple(np.delete(shape, d0)), "v_col": tuple(np.delete(shape, d1))}
+            where = {}
+            for slot, sh in parts.items():
+                n = int(np.prod(sh, dtype=np.int64))
+                where[slot] = (slice(sizes[slot], sizes[slot] + n), sh)
+                sizes[slot] += n
+            self.plan.append((blk, dims, where))
+        dev = params.device
+        return OptState(count=torch.zeros((), dtype=torch.int32, device=dev),
+                        **{k: torch.zeros(n, device=dev) for k, n in sizes.items()})
+
+    def _factored_dims(self, shape):
+        """optax's ``_factored_dims``: the two largest dims (argsort's
+        order), when the smaller is at least ``min_dim_size_to_factor``."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < self.min_dim_size_to_factor:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    def direction(self, g, state, count, params):
+        decay = 1.0 - torch.pow(count.float(), -self.decay_rate)
+        upd = torch.empty_like(g)
+        new = {k: getattr(state, k).clone() for k in self.slots}
+        for blk, dims, where in self.plan:
+            o, n = blk.offset, blk.numel
+            grad = bridge.to_flax_layout(blk.leaf, g[o : o + n].view(blk.shape))
+            gsq = grad * grad + self.eps
+            old = {k: getattr(state, k)[sl].view(sh) for k, (sl, sh) in where.items()}
+            if dims is None:
+                stats = {"v": decay * old["v"] + (1.0 - decay) * gsq}
+                u = grad * stats["v"] ** -0.5
+            else:
+                d1, d0 = dims
+                v_row = decay * old["v_row"] + (1.0 - decay) * gsq.mean(d0)
+                v_col = decay * old["v_col"] + (1.0 - decay) * gsq.mean(d1)
+                stats = {"v_row": v_row, "v_col": v_col}
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)) ** -0.5
+                u = grad * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+            for k, v in stats.items():
+                new[k][where[k][0]] = v.reshape(-1)
+            # clip_by_block_rms(1), scale_by_param_block_rms(1e-3), scale(-1)
+            u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.clip, min=1.0)
+            p = params[o : o + n]
+            rms = torch.sqrt(torch.mean(p * p))
+            u = u * torch.where(rms <= self.min_scale, self.min_scale, rms)
+            upd[o : o + n] = bridge.from_flax_layout(blk.leaf, u * -1.0).reshape(-1)
+        return upd, new
+
+
+class Composite(Optimizer):
+    """JAX's ``_build_composite`` (trainer.py:90-132, ``optax.multi_transform``):
+    each group names a sub-optimizer (built as ``build_optimizer`` builds
+    one, its own decay and schedule included) and an optional ``lr_scale``
+    applied after it; a parameter goes to the group whose name is the
+    longest prefix of its top-level flax name, else to ``default`` (adam
+    unless given). A group's slots are saved as ``<group>.<slot>``; one
+    count serves every group (each sub-chain's count is the same)."""
+
+    def __init__(self, groups: Dict[str, Tuple[Optimizer, float]]):
+        super().__init__(0.0, None)
+        self.groups = groups
+        self.prefixes = sorted((g for g in groups if g != "default"), key=len, reverse=True)
+
+    def label_of(self, top: str) -> str:
+        return next((p for p in self.prefixes if top.startswith(p)), "default")
+
+    def init(self, params, blocks=None):
+        if blocks is None:
+            raise ValueError("composite assigns parameters by name: init needs its parameter blocks")
+        dev = params.device
+        self.index = {}
+        state = {"count": torch.zeros((), dtype=torch.int32, device=dev)}
+        for name, (opt, _) in self.groups.items():
+            mine, sub, off = [], [], 0
+            for blk in blocks:
+                if self.label_of(blk.top) == name:
+                    mine.append(torch.arange(blk.offset, blk.offset + blk.numel, device=dev))
+                    sub.append(dataclasses.replace(blk, offset=off))
+                    off += blk.numel
+            idx = torch.cat(mine) if mine else torch.zeros(0, dtype=torch.long, device=dev)
+            self.index[name] = idx
+            for slot, t in opt.init(params[idx], sub).tensors().items():
+                if slot != "count":
+                    state[f"{name}.{slot}"] = t
+        return OptState(**state)
+
+    def update(self, g, state, params, count):
+        upd = torch.empty_like(params)
+        slots = {}
+        for name, (opt, scale) in self.groups.items():
+            idx = self.index[name]
+            sub = OptState(count=state.count, **{k: getattr(state, f"{name}.{k}") for k in opt.slots})
+            u, new = opt.update(g[idx], sub, params[idx], count)
+            if scale != 1.0:
+                u = u * scale
+            upd.index_copy_(0, idx, u)
+            slots.update({f"{name}.{k}": v for k, v in new.items()})
+        return upd, slots
+
+
+def _build_composite(cfg: EspressoConfig, schedule) -> Composite:
+    if not cfg.optimizer.groups:
+        raise ValueError("optimizer.name=composite needs optimizer.groups")
+    groups = dict(cfg.optimizer.groups)
+    groups.setdefault("default", {"name": "adam"})
+    built = {}
+    for name, spec in groups.items():
+        sub = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, groups=None))
+        for k, v in dict(spec).items():
+            if k != "lr_scale":
+                setattr(sub.optimizer, k, tuple(v) if isinstance(v, list) else v)
+        built[name] = (build_optimizer(sub)[0], float(dict(spec).get("lr_scale", 1.0)))
+    return Composite(built)
+
+
 def build_optimizer(cfg: EspressoConfig) -> Tuple[Optimizer, Callable]:
     """(optimizer, lr schedule) for ``cfg.optimizer.name``: adam, adamw,
-    adagrad, adadelta, adamax, sgd, nag or momentum."""
+    adafactor, adagrad, adadelta, adamax, sgd, nag, momentum or
+    composite."""
     schedule = build_lr_schedule(cfg.lr_scheduler, cfg.optimization)
     ocfg = cfg.optimizer
     name, wd = ocfg.name, ocfg.weight_decay
@@ -236,10 +426,10 @@ def build_optimizer(cfg: EspressoConfig) -> Tuple[Optimizer, Callable]:
         opt = SGD(wd, schedule)
     elif name in ("nag", "momentum"):
         opt = Momentum(ocfg.momentum, name == "nag", wd, schedule)
-    elif name in ("adafactor", "composite"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported (ROADMAP queue A item 4)"
-        )
+    elif name == "adafactor":
+        opt = Adafactor(wd, schedule)
+    elif name == "composite":
+        return _build_composite(cfg, schedule), schedule
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     return opt, schedule
@@ -284,7 +474,7 @@ def create_train_state(model: nn.Module, optimizer: Optimizer, cfg: EspressoConf
     return TrainState(
         step=0,
         params=params,
-        opt_state=optimizer.init(params),
+        opt_state=optimizer.init(params, param_blocks(model)),
         compute=compute,
         grads=grads,
         ema_params=params.clone() if cfg.optimization.ema_decay > 0.0 else None,

@@ -422,6 +422,18 @@ def test_rnnt_joint_bwd_kernel_at_tiling_edges(dev, B, T, U, J, V, blank):
     assert rk.rnnt_joint_bwd.launches == before + 1
 
 
+@pytest.mark.parametrize(
+    "B,T,U,J,V", [(16, 256, 100, 512, 1024), (16, 256, 100, 512, 5003), (3, 37, 12, 128, 67)]
+)
+def test_rnnt_joint_bwd_kernel_is_deterministic(dev, B, T, U, J, V):
+    """B5 twice on the same inputs, at the flagship shape, at V = 5003 and
+    at a ragged small one: g_enc, g_dec, g_W and g_b bit for bit (partial
+    sums in slots, summed in a fixed order, no atomics)."""
+    from espresso_tpu_torch.ops import train_kernel_checks as tc
+
+    tc.check_rnnt_joint_bwd_repeats(tc.rnnt_inputs(B, T, U, J, V, seed=V + T, dev=dev), 0)
+
+
 # the redesigned B4's edges (units of two 64-row tiles of 8 values of u x 8
 # frames, an odd tile count leaving a warpgroup without rows, V tiles of 128
 # columns padded to an even count): J = 128, 256 and 512; T' and U1 not
@@ -1061,3 +1073,113 @@ def test_speech_transformer_beam_with_lm_on_the_card_matches_the_cpu(dev):
             np.testing.assert_array_equal(g["tokens"], w["tokens"])
             assert abs(g["score"] - w["score"]) <= 1e-4 * abs(w["score"])
     assert max(len(h[0]["tokens"]) for h in out[0]) > 1
+
+
+def _ctc_model(seed, **over):
+    """A small transformer CTC model (a 2-layer frontend, 2 encoder layers
+    of 128, 2 heads of 64, V = 61, dropout 0) from a seeded init, and
+    seeded frames, lengths and targets."""
+    from espresso_tpu_torch.models.encoder_models import (
+        SpeechTransformerEncoderModel,
+        TransformerEncoderModelConfig,
+    )
+    from espresso_tpu_torch.models.speech_transformer import SpeechTransformerConfig
+
+    torch.manual_seed(seed)
+    enc = dict(conv_channels=(4, 8), conv_kernel_sizes=((3, 3), (3, 3)), conv_strides=((2, 2), (2, 2)),
+               encoder_embed_dim=128, encoder_ffn_dim=256, encoder_layers=2, encoder_heads=2, dropout=0.0,
+               encoder_pos_type="relative")
+    model = SpeechTransformerEncoderModel(TransformerEncoderModelConfig(
+        feat_dim=16, vocab_size=61, encoder=SpeechTransformerConfig(**{**enc, **over})))
+    g = torch.Generator().manual_seed(seed)
+    targets = torch.randint(3, 61, (3, 12), generator=g)
+    return (model, torch.randn(3, 120, 16, generator=g), torch.tensor([120, 95, 40]), targets,
+            torch.tensor([12, 9, 4]))
+
+
+def test_ctc_loss_on_the_card_repeats_bit_for_bit_and_matches_the_cpu(dev):
+    """The CTC loss and its gradient at the recipe's sizes (T' = 300, V =
+    5,004, targets of up to 90 labels, repeats among them) on the card:
+    twice bit for bit (the gradient onto the vocabulary by a one-hot
+    product, no scatter-add), and within the CPU's: the losses to 1e-5,
+    the gradient to 1e-4 of its largest (the recursion sums log-probs to
+    ~2,500, where f32's spacing is 2.4e-4: the posteriors exp(alpha + beta
+    - ll) carry that error; 1.1e-5 measured on an H100)."""
+    from espresso_tpu_torch.ops.ctc import ctc_loss
+
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(6, 300, 5004, generator=g)
+    targets = torch.randint(1, 5004, (6, 90), generator=g)
+    targets[:, 1::7] = targets[:, ::7][:, : targets[:, 1::7].shape[1]]
+    lens, tlens = torch.tensor([300, 280, 250, 200, 150, 100]), torch.tensor([90, 80, 70, 60, 40, 30])
+    out = []
+    for d in (dev, dev, torch.device("cpu")):
+        x = logits.to(d).requires_grad_()
+        loss = ctc_loss(x, lens.to(d), targets.to(d), tlens.to(d), blank=0)
+        loss.sum().backward()
+        out.append((loss.detach().cpu(), x.grad.cpu()))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    torch.testing.assert_close(out[0][0], out[2][0], rtol=1e-5, atol=0)
+    assert (out[0][1] - out[2][1]).abs().max() <= 1e-4 * out[2][1].abs().max()
+
+
+def test_ctc_model_gradients_on_the_card_match_the_cpu(dev):
+    """The CTC criterion on the small model with absolute positions (no
+    kernel: the relative attention's take bf16 alone), fp32, train mode at
+    dropout 0, on the card and on the CPU: the loss to 1e-5 and every
+    gradient to 1e-4 of the largest, relative."""
+    from espresso_tpu_torch.config import CriterionSection
+    from espresso_tpu_torch.criterions import CTCCriterion
+
+    model, frames, lengths, targets, tlens = _ctc_model(7, encoder_pos_type="abs")
+    dic = type("D", (), {"eos": lambda self: 2, "pad": lambda self: 1, "blank": lambda self: 0})()
+    crit = CTCCriterion(CriterionSection(name="ctc_loss"), dic)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        m = model.to(d).train()
+        m.zero_grad()
+        batch = {"src_frames": frames.to(d), "src_lengths": lengths.to(d), "target": targets.to(d),
+                 "tgt_lengths": tlens.to(d), "weight": torch.ones(3, device=d)}
+        loss, _, _ = crit(m, batch)
+        loss.backward()
+        out.append((loss.item(), [p.grad.cpu().clone() for p in m.parameters()]))
+    (want, wg), (got, gg) = out
+    assert abs(got - want) <= 1e-5 * abs(want)
+    scale = max(w.abs().max() for w in wg)
+    for w, x in zip(wg, gg):
+        assert (w - x).abs().max() <= 1e-4 * scale
+
+
+def test_ctc_prefix_beam_on_the_card_matches_the_cpu(dev):
+    """The relative-position model in bf16 on the card launches B1 a layer
+    in the prefix beam's device part without a host sync; the model with
+    absolute positions in fp32 (its output layer x20, so that ~10 tokens a
+    frame pass the search's pruning) on the card and on the CPU: the same
+    n-best tokens rank by rank, scores to 1e-4 relative."""
+    from espresso_tpu_torch.decode.ctc_decoder import CTCPrefixBeamSearchDecoder
+    from espresso_tpu_torch.ops import attention_kernels as ak
+
+    dic = type("D", (), {"blank": lambda self: 0})()
+    model, frames, lengths, _, _ = _ctc_model(8)
+    dec = CTCPrefixBeamSearchDecoder(model.to(dev, torch.bfloat16).eval(), dic, beam_size=10)
+    before = ak.rel_attention.launches
+    batch = {"src_frames": frames.to(dev), "src_lengths": lengths.to(dev)}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = dec.decode_async(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ak.rel_attention.launches == before + 2 and len(dec.collect(handle)) == 3
+    model, frames, lengths, _, _ = _ctc_model(9, encoder_pos_type="abs")
+    with torch.no_grad():
+        model.fc_out.weight.mul_(20.0 * 3 ** 0.5)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        dec = CTCPrefixBeamSearchDecoder(model.to(d).eval(), dic, beam_size=10)
+        out.append(dec.decode({"src_frames": frames.to(d), "src_lengths": lengths.to(d)}))
+    for want, got in zip(*out):
+        assert [list(h["tokens"]) for h in got] == [list(h["tokens"]) for h in want]
+        for w, g in zip(want, got):
+            assert abs(g["score"] - w["score"]) <= 1e-4 * abs(w["score"])
+    assert min(len(h[0]["tokens"]) for h in out[0]) > 1

@@ -144,6 +144,121 @@ def test_joint_bwd_weight_tiles_reassemble_the_weight(J, V):
     assert not tiles.reshape(-1, J)[V:].any()  # rows past V read zeros
 
 
+def _block_of(i: int, n: int, grid: int) -> int:
+    """rnnt_joint_bwd.cu's ``block_of``: the block whose share holds item i."""
+    k = i * grid // n
+    while n * (k + 1) // grid <= i:
+        k += 1
+    return k
+
+
+@pytest.mark.parametrize(
+    "B,T,U1,V,n_sm",
+    [(2, 37, 9, 200, 7), (1, 20, 17, 67, 132), (3, 17, 5, 130, 5), (2, 9, 26, 70, 3)],
+)
+def test_joint_bwd_slots_sum_to_the_plain_gradients(B, T, U1, V, n_sm):
+    """B5 stores partial sums into slots and a third kernel adds them in a
+    fixed order (rnnt_joint_bwd.cu): a tile's g_enc rows into ws_enc[tile];
+    a rows block's sum over a run (the nt tiles of one (b, u group)) into
+    ws_dec[block, run - its first run]; a columns block's g_W^T and g_b over
+    its units of one V tile into ws_w / ws_b[block, V tile - its first].
+    Every slot element the sum reads was stored once, and the sums, each in
+    the kernel's order, are the plain version's gradients."""
+    J = 16
+    g = torch.Generator().manual_seed(B * T + U1 + V)
+    enc = torch.randn(B, T, J, generator=g)
+    dec = torch.randn(B, U1, J, generator=g)
+    W = torch.randn(J, V, generator=g) * 0.3
+    bias = torch.randn(V, generator=g) * 0.1
+    targets = torch.randint(1, V, (B, U1 - 1), generator=g)
+    ob = torch.rand(B, T, U1, generator=g)
+    ol = torch.rand(B, T, U1, generator=g)
+    pre = torch.relu(enc[:, :, None] + dec[:, None]).double()  # [B, T, U1, J]
+    logits = pre @ W.double() + bias.double()
+    lse = torch.logsumexp(logits, -1)
+    glog = -torch.exp(logits - lse[..., None]) * (ob + ol).double()[..., None]
+    glog[..., 0] += ob.double()
+    tgt = rk._targets_u1(targets, U1)
+    glog.scatter_add_(-1, tgt[:, None, :, None].expand(B, T, U1, 1), ol.double()[..., None])
+    g_pre = torch.where(pre > 0, glog @ W.double().t(), torch.zeros((), dtype=torch.float64))
+
+    s = rk.joint_bwd_schedule(B, T, U1, V, n_sm)
+    nu, nt, tiles, units = s["nu"], s["nt"], s["tiles"], s["units"]
+    gr, gc, runs_max, segs_max = s["grid_rows"], s["grid_cols"], s["runs_max"], s["segs_max"]
+    nan = float("nan")
+    ws_enc = torch.full((tiles, 8, J), nan, dtype=torch.float64)
+    ws_dec = torch.full((gr, runs_max, 8, J), nan, dtype=torch.float64)
+    ws_w = torch.full((gc, segs_max, 64, J), nan, dtype=torch.float64)
+    ws_b = torch.full((gc, segs_max, 64), nan, dtype=torch.float64)
+    sizes = rk.joint_bwd_workspace(s, J)
+    assert (sizes["enc"], sizes["dec"], sizes["w"], sizes["b"]) == (
+        ws_enc.numel(), ws_dec.numel(), ws_w.numel(), ws_b.numel())
+
+    def rows(i):  # tile i's (b, t, u) cells with their row r = 8 ul + f
+        return [(r, c) for r, c in enumerate(_tile_rows(i, T, U1, nu, nt)) if c is not None]
+
+    # the rows kernel: every tile's g_enc slot (8 frames, zeros past T), and
+    # per run the sum over its tiles in the block's share
+    for k in range(gr):
+        share = _block_share(tiles, gr, k)
+        for i in share:
+            ws_enc[i] = 0
+            for r, (b, t, u) in rows(i):
+                ws_enc[i, r % 8] += g_pre[b, t, u]
+            run = i // nt - share[0] // nt
+            if i == share[0] or i % nt == 0:
+                ws_dec[k, run] = 0
+            for r, (b, t, u) in rows(i):
+                ws_dec[k, run, r // 8] += g_pre[b, t, u]
+    # the columns kernel: per V tile of the block's share, its units' sums
+    for k in range(gc):
+        share = _block_share(units, gc, k)
+        for x in share:
+            vt, i = x // tiles, x % tiles
+            seg = vt - share[0] // tiles
+            if x == share[0] or i == 0:
+                ws_w[k, seg] = 0
+                ws_b[k, seg] = 0
+            v = torch.arange(64 * vt, 64 * vt + 64)
+            ok = v < V
+            for r, (b, t, u) in rows(i):
+                gl = torch.zeros(64, dtype=torch.float64)
+                gl[ok] = glog[b, t, u, v[ok]]
+                ws_w[k, seg] += gl[:, None] * pre[b, t, u][None, :]
+                ws_b[k, seg] += gl
+
+    # the sum kernel, element row by element row, in its order
+    g_enc = torch.zeros(B, T, J, dtype=torch.float64)
+    g_dec = torch.zeros(B, U1, J, dtype=torch.float64)
+    g_Wt = torch.zeros(V, J, dtype=torch.float64)
+    g_b = torch.zeros(V, dtype=torch.float64)
+    for b in range(B):
+        for t in range(T):
+            for ug in range(nu):
+                g_enc[b, t] += ws_enc[(b * nu + ug) * nt + t // 8, t % 8]
+        for u in range(U1):
+            run = b * nu + u // 8
+            k = _block_of(run * nt, tiles, gr)
+            while k < gr and tiles * k // gr < (run + 1) * nt:
+                g_dec[b, u] += ws_dec[k, run - (tiles * k // gr) // nt, u % 8]
+                k += 1
+    for v in range(V):
+        vt = v // 64
+        k = _block_of(vt * tiles, units, gc)
+        while k < gc and units * k // gc < (vt + 1) * tiles:
+            seg = vt - (units * k // gc) // tiles
+            g_Wt[v] += ws_w[k, seg, v % 64]
+            g_b[v] += ws_b[k, seg, v % 64]
+            k += 1
+
+    # the plain version sums in f32: 1e-5 covers its rounding at these sizes
+    want = rk.rnnt_joint_bwd_reference(enc, dec, W, bias, targets, lse.float(), ob, ol, 0)
+    for name, got, ref in (("g_enc", g_enc, want[0]), ("g_dec", g_dec, want[1]),
+                           ("g_W", g_Wt.t(), want[2]), ("g_b", g_b, want[3])):
+        assert torch.isfinite(got).all(), f"{name}: the sum read a slot no block stored"
+        torch.testing.assert_close(got, ref.double(), rtol=1e-5, atol=1e-5, msg=name)
+
+
 # ---------------------------------------------------------------------------
 # rel_attention_train backward (B3): the tensor maps of its TMA tiles
 # ---------------------------------------------------------------------------

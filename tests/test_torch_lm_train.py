@@ -109,7 +109,7 @@ def test_binarize_writes_jax_bytes(corpus, tmp_path):
         for ext in (".bin", ".idx"):
             got, want = (open(f"{tmp_path}/{w}{ext}", "rb").read() for w in "pj")
             assert got == want and want, (extra, ext)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+    with pytest.raises(NotImplementedError, match="queue A item 2"):
         port_prep.estimate_state_prior([])
 
 

@@ -220,8 +220,8 @@ class _Recorder:
     def __init__(self, opt):
         self.opt, self.grads = opt, None
 
-    def init(self, params):
-        return self.opt.init(params)
+    def init(self, params, blocks=None):
+        return self.opt.init(params, blocks)
 
     def step(self, grads, state, params, apply):
         self.grads = grads.clone()

@@ -75,19 +75,32 @@ TRANSFORMER_TINY = [
     "model.decoder_layers=2", "model.decoder_heads=2", "optimization.lr=0.005",
     "optimization.clip_norm=2.0", "common.dtype=float32",
 ]
+# transformer_ctc_librispeech (transformer_ctc_librispeech.yaml's criterion
+# and relative positions) narrowed: a 2-layer frontend (4x subsampling), one
+# encoder layer of 16, ffn 32, 2 heads
+CTC_TINY = [
+    "dataset.max_tokens=400", "dataset.num_batch_buckets=1", "dataset.feat_dim=12", "criterion.name=ctc_loss",
+    "model.name=transformer_ctc_librispeech", "model.encoder.encoder_pos_type=relative",
+    "model.encoder.conv_channels=(4,8)", "model.encoder.conv_kernel_sizes=((3,3),(3,3))",
+    "model.encoder.conv_strides=((2,2),(2,2))", "model.encoder.encoder_embed_dim=16",
+    "model.encoder.encoder_ffn_dim=32", "model.encoder.encoder_layers=1", "model.encoder.encoder_heads=2",
+    "optimization.lr=0.005", "optimization.clip_norm=2.0", "common.dtype=float32",
+]
 # what each family's speech_recognize and hub take beside the data, the
 # checkpoint directory and the feature width: the transducer decodes the
 # average of its 2 epoch checkpoints at beam 2, the encoder-decoder its
-# checkpoint_last at beam 3 with eos_factor
+# checkpoint_last at beam 3 with eos_factor, CTC its checkpoint_last with
+# the prefix beam search at beam 3
 DECODE = {
     "transducer": {"checkpoint.restore_file": "checkpoint_avg", "generation.beam": 2},
     "lstm": {"dataset.max_tokens": 100000, "dataset.num_batch_buckets": 1, "generation.beam": 3,
              "generation.eos_factor": 1.2, "generation.max_len_b": 12},
     "transformer": {"dataset.max_tokens": 100000, "dataset.num_batch_buckets": 1, "generation.beam": 3,
                     "generation.eos_factor": 1.5, "generation.max_len_b": 12},
+    "transformer_ctc": {"dataset.max_tokens": 100000, "dataset.num_batch_buckets": 1, "generation.beam": 3},
 }
-# the encoder-decoders' train arguments
-ENC_DEC_TINY = {"lstm": LSTM_TINY, "transformer": TRANSFORMER_TINY}
+# the encoder-decoders' and CTC's train arguments
+ENC_DEC_TINY = {"lstm": LSTM_TINY, "transformer": TRANSFORMER_TINY, "transformer_ctc": CTC_TINY}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -350,15 +363,16 @@ def _jax_recognizer(monkeypatch, raw):
     return jax_rec.main
 
 
-@pytest.mark.parametrize("family", ["transducer", "lstm", "transformer"])
+@pytest.mark.parametrize("family", ["transducer", "lstm", "transformer", "transformer_ctc"])
 def test_recipe_end_to_end_on_the_port(tmp_path, monkeypatch, family):
     """prep (asr_prep_json from scp and text files) -> the train CLI with
     WER validation -> speech_recognize -> the four result files; the hub's
     transcribe on two utterances gives the CLI's hypotheses. The conformer
     transducer trains 2 epochs and decodes from the average of its 2 epoch
     checkpoints. The attention encoder-decoders (``LSTM_TINY`` with
-    scheduled sampling, ``TRANSFORMER_TINY``) train 2 updates and decode
-    alone and fused with an LSTM LM; JAX's speech_recognize
+    scheduled sampling, ``TRANSFORMER_TINY``) and CTC (``CTC_TINY``, the
+    prefix beam search, which takes the LM unread) train 2 updates and
+    decode alone and fused with an LSTM LM; JAX's speech_recognize
     (``_jax_recognizer``) on the same checkpoints writes the same four
     files byte for byte and returns the same numbers."""
     from espresso_tpu_torch import hub

@@ -563,8 +563,9 @@ def test_refused_options_raise(small, tmp_path):
     """What the port does not carry raises NotImplementedError naming its
     ROADMAP item: the beam search's sampling, diverse groups, n-gram
     blocking, lexical constraints and ensembles (queue A item 1); the
-    transformer decoder and LM adapters and the CTC task's decoders (item
-    2); ``generation.print_alignment`` for this model (item 3, tools/plot)."""
+    transformer LM's adapter and the LM's greedy decode (item 2);
+    ``generation.print_alignment`` for this model (item 3, tools/plot). The
+    CTC task's decoders, refused here before they were ported, build."""
     from espresso_tpu_torch.cli import speech_recognize
     from espresso_tpu_torch.config import parse_config
     from espresso_tpu_torch.tasks import setup_task
@@ -586,9 +587,8 @@ def test_refused_options_raise(small, tmp_path):
     d = str(tmp_path)
     make_corpus(d, "test", num_utts=2, feat_dim=F, seed=0)
     ctc = setup_task(parse_config([f"dataset.data={d}", "criterion.name=ctc_loss"]))
-    for build in (ctc.build_valid_decoder, ctc.build_generator):
-        with pytest.raises(NotImplementedError, match="queue A item 2"):
-            build(model)
+    assert [type(build(model)).__name__ for build in (ctc.build_valid_decoder, ctc.build_generator)] == \
+        ["CTCGreedyDecoder", "CTCGreedyDecoder"]  # the default beam of 1
     argv = [f"dataset.data={d}", "dataset.feat_dim=12", f"checkpoint.save_dir={d}/none",
             "model.name=speech_conv_lstm_wsj", "model.encoder_hidden_size=8", "model.decoder_hidden_size=8",
             "model.attention_dim=8", "generation.print_alignment=true", "common.dtype=float32"]
